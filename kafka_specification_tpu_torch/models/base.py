@@ -1,0 +1,76 @@
+"""Model API: a TLA+ spec compiled to batched PyTorch kernels.
+
+Counterpart of ``kafka_specification_tpu/models/base.py``.  A Model is
+(TLA+ module + TLC .cfg) in tensor form:
+
+- `spec` defines the canonical lane encoding of one state;
+- each Action is one disjunct of `Next` over a fixed choice space (the
+  bounded existentials of the TLA+ action, e.g. ``\\E replica \\in
+  Replicas``).  Its kernel takes a batch of states, a dict of
+  int64[B, *shape] tensors, and returns ``(enabled bool[B, n_choices],
+  next dict of int64[B, n_choices, *shape])``: every choice of every state
+  at once, where the JAX kernel is one (state, choice) pair under vmap;
+- each Invariant is a predicate kernel, dict of int64[B, ...] -> bool[B]
+  (True = the state is fine).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+from ..ops.packing import StateSpec
+
+INT32_MIN = -(1 << 31)
+INT32_MAX = (1 << 31) - 1
+
+
+class EncodingUnsound(ValueError):
+    """A field table the lane packer cannot encode soundly."""
+
+
+def check_spec_fields(fields, context: str = "") -> None:
+    """Raise EncodingUnsound when a field's declared range leaves int32, the
+    element range of the JAX package's packer: such values would wrap there,
+    so the two packages would not agree on what a state is."""
+    prefix = f"{context}: " if context else ""
+    errs = [
+        f"{prefix}field {f.name!r} declares [{f.lo}, {f.hi}] but the packed "
+        f"element range is int32 [{INT32_MIN}, {INT32_MAX}]"
+        for f in fields
+        if f.lo < INT32_MIN or f.hi > INT32_MAX
+    ]
+    if errs:
+        raise EncodingUnsound("; ".join(errs))
+
+
+@dataclass(frozen=True)
+class Action:
+    name: str
+    n_choices: int
+    kernel: Callable  # states dict[B] -> (enabled[B, n], next dict[B, n])
+
+
+@dataclass(frozen=True)
+class Invariant:
+    name: str
+    pred: Callable  # states dict[B] -> bool[B]
+
+
+@dataclass
+class Model:
+    name: str
+    spec: StateSpec
+    init_states: Callable[[], Sequence[dict]]
+    actions: Sequence[Action]
+    invariants: Sequence[Invariant]
+    # canonical Python value for a decoded state (numpy fields in, the JAX
+    # package's decoded form out), so traces compare across the packages
+    decode: Optional[Callable[[dict], object]] = None
+
+    def __post_init__(self):
+        check_spec_fields(self.spec.fields, context=self.name)
+
+    @property
+    def total_fanout(self) -> int:
+        return sum(a.n_choices for a in self.actions)

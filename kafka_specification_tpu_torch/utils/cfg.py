@@ -1,0 +1,137 @@
+"""TLC .cfg parsing and model instantiation for the PyTorch port.
+
+The parser is a copy of ``kafka_specification_tpu/utils/cfg.py::parse_cfg``
+(the port imports nothing from the JAX package).  ``build_model`` covers the
+five hand-written Kafka modules; every other module raises.
+
+Supported .cfg subset:
+  CONSTANT / CONSTANTS   name = value   (ints, model-value sets {a, b, c})
+  INVARIANT / INVARIANTS name...
+  CONSTRAINT name                        (rejected: no ported module has one)
+  SPECIFICATION / INIT / NEXT            (parsed, informational)
+  CHECK_DEADLOCK TRUE|FALSE
+  \\* and (* ... *) comments
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from pathlib import Path
+
+
+@dataclass
+class TlcConfig:
+    constants: dict = field(default_factory=dict)  # name -> int | list[str]
+    invariants: list = field(default_factory=list)
+    constraints: list = field(default_factory=list)
+    specification: str | None = None
+    check_deadlock: bool = False
+
+
+_SECTIONS = {
+    "CONSTANT": "constants",
+    "CONSTANTS": "constants",
+    "INVARIANT": "invariants",
+    "INVARIANTS": "invariants",
+    "CONSTRAINT": "constraints",
+    "CONSTRAINTS": "constraints",
+    "SPECIFICATION": "specification",
+    "INIT": "init",
+    "NEXT": "next",
+    "CHECK_DEADLOCK": "check_deadlock",
+    "SYMMETRY": "symmetry",
+}
+
+
+def _strip_comments(text: str) -> str:
+    text = re.sub(r"\(\*.*?\*\)", " ", text, flags=re.S)
+    return "\n".join(line.split("\\*")[0] for line in text.splitlines())
+
+
+def parse_cfg(path_or_text) -> TlcConfig:
+    if isinstance(path_or_text, Path):
+        text = path_or_text.read_text()
+    elif "\n" not in str(path_or_text) and Path(str(path_or_text)).exists():
+        text = Path(str(path_or_text)).read_text()
+    else:
+        text = str(path_or_text)
+    cfg = TlcConfig()
+    section = None
+    for raw in _strip_comments(text).splitlines():
+        line = raw.strip()
+        if not line:
+            continue
+        head = line.split()[0].upper()
+        if head in _SECTIONS:
+            section = _SECTIONS[head]
+            rest = line[len(line.split()[0]) :].strip()
+            if not rest:
+                continue
+            line = rest
+        if section == "constants":
+            m = re.match(r"(\w+)\s*(?:=|<-)\s*(.+)", line)
+            if not m:
+                raise ValueError(f"cannot parse constant assignment: {line!r}")
+            name, val = m.group(1), m.group(2).strip()
+            if val.startswith("{"):
+                cfg.constants[name] = [
+                    v.strip() for v in val.strip("{} ").split(",") if v.strip()
+                ]
+            elif re.fullmatch(r"-?\d+", val):
+                cfg.constants[name] = int(val)
+            else:
+                cfg.constants[name] = val  # model value (e.g. Leader = r1)
+        elif section == "invariants":
+            cfg.invariants.extend(line.split())
+        elif section == "constraints":
+            cfg.constraints.extend(line.split())
+        elif section == "specification":
+            cfg.specification = line.split()[0]
+        elif section == "check_deadlock":
+            cfg.check_deadlock = line.strip().upper() == "TRUE"
+        # INIT/NEXT/SYMMETRY: parsed and ignored (the corpus uses SPECIFICATION)
+    return cfg
+
+
+KAFKA_VARIANTS = ("KafkaTruncateToHighWatermark", "Kip101", "Kip279")
+KIP320_MODULES = ("Kip320", "Kip320FirstTry")
+
+
+def _setlen(v) -> int:
+    return len(v) if isinstance(v, list) else int(v)
+
+
+def build_model(module: str, cfg: TlcConfig):
+    """The tensor model for a Kafka TLA+ module name under a parsed config.
+    Invariants are the .cfg's, in its order (TypeOk when it names none)."""
+    if module not in KAFKA_VARIANTS + KIP320_MODULES:
+        raise KeyError(
+            f"module {module!r} is not ported to PyTorch yet "
+            f"(ported: {', '.join(KAFKA_VARIANTS + KIP320_MODULES)})"
+        )
+    if cfg.constraints:
+        raise ValueError(
+            f"CONSTRAINT {cfg.constraints} is not supported for module {module!r}"
+        )
+    c = cfg.constants
+    if _setlen(c.get("Partitions", 1)) > 1:
+        raise ValueError("the partition product (Partitions > 1) is not ported yet")
+    from ..models.kafka_replication import Config
+
+    kcfg = Config(
+        n_replicas=_setlen(c["Replicas"]),
+        log_size=int(c["LogSize"]),
+        max_records=int(c["MaxRecords"]),
+        max_leader_epoch=int(c["MaxLeaderEpoch"]),
+    )
+    invs = tuple(cfg.invariants) or ("TypeOk",)
+    if module in KAFKA_VARIANTS:
+        from ..models import variants
+
+        return variants.make_model(module, kcfg, invs)
+    from ..models import kip320
+
+    if module == "Kip320":
+        return kip320.make_model(kcfg, invs)
+    return kip320.make_first_try_model(kcfg, invs)

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where the time of one check() goes on the card (PyTorch port).
+
+    python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
+
+Runs check() of the .cfg once to build the kernels and warm up, then once
+more under torch.profiler (CPU and CUDA activities), and prints: the card's
+name and power limit (nvidia-smi), the profiled run's wall time, the summed
+device time of all kernels, the device's busy and idle share of the wall
+time (one stream, so kernels do not overlap), the port's two CUDA kernels'
+device time and launches, and the kernels with the most device time.
+The last line is the same as JSON.  Needs one CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from kafka_specification_tpu_torch import build_model, check, load_config  # noqa: E402
+
+# device-side kernel names of the port's CUDA sources
+OWN_KERNELS = {
+    "fingerprint": ("fingerprint_kernel",),
+    "hash_probe_insert": ("find_kernel", "insert_kernel", "claim_kernel", "winner_kernel"),
+}
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("cfg", nargs="?", default="configs/Kip320.cfg")
+    ap.add_argument("--module", default=None, help="TLA+ module (default: the file stem)")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile_check: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    module = args.module or Path(args.cfg).stem
+    cfg = load_config(args.cfg)
+
+    warm = check(build_model(module, cfg))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    model = build_model(module, cfg)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = check(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if res.levels != warm.levels:
+        raise SystemExit("the profiled run disagrees with the warm-up run")
+
+    # kernels only: an operator's row repeats the device time of its kernels
+    by_name = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] = (us, evt.count)
+    device_s = sum(us for us, _ in by_name.values()) / 1e6
+    own = {}
+    for kname, subs in OWN_KERNELS.items():
+        hits = [(k, v) for k, v in by_name.items() if any(s in k for s in subs)]
+        own[kname] = {
+            "device_ms": sum(v[0] for _, v in hits) / 1e3,
+            "launches": max((v[1] for _, v in hits), default=0),
+        }
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
+
+    print(f"card: {card}")
+    print(f"{res.model}: ok={res.ok} total={res.total} diameter={res.diameter}")
+    print(f"wall {wall:.3f} s (host clock, ends in synchronize); "
+          f"{res.total / wall:.0f} states/s")
+    print(f"device kernels {device_s:.3f} s: busy {device_s / wall:.1%}, "
+          f"idle {1 - device_s / wall:.1%}")
+    for kname, v in own.items():
+        print(f"  {kname}: {v['device_ms']:.3f} ms device over {v['launches']} launches")
+    print("top device time:")
+    for name, (us, n) in top:
+        print(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:90]}")
+    print(json.dumps({
+        "card": card,
+        "model": res.model,
+        "total": res.total,
+        "wall_s": wall,
+        "device_s": device_s,
+        "busy_share": device_s / wall,
+        "own_kernels": own,
+        "top": [{"name": n, "device_ms": us / 1e3, "count": c} for n, (us, c) in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
