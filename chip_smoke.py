@@ -17,6 +17,14 @@ print no result:
          count, membership identical; timed beside its bound), then a tiny
          table that overflows, grown and re-run, against the same loop on
          the plain version
+  K4     the six rungs of the construct ladder (run_ladder at n = 256, the
+         TPU script's arange input: launched, bit-identical to their plain
+         versions, timed with CUDA events over 1,000 launches beside their
+         bound and, for every rung but dyn_read and dyn_slice, one PyTorch
+         call),
+         then bit for bit at n = 65,536 (256 blocks), at n = 4 with x[0] = 6
+         (the clamp) and with x[0] = 2^31, rest 2^32 - 1 (unsigned remainder,
+         wrap); and K2's time split by the launch floor, all in this run
   main   configs/Kip320.cfg through check() on the card: ok, 737,794
          states, diameter 25, per-level counts equal to the JAX package's
          (pinned below), both kernels launched
@@ -61,10 +69,6 @@ THW_STATE = [
     1, 2, [[0, 0, [0, 1, 2]], [1, 0, [0, 2]]], [1, 0, [0, 2]],
 ]
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# 32-bit integer operations, counted against the data sheet's 67 TFLOP/s
-# fp32 rate outside the tensor cores (the int32 rate is not higher)
-OPS_PER_S = 67e12
 DEV = torch.device("cuda")
 
 
@@ -74,24 +78,6 @@ def canon(x):
     if isinstance(x, (tuple, list)):
         return [canon(v) for v in x]
     return x
-
-
-def cuda_ms(fn, iters, setup=None):
-    """Mean device time of fn() in ms over `iters` runs, CUDA events around
-    each call only (setup() runs outside the timed window)."""
-    fn() if setup is None else fn(setup())  # warm-up
-    total = 0.0
-    for _ in range(iters):
-        arg = None if setup is None else setup()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn() if setup is None else fn(arg)
-        b.record()
-        torch.cuda.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
 
 
 class Phases:
@@ -126,6 +112,7 @@ def phase_build():
 
 def phase_k1():
     from kafka_specification_tpu_torch.ops import cuda_fingerprint as k1
+    from kafka_specification_tpu_torch.utils.timing import HBM_BYTES_PER_S, OPS_PER_S, cuda_ms
 
     m, k = 32768 * 51, 3
     rng = np.random.default_rng(1)
@@ -178,8 +165,9 @@ def _members(table):
     return torch.sort(table[table != -1]).values
 
 
-def phase_k2():
-    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
+def _k2_fixture():
+    """K2's inputs at the main path's largest batch: in-batch duplicates,
+    ~10% invalid rows, an eighth of the keys already in the table."""
     from kafka_specification_tpu_torch.ops import hashset
     from kafka_specification_tpu_torch.ops.dedup import split_key
 
@@ -190,7 +178,15 @@ def phase_k2():
     q[m // 2 : m // 2 + m // 4] = q[dup]
     valid = torch.from_numpy(rng.random(m) < 0.9).to(DEV)
     s_hi, s_lo = split_key(q[: m // 8])
-    table0 = hashset.table_from_pairs(s_hi, s_lo, min_cap=cap)
+    return cap, m, hashset.table_from_pairs(s_hi, s_lo, min_cap=cap), q, valid
+
+
+def phase_k2():
+    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
+    from kafka_specification_tpu_torch.ops import hashset
+    from kafka_specification_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_ms
+
+    cap, m, table0, q, valid = _k2_fixture()
 
     t_plain, p_new, p_n, p_ovf = hashset.probe_insert(table0.clone(), q, valid)
     t_kern, k_new, k_n, k_ovf = k2.probe_insert(table0.clone(), q, valid)
@@ -252,6 +248,122 @@ def phase_k2():
             "bound_by": "bytes",
             "library_ms": None,
         },
+    }
+
+
+def _k2_split(k2_ms, vec):
+    """K2's time split by the ladder's launch floor, all from this run.
+
+    A wrapper call puts seven operations on the card: three zero fills
+    (is_new, n_new, overflow) and the C entry's four steps.  The C entry is
+    also timed alone with the same three fills inside its window and its
+    scratch allocated outside it, in turns with the wrapper (wrapper, C, C,
+    wrapper; the median of each side's calls, since one call's time has the
+    host's jitter in it).  The wrapper's surplus is then host work only
+    (Python checks, five allocations); the C call less seven
+    launch-to-launch floors is the four steps' own work, scattered slot
+    reads and the dependency between steps, with the fills' own work."""
+    from kafka_specification_tpu_torch.ops import build
+    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
+    from kafka_specification_tpu_torch.ops.hashset import MAX_PROBES
+    from kafka_specification_tpu_torch.utils.timing import cuda_call_ms
+
+    cap, m, table0, q, valid = _k2_fixture()
+    valid8 = valid.to(torch.uint8)
+    claim = torch.empty(cap, dtype=torch.int32, device=DEV)
+    slot = torch.empty(m, dtype=torch.int32, device=DEV)
+    is_new = torch.empty(m, dtype=torch.uint8, device=DEV)
+    n_new = torch.empty(1, dtype=torch.int32, device=DEV)
+    overflow = torch.empty(1, dtype=torch.int32, device=DEV)
+    lib, stream = k2._lib(), torch.cuda.current_stream().cuda_stream
+
+    def c_call(t):
+        # the wrapper's three zero fills, then its C entry
+        is_new.zero_()
+        n_new.zero_()
+        overflow.zero_()
+        rc = lib.kspec_probe_insert(
+            t.data_ptr(), claim.data_ptr(), cap, q.data_ptr(), valid8.data_ptr(), m,
+            MAX_PROBES, slot.data_ptr(), is_new.data_ptr(), n_new.data_ptr(),
+            overflow.data_ptr(), stream,
+        )
+        build.check_rc(lib, rc, "K2 C entry")
+
+    def wrapper(t):
+        k2.launch(t, q, valid8)
+
+    turns = [cuda_call_ms(fn, 50, setup=table0.clone) for fn in (wrapper, c_call, c_call, wrapper)]
+    wrapper_ms = float(np.median(turns[0] + turns[3]))
+    c_ms = float(np.median(turns[1] + turns[2]))
+    return {
+        "k2_ms": k2_ms,
+        "vec_ms": vec["ms"],
+        "four_vec_ms": 4 * vec["ms"],
+        "k2_rest_ms": k2_ms - 4 * vec["ms"],
+        "k2_wrapper_ms": wrapper_ms,
+        "k2_c_call_with_fills_ms": c_ms,
+        "vec_back_to_back_ms": vec["back_to_back_ms"],
+        "seven_launch_floors_ms": 7 * vec["back_to_back_ms"],
+        "k2_host_work_ms": wrapper_ms - c_ms,
+        "k2_steps_work_ms": c_ms - 7 * vec["back_to_back_ms"],
+    }
+
+
+def phase_k4(k2):
+    from kafka_specification_tpu_torch.ops import cuda_ladder as k4
+
+    for rung in k4.RUNGS:
+        k4.LAUNCHES[rung] = 0
+    recs = k4.run_ladder(DEV, 256)  # the TPU script's path: arange(256)
+    bad = [f"{r['rung']}: {r['error'] or 'max |diff| %s' % r['max_abs_err']}"
+           for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"rungs failed at n=256: {bad}")
+    if any(r["launches"] != 1 or k4.LAUNCHES[r["rung"]] < 1 for r in recs):
+        raise AssertionError(f"a rung was not launched: {[r['launches'] for r in recs]}")
+    if any(r["library_bits_equal"] is False for r in recs):
+        raise AssertionError("a library call's bits differ from the plain version")
+
+    rng = np.random.default_rng(11)
+    top = np.full(256, 0xFFFFFFFF, dtype=np.uint32)
+    top[0] = 0x80000000
+    edges = {
+        "n=65536": rng.integers(0, 2**32, size=65536, dtype=np.uint32),
+        "n=4 x[0]=6": np.concatenate([[6], rng.integers(0, 2**32, size=3, dtype=np.uint32)]),
+        "x[0]=2^31, rest 2^32-1": top,
+    }
+    for label, arr in edges.items():
+        x = torch.from_numpy(arr.astype(np.int64)).to(DEV)
+        for rung in k4.RUNGS:
+            got = k4.from_i32(k4.launch(rung, k4.to_i32(x)))
+            torch.cuda.synchronize()
+            if not torch.equal(got, k4.PLAIN[rung](x)):
+                raise AssertionError(f"{rung} differs from its plain version at {label}")
+
+    if k2 is None:
+        raise AssertionError("the rungs passed, but K2 failed: no time to split")
+    split = _k2_split(k2["kernel"]["ms"], recs[0])
+    kernels = []
+    for r in recs:
+        kernels.append({
+            "name": f"ladder_{r['rung']}",
+            "route": "cuda",
+            "source": "kafka_specification_tpu_torch/ops/csrc/ladder.cu",
+            "replaces": k4.REPLACES[r["rung"]],
+            **{key: r[key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "back_to_back_ms", "host_us_per_launch")},
+        })
+    times = "; ".join(
+        f"{r['rung']} {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}, "
+        f"host {r['host_us_per_launch']:.1f} us, library "
+        + ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}") + ")"
+        for r in recs
+    )
+    return {
+        "line": f"6 rungs bit-identical at n=256, {', '.join(edges)}; bound "
+                f"{recs[0]['bound_ms']:.2e} ms; {times}; k2_split {json.dumps(split)}",
+        "kernels": kernels,
     }
 
 
@@ -340,6 +452,7 @@ def main() -> int:
     ph.run("build", phase_build)
     k1 = ph.run("K1", phase_k1)
     k2 = ph.run("K2", phase_k2)
+    k4 = ph.run("K4", lambda: phase_k4(k2))
     main_path = ph.run("main", phase_main)
     ph.run("trace", phase_trace)
     if ph.failed:
@@ -350,6 +463,7 @@ def main() -> int:
         kern = dict(det["kernel"])
         kern["launches"] = main_path["counts"][kern["name"]]
         kernels.append(kern)
+    kernels += k4["kernels"]  # a rung's launches: one ladder run (no rung is on check())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -9,6 +9,10 @@ hot kernels of the JAX package's device-hash path are hand-written CUDA:
     ops/cuda_fingerprint.py   K1, murmur3 fingerprints  (csrc/fingerprint.cu)
     ops/cuda_hashset.py       K2, hash-table insert-or-find (csrc/hashset.cu)
 
+and the TPU construct ladder's six rungs have theirs, off the check path:
+
+    ops/cuda_ladder.py        K4, one construct per rung (csrc/ladder.cu)
+
 Every entry point runs on the card unless the caller passes device="cpu",
 where the kernels' plain PyTorch versions run instead.
 
@@ -16,7 +20,7 @@ Layout (module names mirror the JAX package):
     ops/       packing, fingerprints, dedup, the hash set, kernels + build
     models/    tensor encodings and batched action/invariant kernels
     engine/    the BFS checker (device-hash visited set, legacy step)
-    utils/     TLC .cfg parsing and model instantiation
+    utils/     TLC .cfg parsing and model instantiation; device timing
     interop.py JAX/numpy state -> the port's tensors (used by the tests)
 """
 

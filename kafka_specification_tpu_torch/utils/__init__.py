@@ -1,1 +1,1 @@
-"""TLC .cfg parsing and model instantiation."""
+"""TLC .cfg parsing and model instantiation; device timing (timing.py)."""

@@ -6,6 +6,9 @@ not needed there, hence no conftest):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +16,7 @@ import torch
 from kafka_specification_tpu_torch import check
 from kafka_specification_tpu_torch.models import kip320, variants
 from kafka_specification_tpu_torch.models.kafka_replication import Config
-from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset, hashset
+from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset, cuda_ladder, hashset
 from kafka_specification_tpu_torch.ops.dedup import pair_key
 
 pytestmark = pytest.mark.cuda
@@ -66,3 +69,45 @@ def test_check_on_card_equals_cpu(card):
     invs = ("TypeOk", "WeakIsr")
     m = lambda: variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1), invs)
     assert check(m(), device=card).violation.trace == check(m(), device="cpu").violation.trace
+
+
+def _ladder_input(kind):
+    rng = np.random.default_rng(3)
+    if kind == "arange256":
+        x = np.arange(256)
+    elif kind == "random65536":  # 256 blocks: a rung that races across blocks shows it
+        x = rng.integers(0, 2**32, size=65536, dtype=np.uint32)
+    elif kind == "clamp_n4_x0_6":
+        x = np.concatenate([[6], rng.integers(0, 2**32, size=3, dtype=np.uint32)])
+    elif kind == "top_bit_then_ones":
+        x = np.full(256, 0xFFFFFFFF, dtype=np.uint32)
+        x[0] = 0x80000000
+    else:
+        x = np.full(256, 0xFFFFFFFF, dtype=np.uint32)
+    return torch.from_numpy(np.asarray(x, dtype=np.int64))
+
+
+@pytest.mark.parametrize(
+    "kind", ["arange256", "random65536", "clamp_n4_x0_6", "top_bit_then_ones", "all_ones"]
+)
+@pytest.mark.parametrize("rung", cuda_ladder.RUNGS)
+def test_k4_rung_bit_identical_to_plain(card, rung, kind):
+    x = _ladder_input(kind).to(card)
+    before = cuda_ladder.LAUNCHES[rung]
+    got = cuda_ladder.run(rung, x)
+    torch.cuda.synchronize()
+    assert cuda_ladder.LAUNCHES[rung] == before + 1
+    assert torch.equal(got, cuda_ladder.PLAIN[rung](x))
+
+
+def test_k4_ladder_script_exits_3_when_a_rung_differs(card, monkeypatch, capsys):
+    spec = importlib.util.spec_from_file_location(
+        "cuda_kernel_ladder", Path(__file__).resolve().parents[1] / "scripts" / "cuda_kernel_ladder.py"
+    )
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert script.main(["--n", "256"]) == 0
+    monkeypatch.setitem(cuda_ladder.PLAIN, "dyn_read", cuda_ladder.PLAIN["vec"])
+    assert script.main(["--n", "256"]) == 3
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 12 and '"ok": false' in lines[9]
