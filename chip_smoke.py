@@ -9,14 +9,18 @@ Phases, one line each; any failed phase makes the script exit non-zero and
 print no result:
 
   build  compile every CUDA source of the port (one nvcc each, in parallel)
-  K1     fingerprint kernel vs its plain PyTorch version, bit for bit, at
-         M = 32768 x 51 rows of K = 3 lanes (a full Kip320 3r chunk's
-         lattice), ~10% invalid rows; timed beside its bound
-  K2     hash insert-or-find kernel vs its plain version at cap 2^22 with
-         in-batch duplicates, pre-seeded keys and invalid rows (winners,
-         count, membership identical; timed beside its bound), then a tiny
-         table that overflows, grown and re-run, against the same loop on
-         the plain version
+  K1     fingerprint kernel vs its plain PyTorch version, bit for bit, on
+         the port's int64 lanes and bool mask at M = 32768 x 51 rows of
+         K = 3 lanes (a full Kip320 3r chunk's lattice) and at M = 65,537,
+         K = 7, ~10% invalid rows; then its own time, route time, bound and
+         plain time (utils/kernel_times.py)
+  K2     hash insert-or-find kernel vs its plain version at cap 2^22 and
+         M = 109,260 with in-batch duplicates, pre-seeded keys and invalid
+         rows (winners, count, membership identical); ten calls on two
+         tables of one capacity in turn, every third with no mask; M = 1
+         and M = 0; a tiny table that overflows, grown and re-run, against
+         the same loop on the plain version; then its own, route and host
+         time, bound and plain time on the call check() makes (no mask)
   K4     the six rungs of the construct ladder (run_ladder at n = 256, the
          TPU script's arange input: launched, bit-identical to their plain
          versions, timed with CUDA events over 1,000 launches beside their
@@ -24,13 +28,16 @@ print no result:
          call),
          then bit for bit at n = 65,536 (256 blocks), at n = 4 with x[0] = 6
          (the clamp) and with x[0] = 2^31, rest 2^32 - 1 (unsigned remainder,
-         wrap); and K2's time split by the launch floor, all in this run
+         wrap); and K2's route split into host work and read-back, one
+         launch floor and the kernel's own work, all in this run
   main   configs/Kip320.cfg through check() on the card: ok, 737,794
          states, diameter 25, per-level counts equal to the JAX package's
          (pinned below), both kernels launched
   trace  KafkaTruncateToHighWatermark 3r L2 R2 E2 with StrongIsr only:
          violated at depth 8 with the JAX package's trace (pinned below)
 
+A kernel's `ms` is its own time (CUDA events around back-to-back launches),
+`route_ms` the entry point's time as check() calls it, host work included.
 Then three lines: the kernels as JSON, the card's name and power limit as
 nvidia-smi gives them, and the device as JSON.  Exits 1 with no result
 when CUDA is not available or the port's package is not beside it.
@@ -39,7 +46,6 @@ when CUDA is not available or the port's package is not beside it.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -110,202 +116,154 @@ def phase_build():
     return {"line": f"built {', '.join(sorted(paths))}; " + "; ".join(regs)}
 
 
-def phase_k1():
-    from kafka_specification_tpu_torch.ops import cuda_fingerprint as k1
-    from kafka_specification_tpu_torch.utils.timing import HBM_BYTES_PER_S, OPS_PER_S, cuda_ms
-
-    m, k = 32768 * 51, 3
-    rng = np.random.default_rng(1)
-    lanes_np = rng.integers(0, 2**32, size=(m, k), dtype=np.uint32)
-    valid_np = rng.random(m) >= 0.1
-    lanes = torch.from_numpy(lanes_np.astype(np.int64)).to(DEV)
-    valid = torch.from_numpy(valid_np).to(DEV)
-    hi, lo = k1.fingerprint(lanes, valid)
-    p_hi, p_lo = k1.fingerprint_plain(lanes, valid)
-    torch.cuda.synchronize()
-    err = max(int((hi - p_hi).abs().max()), int((lo - p_lo).abs().max()))
-    if err:
-        raise AssertionError(f"K1 differs from its plain version (max |diff| {err})")
-    lanes32, valid8 = k1.to_i32(lanes), valid.to(torch.uint8)
-    ms = cuda_ms(lambda: k1.launch(lanes32, valid8), 50)
-    plain_ms = cuda_ms(lambda: k1.fingerprint_plain(lanes, valid), 5)
-    n_valid = int(valid_np.sum())
-    nbytes = m * k * 4 + m + 2 * m * 4
-    ops = n_valid * (20 * k + 22)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
+def _kernel_entry(name, source, replaces, err, t):
     return {
-        "line": f"M={m} K={k} invalid={m - n_valid} bit-identical; "
-                f"kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain {plain_ms:.3f} ms",
-        "kernel": {
-            "name": "fingerprint",
-            "route": "cuda",
-            "source": "kafka_specification_tpu_torch/ops/csrc/fingerprint.cu",
-            "replaces": "kafka_specification_tpu/ops/pallas_fingerprint.py:41",
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / OPS_PER_S else "operations",
-            "library_ms": None,
-        },
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "max_abs_err": err,
+        "ms": t["own_ms"],
+        "route_ms": t["route_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
     }
 
 
-def _keys(rng, n):
-    from kafka_specification_tpu_torch.ops.dedup import pair_key
+def _time_line(t):
+    return (f"own {t['own_ms']:.4f} ms, route {t['route_ms']:.4f} ms "
+            f"(min {t['route_spread']['min']:.4f}, max {t['route_spread']['max']:.4f}), "
+            f"host {t['host_us']:.1f} us a launch, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.3f} ms")
 
-    hi = torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.uint32).astype(np.int64))
-    lo = torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.uint32).astype(np.int64))
-    # the all-ones pair marks an empty slot: never a key
-    lo[(hi == 0xFFFFFFFF) & (lo == 0xFFFFFFFF)] = 0
-    return pair_key(hi, lo).to(DEV)
+
+def phase_k1():
+    from kafka_specification_tpu_torch.ops import cuda_fingerprint as k1
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
+
+    checked, err = [], 0
+    for m, k in ((kt.K1_M, kt.K1_K), (65537, 7)):
+        lanes, valid = kt.k1_inputs(DEV, m, k)
+        hi, lo = k1.fingerprint(lanes, valid)
+        p_hi, p_lo = k1.fingerprint_plain(lanes, valid)
+        torch.cuda.synchronize()
+        diff = max(int((hi - p_hi).abs().max()), int((lo - p_lo).abs().max()))
+        if diff:
+            raise AssertionError(f"K1 differs from its plain version at M={m} K={k} "
+                                 f"(max |diff| {diff})")
+        err = max(err, diff)
+        checked.append(f"M={m} K={k} invalid={m - int(valid.sum())}")
+    t = kt.k1_times(*kt.k1_inputs(DEV))
+    return {
+        "line": f"bit-identical at {'; '.join(checked)}; {_time_line(t)}",
+        "kernel": _kernel_entry(
+            "fingerprint", "kafka_specification_tpu_torch/ops/csrc/fingerprint.cu",
+            "kafka_specification_tpu/ops/pallas_fingerprint.py:41", err, t),
+    }
 
 
 def _members(table):
     return torch.sort(table[table != -1]).values
 
 
-def _k2_fixture():
-    """K2's inputs at the main path's largest batch: in-batch duplicates,
-    ~10% invalid rows, an eighth of the keys already in the table."""
+def _k2_same(t_plain, t_kern, q, valid, what):
+    """One call of the plain version and one of the kernel, each on its own
+    table: winners, count and membership identical, no overflow."""
+    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
     from kafka_specification_tpu_torch.ops import hashset
-    from kafka_specification_tpu_torch.ops.dedup import split_key
 
-    cap, m = 1 << 22, 109260  # the main path's largest batch
-    rng = np.random.default_rng(5)
-    q = _keys(rng, m)
-    dup = torch.from_numpy(rng.integers(0, m // 2, size=m // 4)).to(DEV)
-    q[m // 2 : m // 2 + m // 4] = q[dup]
-    valid = torch.from_numpy(rng.random(m) < 0.9).to(DEV)
-    s_hi, s_lo = split_key(q[: m // 8])
-    return cap, m, hashset.table_from_pairs(s_hi, s_lo, min_cap=cap), q, valid
+    _, p_new, p_n, p_ovf = hashset.probe_insert(t_plain, q, valid)
+    _, k_new, k_n, k_ovf = k2.probe_insert(t_kern, q, valid)
+    if bool(p_ovf) or k_ovf:
+        raise AssertionError(f"{what}: overflowed")
+    if not torch.equal(p_new, k_new):
+        raise AssertionError(f"{what}: K2 winners differ ({int(k_new.sum())} vs "
+                             f"{int(p_new.sum())} new)")
+    if int(p_n) != k_n or not torch.equal(_members(t_plain), _members(t_kern)):
+        raise AssertionError(f"{what}: K2 count or membership differs from its plain version")
 
 
 def phase_k2():
     from kafka_specification_tpu_torch.ops import cuda_hashset as k2
     from kafka_specification_tpu_torch.ops import hashset
-    from kafka_specification_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_ms
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
 
-    cap, m, table0, q, valid = _k2_fixture()
+    table0, q, valid = kt.k2_fixture(DEV)
+    m = q.shape[0]
+    _k2_same(table0.clone(), table0.clone(), q, valid, f"cap 2^22 M={m}")
 
-    t_plain, p_new, p_n, p_ovf = hashset.probe_insert(table0.clone(), q, valid)
-    t_kern, k_new, k_n, k_ovf = k2.probe_insert(table0.clone(), q, valid)
-    torch.cuda.synchronize()
-    if bool(p_ovf) or bool(k_ovf):
-        raise AssertionError("fixture overflowed")
-    if not torch.equal(p_new, k_new):
-        raise AssertionError(
-            f"K2 winners differ ({int(k_new.sum())} vs {int(p_new.sum())} new)"
-        )
-    if int(p_n) != int(k_n) or not torch.equal(_members(t_plain), _members(t_kern)):
-        raise AssertionError("K2 count or membership differs from its plain version")
-    err = int((k_new.to(torch.int64) - p_new.to(torch.int64)).abs().max())
+    # two tables of one capacity, five calls each in turn: the claim code
+    # falls every call, the claim words are shared and never reset; the
+    # batches draw from the fixture's keys (duplicates, seeded keys), every
+    # third call with no mask; then M = 1 and M = 0
+    rng = np.random.default_rng(7)
+    tables = [(table0.clone(), table0.clone()) for _ in range(2)]
+    for call in range(10):
+        sel = torch.from_numpy(rng.integers(0, m, size=20000)).to(DEV)
+        _k2_same(*tables[call % 2], q[sel], None if call % 3 == 0 else valid[sel],
+                 f"call {call} on table {call % 2}")
+    for n in (1, 0):
+        _k2_same(*tables[0], q[:n], None, f"M={n}")
 
     # overflow: 4096 distinct keys into 1024 slots, grown and re-run
-    small_q = _keys(np.random.default_rng(6), 4096)
-    small_v = torch.ones(4096, dtype=torch.bool, device=DEV)
+    small_q = kt.keys(np.random.default_rng(6), 4096, DEV)
     results = []
     for insert in (hashset.probe_insert, k2.probe_insert):
         table = hashset.new_table(1024, DEV)
         isnew = torch.zeros(4096, dtype=torch.bool, device=DEV)
-        rounds = 0
+        rounds = total = 0
         while True:
-            table, new, _n, ovf = insert(table, small_q, small_v)
+            table, new, n, ovf = insert(table, small_q)
             isnew |= new
+            total += int(n)
             if not bool(ovf):
                 break
             rounds += 1
             table = hashset.rehash_into(table, 2 * table.shape[0])
-        results.append((rounds, isnew, _members(table)))
-    (p_rounds, p_isnew, p_mem), (k_rounds, k_isnew, k_mem) = results
+        results.append((rounds, isnew, _members(table), total))
+    (p_rounds, p_isnew, p_mem, p_total), (k_rounds, k_isnew, k_mem, k_total) = results
     if k_rounds == 0 or p_rounds == 0:
         raise AssertionError("the tiny table did not overflow")
     if not (torch.equal(p_isnew, k_isnew) and torch.equal(p_mem, k_mem)):
         raise AssertionError("grow-and-rerun novelty differs after overflow")
+    if k_total != int(k_isnew.sum()) or p_total != k_total:
+        raise AssertionError(f"counts summed over re-runs differ: {k_total}, {p_total}")
 
-    valid8 = valid.to(torch.uint8)
-    ms = cuda_ms(lambda t: k2.launch(t, q, valid8), 20, setup=table0.clone)
-    plain_ms = cuda_ms(lambda t: hashset.probe_insert(t, q, valid), 3, setup=table0.clone)
-    n_valid, n_new = int(valid.sum()), int(k_n)
-    # keys + valid flags read, one slot read per valid row, one slot
-    # written per new key, one flag written per row
-    nbytes = m * 9 + n_valid * 8 + n_new * 8 + m
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    t = kt.k2_times(table0, q)
+    kernel = _kernel_entry(
+        "hash_probe_insert", "kafka_specification_tpu_torch/ops/csrc/hashset.cu",
+        "kafka_specification_tpu/ops/pallas_hashset.py:380", 0, t)
+    kernel["also_replaces"] = "kafka_specification_tpu/ops/pallas_hashset.py:313"
     return {
-        "line": f"cap={cap} M={m} new={n_new} winners/count/membership identical; "
-                f"overflow re-run identical ({k_rounds} growths); "
-                f"kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain {plain_ms:.3f} ms",
-        "kernel": {
-            "name": "hash_probe_insert",
-            "route": "cuda",
-            "source": "kafka_specification_tpu_torch/ops/csrc/hashset.cu",
-            "replaces": "kafka_specification_tpu/ops/pallas_hashset.py:380",
-            "also_replaces": "kafka_specification_tpu/ops/pallas_hashset.py:313",
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes",
-            "library_ms": None,
-        },
+        "line": f"cap=2^22 M={m} winners/count/membership identical; "
+                f"10 calls on two tables in turn, M=1, M=0 identical; overflow re-run "
+                f"identical ({k_rounds} growths); no mask: new={t['n_new']}, {_time_line(t)}",
+        "kernel": kernel,
+        "times": t,
     }
 
 
-def _k2_split(k2_ms, vec):
-    """K2's time split by the ladder's launch floor, all from this run.
+def _k2_split(k2, vec):
+    """K2's route split by the ladder's launch floor, all from this run.
 
-    A wrapper call puts seven operations on the card: three zero fills
-    (is_new, n_new, overflow) and the C entry's four steps.  The C entry is
-    also timed alone with the same three fills inside its window and its
-    scratch allocated outside it, in turns with the wrapper (wrapper, C, C,
-    wrapper; the median of each side's calls, since one call's time has the
-    host's jitter in it).  The wrapper's surplus is then host work only
-    (Python checks, five allocations); the C call less seven
-    launch-to-launch floors is the four steps' own work, scattered slot
-    reads and the dependency between steps, with the fills' own work."""
-    from kafka_specification_tpu_torch.ops import build
-    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
-    from kafka_specification_tpu_torch.ops.hashset import MAX_PROBES
-    from kafka_specification_tpu_torch.utils.timing import cuda_call_ms
-
-    cap, m, table0, q, valid = _k2_fixture()
-    valid8 = valid.to(torch.uint8)
-    claim = torch.empty(cap, dtype=torch.int32, device=DEV)
-    slot = torch.empty(m, dtype=torch.int32, device=DEV)
-    is_new = torch.empty(m, dtype=torch.uint8, device=DEV)
-    n_new = torch.empty(1, dtype=torch.int32, device=DEV)
-    overflow = torch.empty(1, dtype=torch.int32, device=DEV)
-    lib, stream = k2._lib(), torch.cuda.current_stream().cuda_stream
-
-    def c_call(t):
-        # the wrapper's three zero fills, then its C entry
-        is_new.zero_()
-        n_new.zero_()
-        overflow.zero_()
-        rc = lib.kspec_probe_insert(
-            t.data_ptr(), claim.data_ptr(), cap, q.data_ptr(), valid8.data_ptr(), m,
-            MAX_PROBES, slot.data_ptr(), is_new.data_ptr(), n_new.data_ptr(),
-            overflow.data_ptr(), stream,
-        )
-        build.check_rc(lib, rc, "K2 C entry")
-
-    def wrapper(t):
-        k2.launch(t, q, valid8)
-
-    turns = [cuda_call_ms(fn, 50, setup=table0.clone) for fn in (wrapper, c_call, c_call, wrapper)]
-    wrapper_ms = float(np.median(turns[0] + turns[3]))
-    c_ms = float(np.median(turns[1] + turns[2]))
+    A call as check() makes it puts the cooperative kernel on the card and
+    reads its two counts back (one 8-byte copy).  Its route time (events
+    around one call on an idle card) less its own time (events around
+    back-to-back launches, the host's time kept out) is the host's work
+    before the launch plus the read, beside the host's time a launch() call
+    by the host's clock; its own time less one launch-to-launch floor (K4's
+    `vec` rung launched back to back from C) is the kernel's own work."""
+    floor = vec["back_to_back_ms"]
     return {
-        "k2_ms": k2_ms,
-        "vec_ms": vec["ms"],
-        "four_vec_ms": 4 * vec["ms"],
-        "k2_rest_ms": k2_ms - 4 * vec["ms"],
-        "k2_wrapper_ms": wrapper_ms,
-        "k2_c_call_with_fills_ms": c_ms,
-        "vec_back_to_back_ms": vec["back_to_back_ms"],
-        "seven_launch_floors_ms": 7 * vec["back_to_back_ms"],
-        "k2_host_work_ms": wrapper_ms - c_ms,
-        "k2_steps_work_ms": c_ms - 7 * vec["back_to_back_ms"],
+        "k2_route_ms": k2["route_ms"],
+        "k2_own_ms": k2["own_ms"],
+        "k2_host_work_and_read_ms": k2["route_ms"] - k2["own_ms"],
+        "k2_host_us_a_launch": k2["host_us"],
+        "ops_on_card": "1 kernel + 1 copy of 8 bytes",
+        "launch_floor_ms": floor,
+        "k2_own_work_ms": k2["own_ms"] - floor,
     }
 
 
@@ -342,7 +300,7 @@ def phase_k4(k2):
 
     if k2 is None:
         raise AssertionError("the rungs passed, but K2 failed: no time to split")
-    split = _k2_split(k2["kernel"]["ms"], recs[0])
+    split = _k2_split(k2["times"], recs[0])
     kernels = []
     for r in recs:
         kernels.append({
@@ -350,9 +308,12 @@ def phase_k4(k2):
             "route": "cuda",
             "source": "kafka_specification_tpu_torch/ops/csrc/ladder.cu",
             "replaces": k4.REPLACES[r["rung"]],
+            # own time: launches back to back from C; route: launch() from Python
+            "ms": r["back_to_back_ms"],
+            "route_ms": r["ms"],
             **{key: r[key] for key in (
-                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "back_to_back_ms", "host_us_per_launch")},
+                "launches", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "host_us_per_launch")},
         })
     times = "; ".join(
         f"{r['rung']} {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}, "
@@ -429,20 +390,12 @@ def phase_trace():
     return {"line": f"StrongIsr violated at depth 8, trace as pinned; launches {counts}"}
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     try:
-        import kafka_specification_tpu_torch  # noqa: F401
+        from kafka_specification_tpu_torch.utils.timing import card_line
     except ImportError as e:
         print(f"chip_smoke: the port's package is not here ({e})", file=sys.stderr)
         return 1

@@ -275,21 +275,20 @@ def check(
                     verdict = (start + int(torch.argmax(dead.to(torch.uint8))), "Deadlock")
                     break
             rows, parent, act, keys = step.candidates(en, cand)
-            nn = keys.shape[0]
-            if nn == 0:
+            if keys.shape[0] == 0:
                 continue
-            valid = torch.ones(nn, dtype=torch.bool, device=dev)
-            isnew = torch.zeros(nn, dtype=torch.bool, device=dev)
+            isnew, n_new = None, 0
             while True:
-                table, is_new, _n, ovf = probe_insert(table, keys, valid)
-                isnew |= is_new
-                if not bool(ovf):
+                # n and ovf come to the host in one read
+                table, is_new, n, ovf = probe_insert(table, keys)
+                isnew = is_new if isnew is None else isnew | is_new
+                n_new += n
+                if not ovf:
                     break
-                # rows the failed attempt inserted report "seen" on the
-                # re-run; OR-ing keeps them new, so nothing is lost or
-                # counted twice
+                # rows the failed attempt inserted (and counted) report
+                # "seen" on the re-run; OR-ing keeps them new, so nothing is
+                # lost or counted twice
                 table = hashset.rehash_into(table, 2 * table.shape[0])
-            n_new = int(isnew.sum())
             hash_n += n_new
             lvl_new += n_new
             lvl_rows.append(rows[isnew])

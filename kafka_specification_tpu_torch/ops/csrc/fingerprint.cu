@@ -1,17 +1,27 @@
 // Kernel K1: murmur3 fingerprints of packed state rows, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel kafka_specification_tpu/ops/pallas_fingerprint.py
+// Replaces the TPU kernel kafka_specification_tpu/ops/pallas_fingerprint.py:41
 // (fingerprint_pallas, body _kernel).  Per row of K u32 lanes it computes
 // murmur3_x86_32 twice (seeds 0x9747B28C and 0x3C6EF372), remaps an all-ones
 // result pair to lo = 0xFFFFFFFE, and writes the all-ones sentinel pair for
 // an invalid row.  Bit-identical to ops/fingerprint.py::hash_pair.
 //
-// Bound: memory.  Each row reads 4*K bytes of lanes and one valid byte and
-// writes 8 bytes, against some 80 integer operations; at K = 3 that is 21
-// bytes a row, far below the card's operations-per-byte balance.  Design:
-// one thread per row, both hash streams in registers, one pass over the
-// rows; consecutive threads read consecutive rows, so a warp's loads cover
-// one contiguous span of the lane matrix.
+// It reads the port's carrier where it lies: int64[M, K] lanes holding u32
+// values (the low word is the lane) and a bool[M] mask, and writes int64
+// hi and lo holding u32 values, so the wrapper converts nothing around it.
+//
+// Bound: memory.  Each row reads 8*K bytes of lanes and one valid byte and
+// writes 16 bytes, against some 20*K + 22 integer operations; at K = 3 that
+// is 41 bytes a row, far below the card's operations-per-byte balance.
+// Design: a block takes 256 consecutive rows, whose lanes are one
+// contiguous span of 256*K words; its threads stage that span in shared
+// memory with 16-byte loads from consecutive threads (coalesced whatever
+// K is), then each thread hashes its own row from shared memory, both hash
+// streams in registers, and writes hi and lo (coalesced 8-byte stores).
+//
+// Limit, which the wrapper raises on: K <= 113, so that a block's stage
+// (256 * K * 8 bytes of dynamic shared memory) fits the 227 KB a block may
+// have; above 48 KB the launch raises the kernel's shared-memory limit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -23,6 +33,8 @@ constexpr uint32_t kC2 = 0x1B873593u;
 constexpr uint32_t kSeedHi = 0x9747B28Cu;
 constexpr uint32_t kSeedLo = 0x3C6EF372u;
 constexpr uint32_t kSent = 0xFFFFFFFFu;
+constexpr int kRows = 256;  // rows a block, one thread each
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -44,30 +56,43 @@ __device__ __forceinline__ uint32_t mix_lane(uint32_t h, uint32_t lane) {
   return rotl32(h, 13) * 5u + 0xE6546B64u;
 }
 
-__global__ void fingerprint_kernel(const uint32_t* __restrict__ lanes,
+__global__ void fingerprint_kernel(const unsigned long long* __restrict__ lanes,
                                    const uint8_t* __restrict__ valid,
-                                   uint32_t* __restrict__ hi,
-                                   uint32_t* __restrict__ lo,
-                                   long long m, int k) {
-  long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  if (!valid[row]) {
-    hi[row] = kSent;
-    lo[row] = kSent;
-    return;
+                                   long long* __restrict__ hi,
+                                   long long* __restrict__ lo, long long m,
+                                   int k) {
+  extern __shared__ __align__(16) unsigned long long stage[];
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int rows = (int)(m - row0 < kRows ? m - row0 : kRows);
+  const int words = rows * k;
+  const unsigned long long* src = lanes + row0 * k;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const ulonglong2* src2 = reinterpret_cast<const ulonglong2*>(src);
+    ulonglong2* stage2 = reinterpret_cast<ulonglong2*>(stage);
+    for (int j = threadIdx.x; j < words / 2; j += kRows) stage2[j] = __ldg(src2 + j);
+    if ((words & 1) && threadIdx.x == 0) stage[words - 1] = __ldg(src + words - 1);
+  } else {  // a view that starts off a 16-byte boundary
+    for (int j = threadIdx.x; j < words; j += kRows) stage[j] = __ldg(src + j);
   }
-  const uint32_t* r = lanes + row * k;
-  uint32_t h1 = kSeedHi, h2 = kSeedLo;
-  for (int i = 0; i < k; ++i) {
-    uint32_t v = r[i];
-    h1 = mix_lane(h1, v);
-    h2 = mix_lane(h2, v);
+  __syncthreads();
+  if ((int)threadIdx.x >= rows) return;
+  const long long row = row0 + threadIdx.x;
+  uint32_t h1 = kSent, h2 = kSent;
+  if (valid[row]) {
+    const unsigned long long* r = stage + threadIdx.x * k;
+    h1 = kSeedHi;
+    h2 = kSeedLo;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = (uint32_t)r[i];
+      h1 = mix_lane(h1, v);
+      h2 = mix_lane(h2, v);
+    }
+    h1 = fmix32(h1 ^ (uint32_t)(4 * k));
+    h2 = fmix32(h2 ^ (uint32_t)(4 * k));
+    if (h1 == kSent && h2 == kSent) h2 = 0xFFFFFFFEu;
   }
-  h1 = fmix32(h1 ^ (uint32_t)(4 * k));
-  h2 = fmix32(h2 ^ (uint32_t)(4 * k));
-  if (h1 == kSent && h2 == kSent) h2 = 0xFFFFFFFEu;
-  hi[row] = h1;
-  lo[row] = h2;
+  hi[row] = (long long)h1;
+  lo[row] = (long long)h2;
 }
 
 }  // namespace
@@ -78,17 +103,34 @@ const char* kspec_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// lanes: u32[m, k] row-major; valid: u8[m]; hi, lo: u32[m] outputs.
-// Launches on `stream` and returns the launch's CUDA error code.
+// lanes: i64[m, k] row-major holding u32 values; valid: u8[m] (a bool
+// tensor's bytes); hi, lo: i64[m] outputs holding u32 values.  Every
+// pointer is on card `device`, and `stream` is one of its streams.
+// Launches there (the current device is set for the launch and put back)
+// and returns the CUDA error code.
 int kspec_fingerprint(const void* lanes, const void* valid, void* hi, void* lo,
-                      long long m, int k, void* stream) {
+                      long long m, int k, int device, void* stream) {
   if (m <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (m + threads - 1) / threads;
-  fingerprint_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)lanes, (const uint8_t*)valid, (uint32_t*)hi,
-      (uint32_t*)lo, m, k);
-  return (int)cudaGetLastError();
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)kRows * k * sizeof(unsigned long long);
+  if (smem > kDefaultSmem)
+    e = cudaFuncSetAttribute(fingerprint_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) {
+    const long long blocks = (m + kRows - 1) / kRows;
+    fingerprint_kernel<<<(unsigned)blocks, kRows, smem, (cudaStream_t)stream>>>(
+        (const unsigned long long*)lanes, (const uint8_t*)valid, (long long*)hi,
+        (long long*)lo, m, k);
+    e = cudaGetLastError();
+  }
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (e == cudaSuccess) e = back;
+  }
+  return (int)e;
 }
 
 }  // extern "C"

@@ -2,11 +2,15 @@
 
 Replaces ``kafka_specification_tpu/ops/pallas_fingerprint.py``
 (``fingerprint_pallas``).  The CUDA source is ``csrc/fingerprint.cu``; its
-header says what bounds it on the card.
+header gives the design (lanes staged in shared memory by coalesced 16-byte
+loads) and what bounds it on the card.
 
 ``fingerprint(lanes, valid)`` is the entry point.  On a CPU tensor it runs
 the plain version, ``fingerprint_plain``; on a CUDA tensor it launches the
-kernel or raises.  ``LAUNCHES`` counts the kernel's launches.
+kernel on the port's int64 lanes and bool mask as they are, and runs
+nothing else on the card, or raises.  ``LAUNCHES`` counts the kernel's
+launches.  ``to_i32``/``from_i32`` convert the u32-in-int64 carrier to
+int32 bit patterns and back for kernels that take those (``cuda_ladder``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from .dedup import SENT
 from .fingerprint import MASK32, hash_pair
 
 LAUNCHES = 0
+# lanes a row at most: a block stages 256 rows of K int64 words in shared
+# memory, and a block may have 227 KB (232,448 bytes)
+MAX_LANES = 232448 // (256 * 8)
 
 
 def fingerprint_plain(lanes: torch.Tensor, valid: torch.Tensor):
@@ -38,29 +45,29 @@ def from_i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
-def launch(lanes32: torch.Tensor, valid8: torch.Tensor):
-    """The kernel itself: int32[M, K] x uint8[M] on the card -> (hi, lo)
-    int32[M] bit patterns."""
+def launch(lanes: torch.Tensor, valid: torch.Tensor):
+    """The kernel itself: int64[M, K] u32 lanes x bool[M] on the card ->
+    (hi, lo) int64[M] u32 values, the sentinel pair for invalid rows."""
     global LAUNCHES
-    if lanes32.device.type != "cuda":
-        raise ValueError(f"kernel K1 needs CUDA tensors, got {lanes32.device}")
-    if lanes32.dtype != torch.int32 or lanes32.dim() != 2:
-        raise ValueError(f"lanes must be int32[M, K], got {lanes32.dtype}{list(lanes32.shape)}")
-    if valid8.dtype != torch.uint8 or valid8.shape != lanes32.shape[:1]:
-        raise ValueError("valid must be uint8[M] beside lanes")
-    if valid8.device != lanes32.device:
-        raise ValueError("lanes and valid on different devices")
-    lanes32 = lanes32.contiguous()
-    valid8 = valid8.contiguous()
-    m, k = lanes32.shape
-    hi = torch.empty(m, dtype=torch.int32, device=lanes32.device)
-    lo = torch.empty(m, dtype=torch.int32, device=lanes32.device)
+    dev = lanes.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel K1 needs CUDA tensors, got {dev}")
+    if lanes.dtype != torch.int64 or lanes.dim() != 2 or not lanes.is_contiguous():
+        raise ValueError(f"lanes must be contiguous int64[M, K], got {lanes.dtype}{list(lanes.shape)}")
+    m, k = lanes.shape
+    if not 1 <= k <= MAX_LANES:
+        raise ValueError(f"K = {k} lanes: the kernel takes 1 to {MAX_LANES}")
+    if (valid.dtype != torch.bool or valid.shape != (m,) or valid.device != dev
+            or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous bool[M] beside lanes")
+    hi = torch.empty(m, dtype=torch.int64, device=dev)
+    lo = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return hi, lo
     lib = _lib()
     rc = lib.kspec_fingerprint(
-        lanes32.data_ptr(), valid8.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        m, k, torch.cuda.current_stream(lanes32.device).cuda_stream,
+        lanes.data_ptr(), valid.data_ptr(), hi.data_ptr(), lo.data_ptr(), m, k,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_rc(lib, rc, "fingerprint kernel launch")
     LAUNCHES += 1
@@ -72,8 +79,7 @@ def fingerprint(lanes: torch.Tensor, valid: torch.Tensor):
     with the sentinel pair for invalid rows."""
     if lanes.device.type == "cpu":
         return fingerprint_plain(lanes, valid)
-    hi, lo = launch(to_i32(lanes), valid.to(torch.uint8))
-    return from_i32(hi), from_i32(lo)
+    return launch(lanes, valid)
 
 
 def _lib():
@@ -81,6 +87,6 @@ def _lib():
     fn = lib.kspec_fingerprint
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib

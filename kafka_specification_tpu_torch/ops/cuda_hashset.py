@@ -5,14 +5,25 @@ pallas_hashset.py``: ``probe_insert_pallas`` (table staged in VMEM, so
 capped at 2^20 slots) and ``probe_insert_pallas_hbm`` (table left in HBM).
 On the card the table always lives in device memory, so one kernel serves
 both and has no capacity gate.  The CUDA source is ``csrc/hashset.cu``; its
-header gives the design (find, CAS insert, claim, winner) and what bounds it.
+header gives the design (find, insert and claim, winner, in one cooperative
+launch; epoch-tagged claim words) and what bounds it.
 
-``probe_insert(table, q, valid)`` is the entry point, with the contract of
-``hashset.probe_insert``.  On a CPU tensor it runs that plain version; on a
-CUDA tensor it launches the kernel or raises.  Winners, ``n_new`` and table
-membership equal the plain version's; slot positions may differ where two
-probe chains interleave, which changes neither.  ``LAUNCHES`` counts calls
-that launched the kernel.
+``probe_insert(table, q, valid=None)`` is the entry point, with the contract
+of ``hashset.probe_insert`` except that ``n_new`` and ``overflow`` come back
+as a host int and bool, read together; ``valid=None`` means every row.  On
+a CPU tensor it runs that plain version; on a CUDA tensor it launches the
+kernel or raises.  Winners, ``n_new`` and table membership equal the plain
+version's; slot positions may differ where two probe chains interleave,
+which changes neither.  ``LAUNCHES`` counts calls that launched the kernel.
+
+A call on the card runs no PyTorch operation there and allocates only its
+outputs.  The workspace is kept per (device, stream): one claim array as
+long as the largest table seen there, filled once when it is made and
+never reset (each call tags its claims with a code one below the last
+call's), and a row scratch as long as the largest batch seen.  A larger
+table replaces the claim array, so the workspace holds 8 bytes a slot of
+the largest table and 4 bytes a row of the largest batch, for the life of
+the process.
 """
 
 from __future__ import annotations
@@ -26,12 +37,36 @@ from .hashset import MAX_PROBES
 from .hashset import probe_insert as probe_insert_plain
 
 LAUNCHES = 0
+MAX_CAP = 1 << 31  # slots are int32 in the row scratch
+MAX_ROWS = (1 << 32) - 2  # a row is the low half of a claim word; all ones is the fill
+FIRST_CODE = (1 << 32) - 1
+
+# (device index, stream) -> [claim words int64[>= cap], this call's code]
+_CLAIMS: dict[tuple[int, int], list] = {}
+# (device index, stream) -> int32 row scratch, as long as the largest batch seen
+_SLOTS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def launch(table: torch.Tensor, q: torch.Tensor, valid8: torch.Tensor):
+def _workspace(dev, stream: int, cap: int, m: int):
+    """(claim words, code, row scratch) for one call; advances the code."""
+    key = (dev.index, stream)
+    ws = _CLAIMS.get(key)
+    if ws is None or ws[0].shape[0] < cap or ws[1] < 0:  # 2^32 calls: fill again
+        _CLAIMS.pop(key, None)  # let the allocator reuse the old words
+        ws = _CLAIMS[key] = [torch.full((cap,), -1, dtype=torch.int64, device=dev), FIRST_CODE]
+    claim, code = ws
+    ws[1] = code - 1
+    slot = _SLOTS.get(key)
+    if slot is None or slot.shape[0] < m:
+        slot = _SLOTS[key] = torch.empty(
+            1 << max(0, m - 1).bit_length(), dtype=torch.int32, device=dev)
+    return claim, code, slot
+
+
+def launch(table: torch.Tensor, q: torch.Tensor, valid=None):
     """The kernel itself: int64[cap] table (updated in place) x int64[M]
-    keys x uint8[M] on the card -> (is_new uint8[M], n_new int32[1],
-    overflow int32[1])."""
+    keys x bool[M] (None: every row valid) on the card -> (is_new bool[M],
+    counts int32[2]: n_new, overflow)."""
     global LAUNCHES
     dev = table.device
     if dev.type != "cuda":
@@ -41,41 +76,41 @@ def launch(table: torch.Tensor, q: torch.Tensor, valid8: torch.Tensor):
         raise ValueError("table must be int64[cap] with cap a power of two")
     if not table.is_contiguous():
         raise ValueError("table must be contiguous (it is updated in place)")
-    if cap > 1 << 31:
-        raise ValueError(f"table capacity {cap} exceeds the kernel's int32 slots")
-    if q.dtype != torch.int64 or q.dim() != 1 or q.device != dev:
-        raise ValueError("keys must be int64[M] on the table's device")
-    if valid8.dtype != torch.uint8 or valid8.shape != q.shape or valid8.device != dev:
-        raise ValueError("valid must be uint8[M] beside the keys")
-    q = q.contiguous()
-    valid8 = valid8.contiguous()
+    if cap > MAX_CAP:
+        raise ValueError(f"table capacity {cap} exceeds the kernel's {MAX_CAP} slots")
+    if q.dtype != torch.int64 or q.dim() != 1 or q.device != dev or not q.is_contiguous():
+        raise ValueError("keys must be contiguous int64[M] on the table's device")
     m = q.shape[0]
-    is_new = torch.zeros(m, dtype=torch.uint8, device=dev)
-    n_new = torch.zeros(1, dtype=torch.int32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    if m == 0:
-        return is_new, n_new, overflow
-    claim = torch.empty(cap, dtype=torch.int32, device=dev)
-    slot = torch.empty(m, dtype=torch.int32, device=dev)
+    if m > MAX_ROWS:
+        raise ValueError(f"{m} keys: a claim word holds row indices below {MAX_ROWS + 1}")
+    if valid is not None and (valid.dtype != torch.bool or valid.shape != q.shape
+                              or valid.device != dev or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous bool[M] beside the keys, or None")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    claim, code, slot = _workspace(dev, stream, cap, m)
+    is_new = torch.empty(m, dtype=torch.bool, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
     lib = _lib()
     rc = lib.kspec_probe_insert(
         table.data_ptr(), claim.data_ptr(), cap, q.data_ptr(),
-        valid8.data_ptr(), m, MAX_PROBES, slot.data_ptr(), is_new.data_ptr(),
-        n_new.data_ptr(), overflow.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if valid is None else valid.data_ptr(), m, MAX_PROBES, code,
+        slot.data_ptr(), is_new.data_ptr(), counts.data_ptr(), dev.index, stream,
     )
     build.check_rc(lib, rc, "hash probe kernel launch")
     LAUNCHES += 1
-    return is_new, n_new, overflow
+    return is_new, counts
 
 
-def probe_insert(table, q, valid):
+def probe_insert(table, q, valid=None):
     """Insert-or-find (see hashset.probe_insert): -> (table, is_new bool[M],
-    n_new scalar, overflow bool scalar); the table is updated in place."""
+    n_new int, overflow bool); the table is updated in place, and n_new and
+    overflow are read to the host in one read."""
     if table.device.type == "cpu":
-        return probe_insert_plain(table, q, valid)
-    is_new, n_new, overflow = launch(table, q, valid.to(torch.uint8))
-    return table, is_new.bool(), n_new[0].to(torch.int64), overflow[0] != 0
+        table, is_new, n_new, overflow = probe_insert_plain(table, q, valid)
+        return table, is_new, int(n_new), bool(overflow)
+    is_new, counts = launch(table, q, valid)
+    n_new, overflow = counts.tolist()
+    return table, is_new, n_new, bool(overflow)
 
 
 def _lib():
@@ -83,6 +118,7 @@ def _lib():
     fn = lib.kspec_probe_insert
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ll, p, p, ll, ctypes.c_int, p, p, p, p, p]
+        fn.argtypes = [p, p, ll, p, p, ll, ctypes.c_int, ctypes.c_uint, p, p, p,
+                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib

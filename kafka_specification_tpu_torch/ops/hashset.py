@@ -15,8 +15,8 @@ CUDA kernel claim a slot with a single 64-bit compare-and-swap.
 ``probe_insert`` here is the plain version of kernel K2
 (``ops/cuda_hashset.py``): the claim-lattice algorithm of the JAX module,
 round by round.  It updates the table in place.  ``table_from_pairs`` and
-``rehash_into`` insert through K2's wrapper, so on a CUDA table they launch
-the kernel.
+``rehash_into`` insert through K2's wrapper with no mask, so on a CUDA table
+they launch the kernel.
 """
 
 from __future__ import annotations
@@ -47,10 +47,11 @@ def home_slot(q: torch.Tensor, cap: int) -> torch.Tensor:
     return fmix32(lo ^ fmix32(hi)) & (cap - 1)
 
 
-def probe_insert(table, q, valid):
+def probe_insert(table, q, valid=None):
     """Insert-or-find a batch of keys (plain version; updates `table`).
 
-    table: int64[cap]; q: int64[M] keys; valid: bool[M] masks live rows.
+    table: int64[cap]; q: int64[M] keys; valid: bool[M] masks live rows
+    (None: every row).
     Returns (table, is_new bool[M], n_new int64 scalar, overflow bool scalar).
 
     Per probe round, every still-pending row reads its slot: on a match it
@@ -66,7 +67,7 @@ def probe_insert(table, q, valid):
     rows = torch.arange(m, device=q.device)
     claim = torch.full((cap,), CLAIM_FREE, dtype=torch.int64, device=q.device)
     pos = home_slot(q, cap)
-    pending = valid.clone()
+    pending = torch.ones(m, dtype=torch.bool, device=q.device) if valid is None else valid.clone()
     is_new = torch.zeros(m, dtype=torch.bool, device=q.device)
     for _ in range(MAX_PROBES):
         cur = table[pos]
@@ -96,10 +97,8 @@ def table_from_pairs(hi, lo, min_cap: int = 1 << 10):
         table = new_table(cap, hi.device)
         ok = True
         for start in range(0, n, _INSERT_CHUNK):
-            part = keys[start : start + _INSERT_CHUNK]
-            valid = torch.ones(part.shape[0], dtype=torch.bool, device=part.device)
-            table, _new, _n, ovf = insert(table, part, valid)
-            if bool(ovf):
+            table, _new, _n, ovf = insert(table, keys[start : start + _INSERT_CHUNK])
+            if ovf:
                 ok = False
                 break
         if ok:

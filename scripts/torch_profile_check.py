@@ -2,35 +2,36 @@
 """Where the time of one check() goes on the card (PyTorch port).
 
     python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
+        [--runs N] [--root DIR]
 
-Runs check() of the .cfg once to build the kernels and warm up, then once
-more under torch.profiler (CPU and CUDA activities), and prints: the card's
-name and power limit (nvidia-smi), the profiled run's wall time, the summed
-device time of all kernels, the device's busy and idle share of the wall
-time (one stream, so kernels do not overlap), the port's two CUDA kernels'
-device time and launches, and the kernels with the most device time.
-The last line is the same as JSON.  Needs one CUDA card; imports no JAX.
+Runs check() of the .cfg once to build the kernels and warm up, then `--runs`
+times (default 3) unprofiled for the wall time (host clock, ending in
+synchronize), then once more under torch.profiler (CPU and CUDA
+activities), and prints: the card's name and power limit (nvidia-smi), the
+unprofiled walls, the profiled run's wall time, the summed device time of
+all kernels, the device's busy and idle share of the wall time (one
+stream, so kernels do not overlap), the number of operations the run put on
+the card (kernels, fills and copies), the port's two CUDA kernels' device
+time and launches, and the kernels with the most device time.  The last
+line is the same as JSON.  --root DIR profiles the package of another
+checkout (the parent commit unpacked with `git archive`, say).  Needs one
+CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-from kafka_specification_tpu_torch import build_model, check, load_config  # noqa: E402
-
-# device-side kernel names of the port's CUDA sources
+# device-side kernel names of the port's K1 and K2 sources
 OWN_KERNELS = {
     "fingerprint": ("fingerprint_kernel",),
-    "hash_probe_insert": ("find_kernel", "insert_kernel", "claim_kernel", "winner_kernel"),
+    "hash_probe_insert": ("probe_insert_kernel",),
 }
 
 
@@ -46,18 +47,31 @@ def main() -> int:
     ap.add_argument("cfg", nargs="?", default="configs/Kip320.cfg")
     ap.add_argument("--module", default=None, help="TLA+ module (default: the file stem)")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--runs", type=int, default=3, help="unprofiled runs timed for the wall")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                    help="checkout whose package is profiled")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from kafka_specification_tpu_torch import build_model, check, load_config
+    from kafka_specification_tpu_torch.utils.timing import card_line
+
     if not torch.cuda.is_available():
         print("torch_profile_check: CUDA is not available", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     module = args.module or Path(args.cfg).stem
     cfg = load_config(args.cfg)
 
     warm = check(build_model(module, cfg))
+    walls = []
+    for _ in range(args.runs):
+        model = build_model(module, cfg)
+        t0 = time.perf_counter()
+        res = check(model)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if res.levels != warm.levels:
+            raise SystemExit("a timed run disagrees with the warm-up run")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     model = build_model(module, cfg)
     with torch.profiler.profile(activities=acts) as prof:
@@ -75,6 +89,7 @@ def main() -> int:
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = (us, evt.count)
     device_s = sum(us for us, _ in by_name.values()) / 1e6
+    device_ops = sum(n for _, n in by_name.values())
     own = {}
     for kname, subs in OWN_KERNELS.items():
         hits = [(k, v) for k, v in by_name.items() if any(s in k for s in subs)]
@@ -86,10 +101,11 @@ def main() -> int:
 
     print(f"card: {card}")
     print(f"{res.model}: ok={res.ok} total={res.total} diameter={res.diameter}")
+    print("unprofiled walls " + ", ".join(f"{w:.3f}" for w in walls) + " s")
     print(f"wall {wall:.3f} s (host clock, ends in synchronize); "
           f"{res.total / wall:.0f} states/s")
     print(f"device kernels {device_s:.3f} s: busy {device_s / wall:.1%}, "
-          f"idle {1 - device_s / wall:.1%}")
+          f"idle {1 - device_s / wall:.1%}; {device_ops} operations on the card")
     for kname, v in own.items():
         print(f"  {kname}: {v['device_ms']:.3f} ms device over {v['launches']} launches")
     print("top device time:")
@@ -99,7 +115,9 @@ def main() -> int:
         "card": card,
         "model": res.model,
         "total": res.total,
+        "walls_s": walls,
         "wall_s": wall,
+        "device_ops": device_ops,
         "device_s": device_s,
         "busy_share": device_s / wall,
         "own_kernels": own,

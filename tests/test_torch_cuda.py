@@ -58,6 +58,83 @@ def test_k2_same_winners_as_plain(card):
     assert torch.equal(live(t_p), live(t_k))
 
 
+def test_k1_unaligned_view_and_wide_rows(card):
+    """A view that starts off a 16-byte boundary takes the 8-byte staging
+    path; K = 40 needs more than 48 KB of shared memory a block; K = 114
+    does not fit and is refused."""
+    rng = np.random.default_rng(2)
+    for m, k, start in ((70001, 3, 1), (5000, 40, 0)):
+        full = torch.from_numpy(rng.integers(0, 2**32, size=(m + start, k), dtype=np.uint32).astype(np.int64)).to(card)
+        lanes = full[start:]
+        valid = torch.from_numpy(rng.random(m) < 0.9).to(card)
+        hi, lo = cuda_fingerprint.fingerprint(lanes, valid)
+        p_hi, p_lo = cuda_fingerprint.fingerprint_plain(lanes, valid)
+        assert torch.equal(hi, p_hi) and torch.equal(lo, p_lo)
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_fingerprint.fingerprint(
+            torch.zeros((4, cuda_fingerprint.MAX_LANES + 1), dtype=torch.int64, device=card),
+            torch.ones(4, dtype=torch.bool, device=card),
+        )
+
+
+def _k2_keys(rng, m, card):
+    pairs = rng.integers(0, 2**32, size=(m, 2), dtype=np.uint32).astype(np.int64)
+    if m > 1:
+        pairs[m // 2 :] = pairs[rng.integers(0, m // 2, size=m - m // 2)]
+    return pair_key(torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])).to(card)
+
+
+def _k2_same(t_plain, t_kern, q, valid):
+    _, new_p, n_p, o_p = hashset.probe_insert(t_plain, q, valid)
+    new_k, counts = cuda_hashset.launch(t_kern, q, valid)
+    n_k, o_k = counts.tolist()
+    assert not bool(o_p) and not o_k  # winners are defined only without overflow
+    assert torch.equal(new_p, new_k) and int(n_p) == n_k
+    live = lambda t: torch.sort(t[t != -1]).values
+    assert torch.equal(live(t_plain), live(t_kern))
+
+
+def test_k2_repeated_calls_alternating_tables(card):
+    """Five calls on each of two tables of one capacity, in turn (the claim
+    code falls every call and the claim words are never reset), with a
+    mask and without, then M = 1 and M = 0."""
+    rng = np.random.default_rng(4)
+    tables = [(hashset.new_table(1 << 14, card), hashset.new_table(1 << 14, card)) for _ in range(2)]
+    for call in range(10):
+        q = _k2_keys(rng, 3000, card)
+        valid = None if call % 3 == 0 else torch.from_numpy(rng.random(3000) < 0.9).to(card)
+        _k2_same(*tables[call % 2], q, valid)
+    for m in (1, 0):
+        _k2_same(*tables[0], _k2_keys(rng, m, card), None)
+
+
+def test_k2_workspace_reused_and_remade_on_growth(card):
+    """The claim words and the row scratch are kept per (device, stream),
+    allocated once and reused; a table larger than the claim words gets
+    fresh ones in their place, a longer batch a longer scratch, and nothing
+    else is kept."""
+    cuda_hashset._CLAIMS.clear()
+    cuda_hashset._SLOTS.clear()
+    rng = np.random.default_rng(5)
+    table = hashset.new_table(1 << 12, card)
+    key = (table.device.index, torch.cuda.current_stream(card).cuda_stream)
+    cuda_hashset.probe_insert(table, _k2_keys(rng, 500, card))
+    claim, code = cuda_hashset._CLAIMS[key]
+    slot = cuda_hashset._SLOTS[key]
+    assert claim.shape[0] == 1 << 12 and slot.shape[0] == 512
+    cuda_hashset.probe_insert(table, _k2_keys(rng, 400, card))
+    again, code2 = cuda_hashset._CLAIMS[key]
+    assert again.data_ptr() == claim.data_ptr() and code2 == code - 1
+    assert cuda_hashset._SLOTS[key].data_ptr() == slot.data_ptr()
+    m = slot.shape[0] + 1  # longer than the row scratch
+    cap = 2 * max(claim.shape[0], 1 << (4 * m - 1).bit_length())  # room enough not to overflow
+    grown = hashset.rehash_into(table, cap)
+    _k2_same(grown.clone(), grown, _k2_keys(rng, m, card), None)
+    assert cuda_hashset._CLAIMS[key][0].shape[0] == cap > claim.shape[0]
+    assert cuda_hashset._SLOTS[key].shape[0] >= m > slot.shape[0]
+    assert list(cuda_hashset._CLAIMS) == list(cuda_hashset._SLOTS) == [key]
+
+
 def test_check_on_card_equals_cpu(card):
     cfg = Config(2, 2, 2, 2)
     on_card, on_cpu = [], []

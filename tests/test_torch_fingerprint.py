@@ -99,5 +99,5 @@ def test_i32_carrier_round_trip():
 def test_kernel_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fingerprint.launch(
-            torch.zeros((4, 3), dtype=torch.int32), torch.ones(4, dtype=torch.uint8)
+            torch.zeros((4, 3), dtype=torch.int64), torch.ones(4, dtype=torch.bool)
         )
