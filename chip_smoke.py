@@ -22,14 +22,19 @@ print no result:
          the same loop on the plain version; then its own, route and host
          time, bound and plain time on the call check() makes (no mask)
   K4     the six rungs of the construct ladder (run_ladder at n = 256, the
-         TPU script's arange input: launched, bit-identical to their plain
-         versions, timed with CUDA events over 1,000 launches beside their
+         TPU script's arange input, and at n = 2^24, 134 MB a pass: launched,
+         bit-identical to their plain versions, timed with CUDA events over
+         1,000 launches, own and route, with host us a call, beside their
          bound and, for every rung but dyn_read and dyn_slice, one PyTorch
-         call),
-         then bit for bit at n = 65,536 (256 blocks), at n = 4 with x[0] = 6
-         (the clamp) and with x[0] = 2^31, rest 2^32 - 1 (unsigned remainder,
-         wrap); and K2's route split into host work and read-back, one
-         launch floor and the kernel's own work, all in this run
+         call), then bit for bit on random u32 at n = 65,536, 2^24 and
+         2^24 + 3, on int32 views one element into their storage (off the
+         16-byte boundary), at n = 4 with x[0] = 6 (the clamp), with pos in
+         the tail and in the last vector, and with x[0] = 2^31, rest
+         2^32 - 1 (unsigned remainder, wrap); the host time of one call split
+         into the launch route's parts for a rung, K1 and K2, beside
+         torch.add's (utils/kernel_times.py::host_split); and K2's route
+         split into host work and read-back, one launch floor and the
+         kernel's own work, all in this run
   main   configs/Kip320.cfg through check() on the card: ok, 737,794
          states, diameter 25, per-level counts equal to the JAX package's
          (pinned below), both kernels launched
@@ -267,42 +272,65 @@ def _k2_split(k2, vec):
     }
 
 
-def phase_k4(k2):
-    from kafka_specification_tpu_torch.ops import cuda_ladder as k4
-
-    for rung in k4.RUNGS:
-        k4.LAUNCHES[rung] = 0
-    recs = k4.run_ladder(DEV, 256)  # the TPU script's path: arange(256)
-    bad = [f"{r['rung']}: {r['error'] or 'max |diff| %s' % r['max_abs_err']}"
-           for r in recs if not r["ok"]]
-    if bad:
-        raise AssertionError(f"rungs failed at n=256: {bad}")
-    if any(r["launches"] != 1 or k4.LAUNCHES[r["rung"]] < 1 for r in recs):
-        raise AssertionError(f"a rung was not launched: {[r['launches'] for r in recs]}")
-    if any(r["library_bits_equal"] is False for r in recs):
-        raise AssertionError("a library call's bits differ from the plain version")
+def _rung_edges():
+    """{label: int64 u32 input} held bit for bit against the plain versions:
+    sizes past the 16-byte vectors' tail, the edges of pos and of u32."""
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
 
     rng = np.random.default_rng(11)
     top = np.full(256, 0xFFFFFFFF, dtype=np.uint32)
     top[0] = 0x80000000
-    edges = {
-        "n=65536": rng.integers(0, 2**32, size=65536, dtype=np.uint32),
-        "n=4 x[0]=6": np.concatenate([[6], rng.integers(0, 2**32, size=3, dtype=np.uint32)]),
-        "x[0]=2^31, rest 2^32-1": top,
-    }
-    for label, arr in edges.items():
-        x = torch.from_numpy(arr.astype(np.int64)).to(DEV)
+    small = lambda n, x0: np.concatenate(
+        [[x0], rng.integers(0, 2**32, size=n - 1, dtype=np.uint32)])
+    edges = {f"n={n}": kt.ladder_input(n, DEV, seed=n) for n in (65536, 1 << 24, (1 << 24) + 3)}
+    for label, arr in {
+        "n=4 x[0]=6": small(4, 6),            # the clamp: pos = 3
+        "n=7 x[0]=6 (pos in the tail)": small(7, 6),
+        "n=9 x[0]=6 (pos in the last vector)": small(9, 6),
+        "n=3 x[0]=2 (all tail)": small(3, 2),
+        "x[0]=2^31, rest 2^32-1": top,       # unsigned remainder, wrap
+    }.items():
+        edges[label] = torch.from_numpy(arr.astype(np.int64)).to(DEV)
+    return edges
+
+
+def phase_k4(k2):
+    from kafka_specification_tpu_torch.ops import cuda_ladder as k4
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
+
+    for rung in k4.RUNGS:
+        k4.LAUNCHES[rung] = 0
+    recs = k4.run_ladder(DEV, kt.LADDER_N)  # the TPU script's path: arange(256)
+    large = k4.run_ladder(DEV, kt.LADDER_LARGE_N)  # arange(2^24): 134 MB a pass
+    for n, rs in ((kt.LADDER_N, recs), (kt.LADDER_LARGE_N, large)):
+        bad = [f"{r['rung']}: {r['error'] or 'max |diff| %s' % r['max_abs_err']}"
+               for r in rs if not (r["ok"] and r["bits_equal"])]
+        if bad:
+            raise AssertionError(f"rungs failed at n={n}: {bad}")
+        if any(r["launches"] != 1 for r in rs):
+            raise AssertionError(f"a rung was not launched: {[r['launches'] for r in rs]}")
+        if any(r["library_bits_equal"] is False for r in rs):
+            raise AssertionError("a library call's bits differ from the plain version")
+
+    edges = _rung_edges()
+    # an int32 view one element into its storage: off the 16-byte boundary
+    base = kt.ladder_input((1 << 24) + 1, DEV, seed=13)
+    views = {label: (k4.to_i32(x), x) for label, x in edges.items()}
+    views["unaligned view, n=2^24"] = (k4.to_i32(base)[1:], base[1:])
+    views["unaligned view, n=9"] = (k4.to_i32(base[:10])[1:], base[1:10])
+    for label, (x32, x) in views.items():
         for rung in k4.RUNGS:
-            got = k4.from_i32(k4.launch(rung, k4.to_i32(x)))
+            got = k4.from_i32(k4.launch(rung, x32))
             torch.cuda.synchronize()
             if not torch.equal(got, k4.PLAIN[rung](x)):
                 raise AssertionError(f"{rung} differs from its plain version at {label}")
 
+    split = kt.host_split()
     if k2 is None:
         raise AssertionError("the rungs passed, but K2 failed: no time to split")
-    split = _k2_split(k2["times"], recs[0])
+    k2_split = _k2_split(k2["times"], recs[0])
     kernels = []
-    for r in recs:
+    for r, big in zip(recs, large):
         kernels.append({
             "name": f"ladder_{r['rung']}",
             "route": "cuda",
@@ -314,16 +342,28 @@ def phase_k4(k2):
             **{key: r[key] for key in (
                 "launches", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "host_us_per_launch")},
+            "large_n": kt.LADDER_LARGE_N,
+            "large_n_ms": big["back_to_back_ms"],
+            "large_n_route_ms": big["ms"],
+            "large_n_host_us_per_launch": big["host_us_per_launch"],
+            "large_n_bound_ms": big["bound_ms"],
+            "large_n_plain_ms": big["plain_ms"],
+            "large_n_library_ms": big["library_ms"],
         })
-    times = "; ".join(
-        f"{r['rung']} {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}, "
-        f"host {r['host_us_per_launch']:.1f} us, library "
-        + ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}") + ")"
-        for r in recs
-    )
+
+    def times(rs):
+        return "; ".join(
+            f"{r['rung']} own {r['back_to_back_ms']:.4f} ms, route {r['ms']:.4f}, "
+            f"host {r['host_us_per_launch']:.1f} us, library "
+            + ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+            for r in rs)
+
     return {
-        "line": f"6 rungs bit-identical at n=256, {', '.join(edges)}; bound "
-                f"{recs[0]['bound_ms']:.2e} ms; {times}; k2_split {json.dumps(split)}",
+        "line": f"6 rungs bit-identical at n=256, n=2^24 (arange), {', '.join(views)}; "
+                f"n=256 (bound {recs[0]['bound_ms']:.2e} ms): {times(recs)}; "
+                f"n=2^24 (bound {large[0]['bound_ms']:.4f} ms): {times(large)}; "
+                f"host split (us a call, medians): {kt.split_line(split)}; "
+                f"k2_split {json.dumps(k2_split)}",
         "kernels": kernels,
     }
 

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and the one launch route that
+every wrapper takes.
 
 Each source in ``ops/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, and loaded
@@ -10,6 +11,25 @@ named by a hash of their source, so an edited source is rebuilt and a stale
 library is never loaded.  The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills of each kernel) is kept beside each library in a
 ``.log`` file.
+
+The launch route.  A wrapper's call on the card pays for its checks, its
+output allocation, the stream's raw handle, the C entry and the launch;
+everything else is paid once:
+
+- ``Entry`` binds one C entry at its first call (loads the library, sets
+  ``argtypes``) and keeps the bound ctypes function in ``Entry.call``, so
+  no later call goes through ``library()`` or tests ``argtypes``.  Nothing
+  is bound, loaded or built at import.
+- ``stream_handle(index)`` is the raw handle of PyTorch's current stream on
+  card ``index``, from ``torch._C._cuda_getCurrentRawStream``, the binding
+  PyTorch's own Inductor and Triton launchers call; the public
+  ``torch.cuda.current_stream(dev).cuda_stream`` builds a ``Stream`` object
+  each call.  The binding exists only in CUDA builds of PyTorch, so it is
+  looked up at the first launch, never at import.
+- Each C entry takes the card's index and launches there, putting the
+  current device back, so a tensor on another card than the current one is
+  launched on its own card with its own stream.
+- A non-zero CUDA error code raises (``Entry.error``); there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,6 +40,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -107,8 +129,42 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise when a launch returned a CUDA error code."""
-    if rc != 0:
-        msg = lib.kspec_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+class Entry:
+    """One C entry of csrc/<lib>.cu, bound at its first call.
+
+    ``entry.call(*args)`` calls the C function with ``argtypes`` and an int
+    return (a CUDA error code).  Until the first call ``call`` is a method
+    that binds the function and puts it in its own place, so every later
+    call is the ctypes function itself."""
+
+    def __init__(self, lib: str, name: str, argtypes):
+        self.lib, self.name, self.argtypes = lib, name, list(argtypes)
+        self.call = self._bind_and_call
+
+    def bound(self) -> bool:
+        return self.call != self._bind_and_call
+
+    def _bind_and_call(self, *args):
+        fn = getattr(library(self.lib), self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self.call = fn
+        return fn(*args)
+
+    def error(self, rc: int, what: str) -> RuntimeError:
+        """The error to raise for a launch that returned CUDA error `rc`."""
+        msg = library(self.lib).kspec_error_string(rc).decode()
+        return RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+
+
+_raw_stream = None  # torch._C._cuda_getCurrentRawStream, once a launch needed it
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle (cudaStream_t, as an int) of PyTorch's current stream
+    on card `index`: what torch.cuda.current_stream(index).cuda_stream gives,
+    without building a Stream object."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(index)

@@ -7,10 +7,11 @@ loads) and what bounds it on the card.
 
 ``fingerprint(lanes, valid)`` is the entry point.  On a CPU tensor it runs
 the plain version, ``fingerprint_plain``; on a CUDA tensor it launches the
-kernel on the port's int64 lanes and bool mask as they are, and runs
-nothing else on the card, or raises.  ``LAUNCHES`` counts the kernel's
-launches.  ``to_i32``/``from_i32`` convert the u32-in-int64 carrier to
-int32 bit patterns and back for kernels that take those (``cuda_ladder``).
+kernel on the port's int64 lanes and bool mask as they are, on their card,
+through ``build``'s launch route, and runs nothing else on the card, or
+raises.  ``LAUNCHES`` counts the kernel's launches.  ``to_i32``/``from_i32``
+convert the u32-in-int64 carrier to int32 bit patterns and back for kernels
+that take those (``cuda_ladder``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ LAUNCHES = 0
 # lanes a row at most: a block stages 256 rows of K int64 words in shared
 # memory, and a block may have 227 KB (232,448 bytes)
 MAX_LANES = 232448 // (256 * 8)
+_p = ctypes.c_void_p
+# lanes, valid, hi, lo, m, k, device, stream
+KSPEC_FINGERPRINT = build.Entry(
+    "fingerprint", "kspec_fingerprint",
+    (_p, _p, _p, _p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _p))
 
 
 def fingerprint_plain(lanes: torch.Tensor, valid: torch.Tensor):
@@ -45,31 +51,35 @@ def from_i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
-def launch(lanes: torch.Tensor, valid: torch.Tensor):
-    """The kernel itself: int64[M, K] u32 lanes x bool[M] on the card ->
-    (hi, lo) int64[M] u32 values, the sentinel pair for invalid rows."""
-    global LAUNCHES
-    dev = lanes.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel K1 needs CUDA tensors, got {dev}")
-    if lanes.dtype != torch.int64 or lanes.dim() != 2 or not lanes.is_contiguous():
+def _check(lanes: torch.Tensor, valid: torch.Tensor):
+    """-> (M, K, card index) of a call the kernel takes; raises otherwise."""
+    if not lanes.is_cuda:
+        raise ValueError(f"kernel K1 needs CUDA tensors, got {lanes.device}")
+    if lanes.dtype is not torch.int64 or lanes.dim() != 2 or not lanes.is_contiguous():
         raise ValueError(f"lanes must be contiguous int64[M, K], got {lanes.dtype}{list(lanes.shape)}")
     m, k = lanes.shape
     if not 1 <= k <= MAX_LANES:
         raise ValueError(f"K = {k} lanes: the kernel takes 1 to {MAX_LANES}")
-    if (valid.dtype != torch.bool or valid.shape != (m,) or valid.device != dev
-            or not valid.is_contiguous()):
+    index = lanes.get_device()
+    if (valid.dtype is not torch.bool or valid.dim() != 1 or valid.shape[0] != m
+            or valid.get_device() != index or not valid.is_contiguous()):
         raise ValueError("valid must be a contiguous bool[M] beside lanes")
-    hi = torch.empty(m, dtype=torch.int64, device=dev)
-    lo = torch.empty(m, dtype=torch.int64, device=dev)
+    return m, k, index
+
+
+def launch(lanes: torch.Tensor, valid: torch.Tensor):
+    """The kernel itself: int64[M, K] u32 lanes x bool[M] on the card ->
+    (hi, lo) int64[M] u32 values, the sentinel pair for invalid rows."""
+    global LAUNCHES
+    m, k, index = _check(lanes, valid)
+    hi = lanes.new_empty(m)
+    lo = lanes.new_empty(m)
     if m == 0:
         return hi, lo
-    lib = _lib()
-    rc = lib.kspec_fingerprint(
-        lanes.data_ptr(), valid.data_ptr(), hi.data_ptr(), lo.data_ptr(), m, k,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check_rc(lib, rc, "fingerprint kernel launch")
+    rc = KSPEC_FINGERPRINT.call(lanes.data_ptr(), valid.data_ptr(), hi.data_ptr(),
+                                lo.data_ptr(), m, k, index, build.stream_handle(index))
+    if rc:
+        raise KSPEC_FINGERPRINT.error(rc, "fingerprint kernel launch")
     LAUNCHES += 1
     return hi, lo
 
@@ -77,16 +87,7 @@ def launch(lanes: torch.Tensor, valid: torch.Tensor):
 def fingerprint(lanes: torch.Tensor, valid: torch.Tensor):
     """int64[M, K] u32 lanes x bool[M] -> (hi, lo) int64[M] u32 values,
     with the sentinel pair for invalid rows."""
-    if lanes.device.type == "cpu":
+    if lanes.is_cpu:
         return fingerprint_plain(lanes, valid)
     return launch(lanes, valid)
 
-
-def _lib():
-    lib = build.library("fingerprint")
-    fn = lib.kspec_fingerprint
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

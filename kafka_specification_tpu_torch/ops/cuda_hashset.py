@@ -15,6 +15,7 @@ a CPU tensor it runs that plain version; on a CUDA tensor it launches the
 kernel or raises.  Winners, ``n_new`` and table membership equal the plain
 version's; slot positions may differ where two probe chains interleave,
 which changes neither.  ``LAUNCHES`` counts calls that launched the kernel.
+A launch goes through ``build``'s launch route, on the table's card.
 
 A call on the card runs no PyTorch operation there and allocates only its
 outputs.  The workspace is kept per (device, stream): one claim array as
@@ -40,6 +41,11 @@ LAUNCHES = 0
 MAX_CAP = 1 << 31  # slots are int32 in the row scratch
 MAX_ROWS = (1 << 32) - 2  # a row is the low half of a claim word; all ones is the fill
 FIRST_CODE = (1 << 32) - 1
+_p, _ll = ctypes.c_void_p, ctypes.c_longlong
+# table, claim, cap, q, valid, m, max_probes, code, slot, is_new, counts, device, stream
+KSPEC_PROBE_INSERT = build.Entry(
+    "hashset", "kspec_probe_insert",
+    (_p, _p, _ll, _p, _p, _ll, ctypes.c_int, ctypes.c_uint, _p, _p, _p, ctypes.c_int, _p))
 
 # (device index, stream) -> [claim words int64[>= cap], this call's code]
 _CLAIMS: dict[tuple[int, int], list] = {}
@@ -63,40 +69,49 @@ def _workspace(dev, stream: int, cap: int, m: int):
     return claim, code, slot
 
 
-def launch(table: torch.Tensor, q: torch.Tensor, valid=None):
-    """The kernel itself: int64[cap] table (updated in place) x int64[M]
-    keys x bool[M] (None: every row valid) on the card -> (is_new bool[M],
-    counts int32[2]: n_new, overflow)."""
-    global LAUNCHES
-    dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel K2 needs CUDA tensors, got {dev}")
+def _check(table: torch.Tensor, q: torch.Tensor, valid) -> int:
+    """-> the card index of a call the kernel takes; raises otherwise."""
+    if not table.is_cuda:
+        raise ValueError(f"kernel K2 needs CUDA tensors, got {table.device}")
     cap = table.shape[0]
-    if table.dtype != torch.int64 or table.dim() != 1 or cap & (cap - 1):
+    if table.dtype is not torch.int64 or table.dim() != 1 or cap & (cap - 1):
         raise ValueError("table must be int64[cap] with cap a power of two")
     if not table.is_contiguous():
         raise ValueError("table must be contiguous (it is updated in place)")
     if cap > MAX_CAP:
         raise ValueError(f"table capacity {cap} exceeds the kernel's {MAX_CAP} slots")
-    if q.dtype != torch.int64 or q.dim() != 1 or q.device != dev or not q.is_contiguous():
+    index = table.get_device()
+    if (q.dtype is not torch.int64 or q.dim() != 1 or q.get_device() != index
+            or not q.is_contiguous()):
         raise ValueError("keys must be contiguous int64[M] on the table's device")
     m = q.shape[0]
     if m > MAX_ROWS:
         raise ValueError(f"{m} keys: a claim word holds row indices below {MAX_ROWS + 1}")
-    if valid is not None and (valid.dtype != torch.bool or valid.shape != q.shape
-                              or valid.device != dev or not valid.is_contiguous()):
+    if valid is not None and (valid.dtype is not torch.bool or valid.shape != q.shape
+                              or valid.get_device() != index or not valid.is_contiguous()):
         raise ValueError("valid must be a contiguous bool[M] beside the keys, or None")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    claim, code, slot = _workspace(dev, stream, cap, m)
-    is_new = torch.empty(m, dtype=torch.bool, device=dev)
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
-    lib = _lib()
-    rc = lib.kspec_probe_insert(
+    return index
+
+
+def launch(table: torch.Tensor, q: torch.Tensor, valid=None):
+    """The kernel itself: int64[cap] table (updated in place) x int64[M]
+    keys x bool[M] (None: every row valid) on the card -> (is_new bool[M],
+    counts int32[2]: n_new, overflow)."""
+    global LAUNCHES
+    index = _check(table, q, valid)
+    cap, m = table.shape[0], q.shape[0]
+    stream = build.stream_handle(index)
+    # the one torch.device of a call: the workspace is made on it and keyed by its index
+    claim, code, slot = _workspace(table.device, stream, cap, m)
+    is_new = q.new_empty(m, dtype=torch.bool)
+    counts = q.new_empty(2, dtype=torch.int32)
+    rc = KSPEC_PROBE_INSERT.call(
         table.data_ptr(), claim.data_ptr(), cap, q.data_ptr(),
         None if valid is None else valid.data_ptr(), m, MAX_PROBES, code,
-        slot.data_ptr(), is_new.data_ptr(), counts.data_ptr(), dev.index, stream,
+        slot.data_ptr(), is_new.data_ptr(), counts.data_ptr(), index, stream,
     )
-    build.check_rc(lib, rc, "hash probe kernel launch")
+    if rc:
+        raise KSPEC_PROBE_INSERT.error(rc, "hash probe kernel launch")
     LAUNCHES += 1
     return is_new, counts
 
@@ -105,20 +120,10 @@ def probe_insert(table, q, valid=None):
     """Insert-or-find (see hashset.probe_insert): -> (table, is_new bool[M],
     n_new int, overflow bool); the table is updated in place, and n_new and
     overflow are read to the host in one read."""
-    if table.device.type == "cpu":
+    if table.is_cpu:
         table, is_new, n_new, overflow = probe_insert_plain(table, q, valid)
         return table, is_new, int(n_new), bool(overflow)
     is_new, counts = launch(table, q, valid)
     n_new, overflow = counts.tolist()
     return table, is_new, n_new, bool(overflow)
 
-
-def _lib():
-    lib = build.library("hashset")
-    fn = lib.kspec_probe_insert
-    if fn.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ll, p, p, ll, ctypes.c_int, ctypes.c_uint, p, p, p,
-                       ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -2,16 +2,22 @@
 
 Counterpart of ``scripts/tpu_mosaic_ladder.py`` (:45-133).  Each rung is one
 construct over u32[n], from a pure vector op down to a data-dependent scalar
-store and a serial scalar walk.  On the TPU the ladder found which Pallas
+store and a scalar walk.  On the TPU the ladder found which Pallas
 constructs its compile path took; on the card each rung measures what its
 construct costs.  At the ladder's n = 256 a rung moves 2 KB, so its time is
-the launch floor.  The CUDA source is ``csrc/ladder.cu``.
+the launch floor; at n = 2^24 (134 MB read and written, beyond the 50 MB
+L2) it is one memory-bound pass.  The CUDA source is ``csrc/ladder.cu``;
+its header gives the design (one 16-byte vector a thread; four 4-byte
+elements a thread for ``scalar_loop`` and for a view off a 16-byte
+boundary).
 
 ``run(rung, x)`` is the entry point of one rung.  On a CPU tensor it runs
 the plain version, ``PLAIN[rung]``; on a CUDA tensor it launches the kernel
-or raises.  ``run_ladder`` runs the JAX script's path: ``arange(n)`` through
-every rung, each compared with its plain version and timed.  ``LAUNCHES``
-counts each rung's kernel launches.
+on the tensor's card, through ``build``'s launch route, or raises.
+``run_ladder`` runs the JAX script's path: ``arange(n)`` through every
+rung, each compared with its plain version and timed
+(``utils/kernel_times.py::rung_times``).  ``LAUNCHES`` counts each rung's
+kernel launches.
 
 Semantics of every rung, as the Pallas bodies compute them: values are u32
 (carried in int64 here, as int32 bit patterns on the kernel's side) and all
@@ -23,11 +29,10 @@ range.
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
-from ..utils.timing import HBM_BYTES_PER_S, back_to_back_ms
+from ..utils.timing import HBM_BYTES_PER_S
 from . import build
 from .cuda_fingerprint import from_i32, to_i32
 from .fingerprint import MASK32
@@ -39,7 +44,12 @@ REPLACES = {
     for rung, line in zip(RUNGS, (45, 48, 54, 58, 62, 67))
 }
 LAUNCHES = {rung: 0 for rung in RUNGS}
-TIMED_LAUNCHES = 1000  # launches behind each time of run_ladder
+_INDEX = {rung: i for i, rung in enumerate(RUNGS)}
+_p = ctypes.c_void_p
+# rung, x, o, n, reps, device, stream
+KSPEC_LADDER = build.Entry(
+    "ladder", "kspec_ladder",
+    (ctypes.c_int, _p, _p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _p))
 
 
 def _pos(x: torch.Tensor) -> torch.Tensor:
@@ -84,29 +94,29 @@ PLAIN = dict(zip(RUNGS, (vec_plain, loop_vec_plain, static_scalar_plain,
 
 
 def _check_rung(rung: str) -> None:
-    if rung not in RUNGS:
+    if rung not in _INDEX:
         raise ValueError(f"unknown rung {rung!r}; the rungs are {RUNGS}")
 
 
 def _check_x32(x32: torch.Tensor) -> None:
-    if x32.device.type != "cuda":
+    if not x32.is_cuda:
         raise ValueError(f"kernel K4 needs CUDA tensors, got {x32.device}")
-    if x32.dtype != torch.int32 or x32.dim() != 1 or not 1 <= x32.shape[0] < 1 << 31:
+    if x32.dtype is not torch.int32 or x32.dim() != 1 or not 1 <= x32.shape[0] < 1 << 31:
         raise ValueError(f"x must be int32[n], 1 <= n < 2^31, got {x32.dtype}{list(x32.shape)}")
 
 
 def _launch(rung: str, x32: torch.Tensor, out: torch.Tensor, reps: int) -> None:
-    lib = _lib()
-    rc = lib.kspec_ladder(
-        RUNGS.index(rung), x32.data_ptr(), out.data_ptr(), x32.shape[0], reps,
-        torch.cuda.current_stream(x32.device).cuda_stream,
-    )
-    build.check_rc(lib, rc, f"ladder kernel launch ({rung})")
+    index = x32.get_device()
+    rc = KSPEC_LADDER.call(_INDEX[rung], x32.data_ptr(), out.data_ptr(), x32.shape[0],
+                           reps, index, build.stream_handle(index))
+    if rc:
+        raise KSPEC_LADDER.error(rc, f"ladder kernel launch ({rung})")
     LAUNCHES[rung] += reps
 
 
 def launch(rung: str, x32: torch.Tensor) -> torch.Tensor:
-    """The kernel itself: int32[n] bit patterns on the card -> int32[n]."""
+    """The kernel itself: int32[n] bit patterns on the card -> int32[n],
+    launched on x32's card and its current stream."""
     _check_x32(x32)
     _check_rung(rung)
     x32 = x32.contiguous()
@@ -120,9 +130,12 @@ def launch_repeated(rung: str, x32: torch.Tensor, out: torch.Tensor, reps: int) 
     the card's launch-to-launch time with no Python between launches."""
     _check_x32(x32)
     _check_rung(rung)
+    n = x32.shape[0]
     if not (x32.is_contiguous() and out.is_contiguous() and out.shape == x32.shape
-            and out.dtype == torch.int32 and out.device == x32.device):
+            and out.dtype is torch.int32 and out.get_device() == x32.get_device()):
         raise ValueError("x and out must be contiguous int32[n] on one device")
+    if abs(out.data_ptr() - x32.data_ptr()) < 4 * n:
+        raise ValueError("out must not overlap x")
     _launch(rung, x32, out, reps)
 
 
@@ -139,17 +152,21 @@ def run(rung: str, x: torch.Tensor) -> torch.Tensor:
 
 def library_call(rung: str, x32: torch.Tensor):
     """One PyTorch call that computes the rung on the int32 bit patterns, as
-    a function of no arguments (its constant made here, outside the call), or
-    None where there is none.  Timed beside the kernel, used nowhere else."""
+    a function of no arguments (its constants made here, outside the call, no
+    larger than one element, so that the call reads x and writes its output
+    as the kernel does), or None where there is none.  Timed beside the
+    kernel, used nowhere else."""
     if rung == "vec":
-        seven = torch.full_like(x32, 7)
+        # a 0-dim CPU tensor: passed to the card's kernel as an argument, so
+        # that x is its only input (a 0-dim card tensor is a second input of
+        # stride 0, which keeps torch off its vectorized path)
+        seven = torch.tensor(7, dtype=torch.int32)
         return lambda: torch.add(seven, x32, alpha=3)
     if rung == "loop_vec":
         return lambda: torch.mul(x32, 4)
     if rung == "static_scalar":
-        e0 = torch.zeros_like(x32)
-        e0[0] = 1
-        return lambda: torch.add(x32, e0)
+        at0, one = x32.new_zeros(1, dtype=torch.int64), x32.new_ones(1)
+        return lambda: torch.index_add(x32, 0, at0, one)
     if rung == "scalar_loop":
         return lambda: torch.add(x32, 1)
     return None  # dyn_read and dyn_slice take pos from the data
@@ -160,31 +177,6 @@ def bound(n: int) -> tuple[float, str]:
     read once, each output byte written once.  A rung does at most four
     integer operations an element, some 40x less time than its bytes."""
     return 8 * n / HBM_BYTES_PER_S * 1e3, "bytes"
-
-
-def _time_rung(rung: str, x: torch.Tensor, ref: torch.Tensor) -> dict:
-    iters = TIMED_LAUNCHES
-    x32 = to_i32(x)
-    out = torch.empty_like(x32)
-    rec = {
-        "ms": back_to_back_ms(lambda: launch(rung, x32), iters),
-        "back_to_back_ms": back_to_back_ms(
-            lambda: launch_repeated(rung, x32, out, iters), 1) / iters,
-        "plain_ms": back_to_back_ms(lambda: PLAIN[rung](x), max(1, iters // 10)),
-        "library_ms": None,
-        "library_bits_equal": None,
-    }
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        launch(rung, x32)
-    rec["host_us_per_launch"] = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    lib_fn = library_call(rung, x32)
-    if lib_fn is not None:
-        rec["library_bits_equal"] = bool(torch.equal(from_i32(lib_fn()), ref))
-        rec["library_ms"] = back_to_back_ms(lib_fn, iters)
-    return rec
 
 
 def _without_kernel(rung: str, n: int, ok: bool, error) -> dict:
@@ -205,6 +197,8 @@ def run_ladder(device=None, n: int = 256, emit=None) -> list[dict]:
     raises ends the ladder (a CUDA fault leaves the context unusable): it
     and every later rung get ok False and the error.
     """
+    from ..utils import kernel_times
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the ladder runs on the card "
@@ -228,7 +222,7 @@ def run_ladder(device=None, n: int = 256, emit=None) -> list[dict]:
                 ref = PLAIN[rung](x)
                 err = int((out - ref).abs().max())
                 rec = {"rung": rung, "ok": err == 0, "error": None, "max_abs_err": err,
-                       **_time_rung(rung, x, ref)}
+                       **kernel_times.rung_times(rung, x, ref)}
                 rec["bound_ms"], rec["bound_by"] = bound(n)
                 rec["launches"] = launches
             except RuntimeError as e:  # build error or CUDA error: bank it, stop
@@ -239,12 +233,3 @@ def run_ladder(device=None, n: int = 256, emit=None) -> list[dict]:
             emit(rec)
     return records
 
-
-def _lib():
-    lib = build.library("ladder")
-    fn = lib.kspec_ladder
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

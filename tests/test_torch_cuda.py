@@ -16,7 +16,7 @@ import torch
 from kafka_specification_tpu_torch import check
 from kafka_specification_tpu_torch.models import kip320, variants
 from kafka_specification_tpu_torch.models.kafka_replication import Config
-from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset, cuda_ladder, hashset
+from kafka_specification_tpu_torch.ops import build, cuda_fingerprint, cuda_hashset, cuda_ladder, hashset
 from kafka_specification_tpu_torch.ops.dedup import pair_key
 
 pytestmark = pytest.mark.cuda
@@ -188,3 +188,56 @@ def test_k4_ladder_script_exits_3_when_a_rung_differs(card, monkeypatch, capsys)
     assert script.main(["--n", "256"]) == 3
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 12 and '"ok": false' in lines[9]
+
+
+def _u32(rng, n):
+    return torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.uint32).astype(np.int64))
+
+
+@pytest.mark.parametrize("rung", cuda_ladder.RUNGS)
+def test_k4_rung_bit_identical_past_the_vectors(card, rung):
+    """n = 2^24 + 3 (a tail after the 16-byte vectors, a grid smaller than
+    the work), an int32 view one element into its storage (the 4-byte
+    path), and pos in the tail and in the last vector."""
+    rng = np.random.default_rng(6)
+    big = _u32(rng, (1 << 24) + 3).to(card)
+    base = _u32(rng, 70002).to(card)
+    cases = [(cuda_ladder.to_i32(big), big),
+             (cuda_ladder.to_i32(base)[1:], base[1:]),
+             (cuda_ladder.to_i32(base[:10])[1:], base[1:10])]
+    for n, x0 in ((7, 6), (9, 6), (3, 2)):
+        x = _u32(rng, n)
+        x[0] = x0
+        cases.append((cuda_ladder.to_i32(x.to(card)), x.to(card)))
+    for x32, x in cases:
+        got = cuda_ladder.from_i32(cuda_ladder.launch(rung, x32))
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_ladder.PLAIN[rung](x)), (x.shape[0], x32.data_ptr() % 16)
+
+
+def test_stream_handle_is_the_current_stream(card):
+    index = card.index if card.index is not None else torch.cuda.current_device()
+    assert build.stream_handle(index) == torch.cuda.current_stream(card).cuda_stream
+    s = torch.cuda.Stream(card)
+    with torch.cuda.stream(s):
+        assert build.stream_handle(index) == s.cuda_stream
+        assert build.stream_handle(index) == torch.cuda.current_stream(card).cuda_stream
+    assert build.stream_handle(index) == torch.cuda.current_stream(card).cuda_stream != s.cuda_stream
+
+
+def test_k4_rung_runs_on_the_current_stream(card):
+    """On a side stream held by a sleep, x is written and then the rung
+    launched: a rung launched on any other stream would read x before the
+    write and give the wrong bits."""
+    n = 1 << 20
+    fresh = torch.arange(n, dtype=torch.int32, device=card) * 7 + 1
+    x32 = torch.zeros(n, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(card)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)  # some tens of ms
+        x32.copy_(fresh)
+        out = cuda_ladder.launch("dyn_read", x32)
+    torch.cuda.synchronize()
+    x = cuda_ladder.from_i32(fresh)
+    assert torch.equal(cuda_ladder.from_i32(out), cuda_ladder.PLAIN["dyn_read"](x))

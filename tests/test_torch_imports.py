@@ -62,7 +62,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "kafka_specification_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
-    files += [REPO / "scripts" / "torch_profile_check.py", REPO / "scripts" / "cuda_kernel_ladder.py"]
+    files += [REPO / "scripts" / name for name in (
+        "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)

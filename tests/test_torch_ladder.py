@@ -8,9 +8,13 @@ writes nothing because its ``main`` never runs.
 """
 
 import ast
+import ctypes
 import functools
 import importlib.util
 import json
+import shutil
+import subprocess
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +29,7 @@ from kafka_specification_tpu_torch.ops import cuda_ladder
 
 REPO = Path(__file__).resolve().parents[1]
 TPU_LADDER = REPO / "scripts" / "tpu_mosaic_ladder.py"
+LADDER_CU = REPO / "kafka_specification_tpu_torch" / "ops" / "csrc" / "ladder.cu"
 
 
 @functools.cache
@@ -50,8 +55,8 @@ def _random(n, seed):
     return np.random.default_rng(seed).integers(0, 2**32, size=n, dtype=np.uint32)
 
 
-def _with_first(x0):
-    x = _random(256, 9)
+def _with_first(x0, n=256):
+    x = _random(n, 9)
     x[0] = x0
     return x
 
@@ -67,6 +72,11 @@ INPUTS = {
     "x0_top_bit": lambda: _with_first(0x80000000),
     "x0_all_ones": lambda: _with_first(0xFFFFFFFF),
     "all_ones": lambda: np.full(256, 0xFFFFFFFF, dtype=np.uint32),
+    # sizes the card's kernels split into 16-byte vectors and a tail
+    "n3_x0_2_all_tail": lambda: _with_first(2, 3),
+    "n7_x0_6_pos_in_tail": lambda: _with_first(6, 7),
+    "n9_x0_6_pos_in_last_vector": lambda: _with_first(6, 9),
+    "random1027": lambda: _random(1027, 5),
 }
 
 
@@ -162,3 +172,90 @@ def test_ladder_script_on_the_cpu(tmp_path, capsys):
 def test_ladder_script_exits_3_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert _script().main([]) == 3
+
+
+# --- ladder.cu itself, run on the CPU ---------------------------------
+#
+# The kernels' source compiled by g++ against a stub of the few CUDA
+# runtime names it uses: cudaLaunchKernel runs every block and every
+# thread of the grid in turn.
+
+STUB_RUNTIME = textwrap.dedent("""
+    #pragma once
+    #include <cstddef>
+    #include <cstdint>
+    #define __global__
+    #define __device__
+    #define __forceinline__ inline
+    #define __launch_bounds__(x)
+    struct uint4 { unsigned x, y, z, w; };
+    struct dim3 {
+      unsigned x, y, z;
+      dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+    };
+    static dim3 blockIdx, threadIdx, gridDim, blockDim;
+    typedef int cudaError_t;
+    typedef void* cudaStream_t;
+    enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+    static cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+    static cudaError_t cudaSetDevice(int) { return 0; }
+    static const char* cudaGetErrorString(cudaError_t) { return "stub"; }
+    static cudaError_t cudaLaunchKernel(const void* f, dim3 g, dim3 b, void** args, size_t,
+                                        cudaStream_t) {
+      auto k = (void (*)(const uint32_t*, uint32_t*, long long))f;
+      gridDim = g;
+      blockDim = b;
+      for (unsigned bx = 0; bx < g.x; ++bx)
+        for (unsigned tx = 0; tx < b.x; ++tx) {
+          blockIdx = dim3(bx);
+          threadIdx = dim3(tx);
+          k(*(const uint32_t**)args[0], *(uint32_t**)args[1], *(long long*)args[2]);
+        }
+      return 0;
+    }
+""")
+
+
+@pytest.fixture(scope="module")
+def ladder_on_cpu(tmp_path_factory):
+    """kspec_ladder of ladder.cu, compiled for the CPU against the stub."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to compile ladder.cu for the CPU")
+    d = tmp_path_factory.mktemp("ladder_cpu")
+    (d / "cuda_runtime.h").write_text(STUB_RUNTIME)
+    lib = d / "libladder_cpu.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}", "-x", "c++",
+                    "-Wno-unknown-pragmas", "-o", str(lib), str(LADDER_CU)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).kspec_ladder
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_int, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# all tail, pos in the tail, pos in the last vector, a tail after one and
+# after many blocks (a block takes 1,024 elements)
+LADDER_SIZES = [(1, 0), (3, 2), (6, 5), (7, 6), (9, 6), (1027, 13), (16389, 6), (40003, 4)]
+
+
+@pytest.mark.parametrize("n, x0", LADDER_SIZES)
+@pytest.mark.parametrize("aligned", [True, False], ids=["16-byte", "4-byte"])
+@pytest.mark.parametrize("rung", cuda_ladder.RUNGS)
+def test_ladder_cu_on_the_cpu_equals_plain(ladder_on_cpu, rung, aligned, n, x0):
+    """Every thread's share (its vector or its four scalars, the tail, the
+    lane that holds pos) gives the plain version's bits, and nothing is
+    written past n."""
+    rng = np.random.default_rng(n)
+    buf = rng.integers(0, 2**32, size=n + 8, dtype=np.uint32)
+    start = 0 if buf.ctypes.data % 16 == 0 else (16 - buf.ctypes.data % 16) // 4
+    x = buf[start + (0 if aligned else 1):][:n]
+    x[0] = x0
+    out = np.full(n + 4, 0xDEADBEEF, dtype=np.uint32)
+    assert (x.ctypes.data % 16 == 0) == aligned and out.ctypes.data % 16 == 0
+    assert ladder_on_cpu(cuda_ladder.RUNGS.index(rung), x.ctypes.data, out.ctypes.data,
+                         n, 1, 0, None) == 0
+    want = cuda_ladder.PLAIN[rung](torch.from_numpy(x.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(out[:n].astype(np.int64), want)
+    assert (out[n:] == 0xDEADBEEF).all()
