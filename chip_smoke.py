@@ -10,10 +10,12 @@ print no result:
 
   build  compile every CUDA source of the port (one nvcc each, in parallel)
   K1     fingerprint kernel vs its plain PyTorch version, bit for bit, on
-         the port's int64 lanes and bool mask at M = 32768 x 51 rows of
-         K = 3 lanes (a full Kip320 3r chunk's lattice) and at M = 65,537,
-         K = 7, ~10% invalid rows; then its own time, route time, bound and
-         plain time (utils/kernel_times.py)
+         the port's int64 lanes and bool mask at M = 109,260 rows of K = 3
+         lanes, all valid (the enabled candidates of Kip320 3r's largest
+         chunk, as check() hands them over), at M = 32768 x 51 (a full
+         chunk's lattice) and M = 65,537, K = 7, ~10% invalid rows; then
+         its own time, route time, bound and plain time at the first shape
+         (utils/kernel_times.py)
   K2     hash insert-or-find kernel vs its plain version at cap 2^22 and
          M = 109,260 with in-batch duplicates, pre-seeded keys and invalid
          rows (winners, count, membership identical); ten calls on two
@@ -35,11 +37,22 @@ print no result:
          torch.add's (utils/kernel_times.py::host_split); and K2's route
          split into host work and read-back, one launch floor and the
          kernel's own work, all in this run
-  main   configs/Kip320.cfg through check() on the card: ok, 737,794
-         states, diameter 25, per-level counts equal to the JAX package's
-         (pinned below), both kernels launched
-  trace  KafkaTruncateToHighWatermark 3r L2 R2 E2 with StrongIsr only:
-         violated at depth 8 with the JAX package's trace (pinned below)
+  main   configs/Kip320.cfg through check() on the card with the knobs
+         visited_backend="device-hash", pipeline="legacy", compact_shift=0:
+         ok, 737,794 states, diameter 25, per-level counts equal to the JAX
+         package's (pinned below), both kernels launched
+  trace  KafkaTruncateToHighWatermark 3r L2 R2 E2 with StrongIsr only, the
+         same knobs: violated at depth 8 with the JAX package's trace for
+         them (pinned below)
+  default        configs/Kip320.cfg through check() with no knobs (the
+         sorted `device` visited set, the fused pipeline, compact_shift 2,
+         compact_gate 4096): the same counts, K1 launched, K2 not
+  trace-default  the trace model with no knobs: the JAX package's trace
+         for its defaults (pinned below)
+  cli    `python -m kafka_specification_tpu_torch.cli check
+         configs/Kip320FirstTry.cfg --json` in a subprocess: exit 1 and the
+         JAX package's kspec-verdict/1 record (WeakIsr at depth 11; pinned
+         below, timing fields aside)
 
 A kernel's `ms` is its own time (CUDA events around back-to-back launches),
 `route_ms` the entry point's time as check() calls it, host work included.
@@ -51,14 +64,15 @@ when CUDA is not available or the port's package is not beside it.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-# JAX package, check() of configs/Kip320.cfg on the CPU (device-hash,
-# legacy step): distinct new states per level
+# JAX package, check() of configs/Kip320.cfg on the CPU: distinct new
+# states per level (the same for every backend and pipeline)
 KIP320_LEVELS = [
     1, 6, 30, 138, 366, 1170, 2715, 5673, 10836, 18648, 28818, 40629, 53691,
     66432, 77400, 84072, 85404, 78909, 66447, 49422, 32916, 19542, 9939, 3660,
@@ -79,6 +93,30 @@ THW_STATE = [
     [[1, 1, 0, [0, 2]], [0, -1, -1, []], [0, 1, 0, [0, 2]]],
     1, 2, [[0, 0, [0, 1, 2]], [1, 0, [0, 2]]], [1, 0, [0, 2]],
 ]
+# the same model, check() with no knobs (sorted `device` set, fused) on the
+# CPU: the same levels, the new states of a chunk committed in fingerprint
+# order, so another trace
+THW_DEFAULT_ACTIONS = [
+    "<init>", "ControllerElectLeader", "ControllerShrinkIsr", "BecomeLeader",
+    "BecomeFollowerTruncateToHighWatermark", "LeaderWrite", "FollowerReplicate",
+    "LeaderIncHighWatermark", "BecomeFollowerTruncateToHighWatermark",
+]
+THW_DEFAULT_STATE = [
+    [[], [[0, 1]], []],
+    [[0, -1, -1, []], [1, 1, 1, [1, 2]], [0, 1, 1, [1, 2]]],
+    1, 2, [[0, 1, [0, 1, 2]], [1, 1, [1, 2]]], [1, 1, [1, 2]],
+]
+# JAX package, `cli check configs/Kip320FirstTry.cfg --json --cpu`, with
+# seconds, states_per_sec and run_id left out
+FIRST_TRY_VERDICT = {
+    "schema": "kspec-verdict/1", "model": "Kip320FirstTry(3r,L2,R2,E2)",
+    "distinct_states": 184141, "diameter": 11,
+    "levels": [1, 6, 36, 207, 837, 2244, 4563, 8991, 17307, 30030, 48150, 71769],
+    "violation": {"invariant": "WeakIsr", "depth": 11, "trace_len": 12},
+    "exit_code": 1,
+}
+# the knobs of the path before the sorted backend was ported
+HASH_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
 
 DEV = torch.device("cuda")
 
@@ -149,8 +187,8 @@ def phase_k1():
     from kafka_specification_tpu_torch.utils import kernel_times as kt
 
     checked, err = [], 0
-    for m, k in ((kt.K1_M, kt.K1_K), (65537, 7)):
-        lanes, valid = kt.k1_inputs(DEV, m, k)
+    for m, k, invalid in ((kt.K1_M, kt.K1_K, 0.0), (32768 * 51, 3, 0.1), (65537, 7, 0.1)):
+        lanes, valid = kt.k1_inputs(DEV, m, k, invalid=invalid)
         hi, lo = k1.fingerprint(lanes, valid)
         p_hi, p_lo = k1.fingerprint_plain(lanes, valid)
         torch.cuda.synchronize()
@@ -375,39 +413,52 @@ def _reset_counts():
     cuda_hashset.LAUNCHES = 0
 
 
-def _read_counts():
+def _read_counts(path_kernels):
+    """The launch counts since _reset_counts; every kernel of the path
+    (`path_kernels`) must have been launched, and no other."""
     from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset
 
     counts = {"fingerprint": cuda_fingerprint.LAUNCHES,
               "hash_probe_insert": cuda_hashset.LAUNCHES}
-    if not all(counts.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {counts}")
+    if any(bool(n) != (name in path_kernels) for name, n in counts.items()):
+        raise AssertionError(f"launches {counts}, but the path's kernels are {path_kernels}")
     return counts
 
 
-def phase_main():
+def _kip320(knobs, path_kernels):
+    """configs/Kip320.cfg through check() on the card with `knobs`."""
     from kafka_specification_tpu_torch import build_model, check, load_config
 
     model = build_model("Kip320", load_config("configs/Kip320.cfg"))
     _reset_counts()
     t0 = time.perf_counter()
-    res = check(model, device=DEV)
+    res = check(model, device=DEV, **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _read_counts()
+    counts = _read_counts(path_kernels)
     if not res.ok or res.total != 737_794 or res.diameter != 25:
         raise AssertionError(f"ok={res.ok} total={res.total} diameter={res.diameter}")
     if res.levels != KIP320_LEVELS:
         raise AssertionError(f"per-level counts differ: {res.levels}")
+    stats = {k: res.stats[k] for k in ("visited_backend", "pipeline", "visited_capacity",
+                                       "hash_table_capacity") if k in res.stats}
     return {
         "line": f"Kip320 3r ok, {res.total} states, diameter 25, levels as pinned; "
                 f"{wall:.2f} s wall, {res.total / wall:.0f} states/s; "
-                f"launches {counts}; table {res.stats['hash_table_capacity']} slots",
+                f"launches {counts}; {stats}",
         "counts": counts,
     }
 
 
-def phase_trace():
+def phase_main():
+    return _kip320(HASH_KNOBS, ("fingerprint", "hash_probe_insert"))
+
+
+def phase_default():
+    return _kip320({}, ("fingerprint",))
+
+
+def _trace(knobs, path_kernels, actions, state):
     from kafka_specification_tpu_torch import check
     from kafka_specification_tpu_torch.models import variants
     from kafka_specification_tpu_torch.models.kafka_replication import Config
@@ -416,18 +467,43 @@ def phase_trace():
         "KafkaTruncateToHighWatermark", Config(3, 2, 2, 2), invariants=("StrongIsr",)
     )
     _reset_counts()
-    res = check(model, device=DEV)
-    counts = _read_counts()
+    res = check(model, device=DEV, **knobs)
+    counts = _read_counts(path_kernels)
     v = res.violation
     if v is None or (v.invariant, v.depth) != ("StrongIsr", 8):
         raise AssertionError(f"expected StrongIsr at depth 8, got {v and (v.invariant, v.depth)}")
     if res.levels != THW_LEVELS:
         raise AssertionError(f"levels differ: {res.levels}")
-    if [a for a, _ in v.trace] != THW_ACTIONS:
+    if [a for a, _ in v.trace] != actions:
         raise AssertionError(f"trace actions differ: {[a for a, _ in v.trace]}")
-    if canon(v.state) != THW_STATE:
+    if canon(v.state) != state:
         raise AssertionError(f"violating state differs: {canon(v.state)}")
-    return {"line": f"StrongIsr violated at depth 8, trace as pinned; launches {counts}"}
+    return {"line": f"StrongIsr violated at depth 8, trace as pinned "
+                    f"({res.stats['visited_backend']}, {res.stats['pipeline']}); launches {counts}"}
+
+
+def phase_trace():
+    return _trace(HASH_KNOBS, ("fingerprint", "hash_probe_insert"), THW_ACTIONS, THW_STATE)
+
+
+def phase_trace_default():
+    return _trace({}, ("fingerprint",), THW_DEFAULT_ACTIONS, THW_DEFAULT_STATE)
+
+
+def phase_cli():
+    cmd = [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check",
+           "configs/Kip320FirstTry.cfg", "--json"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 1:
+        raise AssertionError(f"exit {out.returncode}, expected 1: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.splitlines()[-1])
+    got = {k: v for k, v in rec.items() if k not in ("seconds", "states_per_sec", "run_id")}
+    if got != FIRST_TRY_VERDICT:
+        raise AssertionError(f"verdict differs from the JAX package's: {got}")
+    return {"line": f"Kip320FirstTry: WeakIsr at depth 11, {rec['distinct_states']} states, "
+                    f"record as pinned, exit 1; check {rec['seconds']} s, process {wall:.1f} s"}
 
 
 def main() -> int:
@@ -448,13 +524,17 @@ def main() -> int:
     k4 = ph.run("K4", lambda: phase_k4(k2))
     main_path = ph.run("main", phase_main)
     ph.run("trace", phase_trace)
+    default = ph.run("default", phase_default)
+    ph.run("trace-default", phase_trace_default)
+    ph.run("cli", phase_cli)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
     kernels = []
-    for det in (k1, k2):
+    # K1's launches on the default path, K2's on the device-hash path
+    for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
-        kern["launches"] = main_path["counts"][kern["name"]]
+        kern["launches"] = path["counts"][kern["name"]]
         kernels.append(kern)
     kernels += k4["kernels"]  # a rung's launches: one ladder run (no rung is on check())
     print(json.dumps({"kernels": kernels}))

@@ -17,10 +17,18 @@ Every entry point runs on the card unless the caller passes device="cpu",
 where the kernels' plain PyTorch versions run instead.
 
 Layout (module names mirror the JAX package):
-    ops/       packing, fingerprints, dedup, the hash set, kernels + build
+    ops/       packing, fingerprints, dedup and the sorted set, the hash
+               set, kernels + build
     models/    tensor encodings and batched action/invariant kernels
-    engine/    the BFS checker (device-hash visited set, legacy step)
-    utils/     TLC .cfg parsing and model instantiation; device timing
+    engine/    the BFS checker (bfs.py: the level loop and the sorted and
+               hash visited sets; pipeline.py: the per-chunk stages and
+               the candidate order)
+    utils/     TLC .cfg parsing and model instantiation, trace rendering,
+               device timing
+    cli.py     `python -m kafka_specification_tpu_torch.cli check CFG`
+    verdict.py the kspec-verdict/1 record and exit codes
+    pipeline_registry.py  pipeline names ("fused", "legacy"; "device" is
+               not ported) and $KSPEC_PIPELINE
     interop.py JAX/numpy state -> the port's tensors (used by the tests)
 """
 

@@ -1,0 +1,135 @@
+"""Command line of the PyTorch port: check a TLC .cfg.
+
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
+    python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --device cpu --json
+
+``check`` takes the options of the JAX package's ``cli check`` that the
+ported engine serves, with the same names and defaults, and prints what it
+prints: TLC's closing summary (distinct states, diameter, and on a
+violation the invariant and a numbered counterexample trace), or with
+``--json`` the ``kspec-verdict/1`` record (``verdict.py``).  The module
+defaults to the .cfg file's stem; CHECK_DEADLOCK comes from the .cfg.  The
+check runs on the card unless ``--device cpu`` is given.  Exit codes: 0 no
+violation, 1 a violation, 2 an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+from .engine.bfs import VISITED_BACKENDS
+from .pipeline_registry import PORTED
+from .utils.cfg import build_model, parse_cfg
+from .verdict import EXIT_ERROR, error_verdict, verdict_exit_code, verdict_from_result
+
+
+def _print_result(res, model_meta: dict) -> None:
+    print(f"Model: {res.model}")
+    print(
+        f"{res.total} distinct states found, diameter {res.diameter}, "
+        f"{res.seconds:.2f}s ({res.states_per_sec:,.0f} states/sec)"
+    )
+    if res.violation is None:
+        print("No invariant violations. Exhaustive check complete.")
+        return
+    from .utils.pretty import render_state, render_trace
+
+    v = res.violation
+    print(f"Invariant {v.invariant} is VIOLATED at depth {v.depth}.")
+    if v.trace:
+        print("Counterexample trace:")
+        print(render_trace(model_meta, v.trace))
+    else:
+        print("Violating state:")
+        print(render_state(model_meta, v.state))
+
+
+def _check(args) -> int:
+    try:
+        tlc_cfg = parse_cfg(args.cfg)
+    except (OSError, ValueError) as e:
+        print(f"error: cannot parse {args.cfg}: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    module = args.module or Path(args.cfg).stem
+    try:
+        model = build_model(module, tlc_cfg)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return EXIT_ERROR
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    from .engine.bfs import check
+
+    kw = {} if args.chunk_size is None else {"chunk_size": args.chunk_size}
+    try:
+        res = check(
+            model,
+            max_depth=args.max_depth,
+            min_bucket=args.min_bucket,
+            check_deadlock=tlc_cfg.check_deadlock,
+            visited_backend=args.visited_backend,
+            pipeline=args.pipeline,
+            device=args.device,
+            **kw,
+        )
+    except (RuntimeError, ValueError) as e:
+        # no card, an unported $KSPEC_PIPELINE: the run produced no result
+        rec = error_verdict(f"{type(e).__name__}: {e}")
+        if args.json:
+            print(json.dumps(rec))
+        else:
+            print(f"error: {e}", file=sys.stderr)
+        return verdict_exit_code(rec)
+    rec = verdict_from_result(res)
+    if args.json:
+        print(json.dumps(rec))
+    else:
+        _print_result(res, model.meta)
+    return verdict_exit_code(rec)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="kafka_specification_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pc = sub.add_parser("check", help="run the PyTorch engine on a TLC .cfg")
+    pc.add_argument("cfg")
+    pc.add_argument("--module", help="TLA+ module (default: cfg file stem)")
+    pc.add_argument("--max-depth", type=int)
+    pc.add_argument("--min-bucket", type=int, default=256)
+    pc.add_argument(
+        "--chunk-size",
+        type=int,
+        default=None,
+        help="max frontier rows per chunk (default: the engine's, 32768)",
+    )
+    pc.add_argument("--json", action="store_true", help="print the kspec-verdict/1 record")
+    pc.add_argument(
+        "--visited-backend",
+        choices=list(VISITED_BACKENDS),
+        default="device",
+        help="fingerprint set: 'device' = sorted pair set in device memory, "
+        "'device-hash' = open-addressing hash table in device memory",
+    )
+    pc.add_argument(
+        "--pipeline",
+        choices=list(PORTED),
+        default=None,
+        help="level pipeline: 'fused' (default; $KSPEC_PIPELINE overrides) or "
+        "'legacy'; both give the same result",
+    )
+    pc.add_argument(
+        "--device",
+        default=None,
+        help="torch device to check on (default: the card, 'cuda'; 'cpu' runs "
+        "the plain versions of the kernels)",
+    )
+    args = p.parse_args(argv)
+    return _check(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,29 +1,37 @@
 """Single-device level-synchronous BFS model checker (PyTorch).
 
-Counterpart of ``kafka_specification_tpu/engine/bfs.py::check`` with the
-``device-hash`` visited set and the legacy full-lattice step
-(``pipeline="legacy", compact_shift=0``).  Per chunk of the frontier:
+Counterpart of ``kafka_specification_tpu/engine/bfs.py::check``, with its
+defaults: the sorted ``device`` visited set, the ``fused`` pipeline (or
+``$KSPEC_PIPELINE``), ``compact_shift=2``, ``compact_gate=4096``.  Per
+chunk of the frontier (``engine/pipeline.py``): invariants on the chunk,
+every action kernel on every (state, choice) cell, the enabled candidates
+packed in candidate order, their fingerprints (kernel K1), then the
+visited backend:
 
-  unpack lanes -> every action kernel on every (state, choice) cell
-  -> candidates in state-major, choice-minor order (actions in model order)
-  -> fingerprints over the whole lattice, invalid cells masked (kernel K1
-     in hashed mode) -> the enabled candidates compacted, in that order
-  -> insert-or-find into the open-addressing table (kernel K2): the
-     lowest-index copy of each fingerprint not yet visited is new;
-  invariants are checked on the frontier chunk being expanded.
+- ``device``: the sorted set of fingerprint order keys.  The stable sort
+  keeps the first copy of each fingerprint in candidate order; the new
+  states are committed in FINGERPRINT order and merged into the set by
+  rank (``pipeline.sorted_dedup_stage``, ``ops/dedup.py``).
+- ``device-hash``: the open-addressing table (kernel K2).  The lowest-index
+  copy of each fingerprint not yet visited is new; the new states are
+  committed in CANDIDATE order.
 
-This is what the JAX engine's legacy step does for the device-hash backend
-(its host-dedup branch: no sort; the table does all the dedup), so both
-packages give the same level counts, the same level order, the same first
-violation and the same trace: inits deduped as ``np.unique(axis=0)``; a
-chunk is ``next_pow2(max(min_bucket, chunk_size))`` frontier rows (the JAX
-engine pads it to a power-of-two bucket with invalid rows, which add no
-candidate); the table starts from ``table_from_pairs`` with at least
+So the two backends reach the same states level by level, in other orders,
+and may report other traces; each gives the JAX package's result for the
+same knobs: the same level counts, level rows in the same order, the same
+first violation and trace.  The JAX package's rules are followed: inits
+deduped as ``np.unique(axis=0)``; a chunk is
+``next_pow2(max(min_bucket, chunk_size))`` frontier rows, padded in the JAX
+package to the bucket ``next_pow2(max(rows, min_bucket))`` that selects
+the candidate order; the sorted set starts at
+``next_pow2(max(n0, min_bucket * C, 2))`` entries and grows to the next
+power of two before any chunk with ``n + bucket * C`` over its capacity;
+the table starts from ``table_from_pairs`` with at least
 ``_HASH_MIN_CAP`` slots and doubles before any chunk that finds it over
-half full; a probe overflow doubles it and re-runs the same batch, OR-ing
-novelty; the first violation is the first invariant in model order at the
-first row of the chunk.  Everything stays on ``device``; the host reads
-only counts and flags.
+half full, and a probe overflow doubles it and re-runs the same batch,
+OR-ing novelty; the first violation is the first invariant in model order
+at the first row of the first chunk, then a deadlock.  Everything stays on
+``device``; the host reads counts, flags and the violation's index.
 """
 
 from __future__ import annotations
@@ -37,17 +45,15 @@ import torch
 
 from ..models.base import Model
 from ..ops import dedup, hashset
-from ..ops.cuda_fingerprint import fingerprint
 from ..ops.cuda_hashset import probe_insert
-from ..ops.fingerprint import fingerprint_lanes
+from ..pipeline_registry import resolve_pipeline
+from .pipeline import (compacts, fp_stage, grow_visited, invariant_stage, next_pow2, run_chunk,
+                       sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
 _HASH_MIN_CAP = 1 << 16
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1)).bit_length()
+VISITED_BACKENDS = ("device", "device-hash")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,57 +113,59 @@ def walk_trace(trace_store, actions, decode_row, inv_name, depth, idx) -> Violat
     return Violation(invariant=inv_name, depth=depth, state=chain[-1][1], trace=chain)
 
 
-class _Step:
-    """One chunk of the level: invariants, expansion, fingerprints."""
+class _SortedVisited:
+    """The ``device`` backend: sorted order keys, padded to a power of two."""
 
-    def __init__(self, model: Model, device: torch.device):
-        self.model = model
-        self.spec = model.spec
-        self.C = model.total_fanout
-        self.act_ids = torch.cat(
-            [
-                torch.full((a.n_choices,), i, dtype=torch.int64)
-                for i, a in enumerate(model.actions)
-            ]
-        ).to(device)
+    def __init__(self, hi0, lo0, cap: int):
+        keys = torch.sort(dedup.order_key(hi0, lo0)).values
+        self.n = keys.shape[0]
+        self.keys = grow_visited(keys, cap)
 
-    def fingerprints(self, lanes, valid):
-        """Masked (hi, lo): the sentinel pair for invalid rows."""
-        if self.spec.exact64:
-            hi, lo = fingerprint_lanes(lanes, exact=True)
-            return torch.where(valid, hi, dedup.SENT), torch.where(valid, lo, dedup.SENT)
-        return fingerprint(lanes, valid)
+    def reserve(self, width: int):
+        """Room for a chunk of up to `width` new keys."""
+        if self.n + width > self.keys.shape[0]:
+            self.keys = grow_visited(self.keys, self.n + width)
 
-    def invariants(self, states):
-        """First violated invariant on the chunk in model order, as
-        (name, first row) or None."""
-        for inv in self.model.invariants:
-            bad = ~inv.pred(states)
-            if bool(bad.any()):
-                return inv.name, int(torch.argmax(bad.to(torch.uint8)))
-        return None
+    def insert(self, hi, lo) -> torch.Tensor:
+        """-> candidate indices of the new states, in fingerprint order."""
+        winners, self.keys, self.n = sorted_dedup_stage(dedup.order_key(hi, lo), self.keys, self.n)
+        return winners
 
-    def expand(self, piece):
-        """frontier rows int64[B, K] -> (states, enabled[B, C], cand[B*C, K])."""
-        states = self.spec.unpack(piece)
-        en_parts, packed_parts = [], []
-        for a in self.model.actions:
-            en, nxt = a.kernel(states)
-            en_parts.append(en)
-            packed_parts.append(self.spec.pack(nxt))
-        en = torch.cat(en_parts, dim=1)
-        cand = torch.cat(packed_parts, dim=1).reshape(-1, self.spec.num_lanes)
-        return states, en, cand
+    def stats(self) -> dict:
+        return {"visited_capacity": int(self.keys.shape[0])}
 
-    def candidates(self, en, cand):
-        """-> (rows, parent, act, keys) of every enabled candidate, in
-        candidate order, in-batch duplicates included: the table's
-        lowest-index-wins rule picks which copy is new."""
-        valid = en.reshape(-1)
-        hi, lo = self.fingerprints(cand, valid)
-        sel = valid.nonzero().squeeze(1)
-        keys = dedup.pair_key(hi[sel], lo[sel])
-        return cand[sel], sel // self.C, self.act_ids[sel % self.C], keys
+
+class _HashVisited:
+    """The ``device-hash`` backend: the open-addressing table (kernel K2)."""
+
+    def __init__(self, hi0, lo0):
+        self.table = hashset.table_from_pairs(hi0, lo0, min_cap=_HASH_MIN_CAP)
+        self.n = hi0.shape[0]
+
+    def reserve(self, width: int):
+        if 2 * self.n > self.table.shape[0]:
+            # keep the load factor under 1/2 so probe chains stay short
+            self.table = hashset.rehash_into(self.table, 2 * self.table.shape[0])
+
+    def insert(self, hi, lo) -> torch.Tensor:
+        """-> candidate indices of the new states, in candidate order."""
+        keys = dedup.pair_key(hi, lo)
+        isnew = None
+        while True:
+            # n and ovf come to the host in one read
+            self.table, is_new, n, ovf = probe_insert(self.table, keys)
+            isnew = is_new if isnew is None else isnew | is_new
+            self.n += n
+            if not ovf:
+                break
+            # rows the failed attempt inserted (and counted) report "seen"
+            # on the re-run; OR-ing keeps them new, so nothing is lost or
+            # counted twice
+            self.table = hashset.rehash_into(self.table, 2 * self.table.shape[0])
+        return isnew.nonzero().squeeze(1)
+
+    def stats(self) -> dict:
+        return {"hash_table_capacity": int(self.table.shape[0]), "hash_table_size": self.n}
 
 
 def check(
@@ -165,33 +173,41 @@ def check(
     max_depth: Optional[int] = None,
     min_bucket: int = 256,
     check_deadlock: bool = False,
-    visited_backend: str = "device-hash",
+    visited_backend: str = "device",
     chunk_size: int = 32768,
+    compact_shift: int = 2,
+    compact_gate: int = 4096,
+    pipeline: Optional[str] = None,
     device=None,
     collect_levels: Optional[list] = None,
 ) -> CheckResult:
     """Breadth-first exhaustive check of `model`; stops at the first
     violation, whose trace is always kept.  Arguments mean what they mean
-    for the JAX engine's check().
+    for the JAX engine's check(), with its defaults.
 
     device: where the check runs; None is the card ("cuda"), which raises
     when CUDA is absent.  Pass "cpu" to run the plain versions of the
     kernels on the CPU.
-    visited_backend: only "device-hash" is ported.
+    visited_backend: "device" (sorted set) or "device-hash" (hash table);
+    "host" is not ported yet.
+    pipeline: "fused" or "legacy" (None: $KSPEC_PIPELINE, else "fused");
+    both run the same stages.  compact_shift/compact_gate select the
+    candidate order of a chunk (``pipeline.compacts``).
     check_deadlock: report a reachable state with no enabled action as a
     violation of the pseudo-invariant "Deadlock".
     collect_levels: optional list that receives each non-empty level's
     packed rows, int64[n, K], in discovery order.
     """
-    if visited_backend != "device-hash":
+    if visited_backend not in VISITED_BACKENDS:
         raise ValueError(
             f"visited_backend {visited_backend!r} is not ported to PyTorch yet "
-            "(ported: 'device-hash')"
+            f"(ported: {', '.join(VISITED_BACKENDS)})"
         )
+    pipe_name = resolve_pipeline(pipeline)
     dev = resolve_device(device)
     spec = model.spec
     K = spec.num_lanes
-    step = _Step(model, dev)
+    C = model.total_fanout
     t0 = time.perf_counter()
 
     inits = [
@@ -202,11 +218,11 @@ def check(
     init_packed = torch.from_numpy(np.unique(init_packed, axis=0)).to(dev)
     n0 = init_packed.shape[0]
 
-    hi0, lo0 = step.fingerprints(
-        init_packed, torch.ones(n0, dtype=torch.bool, device=dev)
-    )
-    table = hashset.table_from_pairs(hi0, lo0, min_cap=_HASH_MIN_CAP)
-    hash_n = n0
+    hi0, lo0 = fp_stage(spec, init_packed)
+    if visited_backend == "device":
+        visited = _SortedVisited(hi0, lo0, next_pow2(max(n0, min_bucket * C, 2)))
+    else:
+        visited = _HashVisited(hi0, lo0)
 
     levels = [n0]
     total = n0
@@ -237,19 +253,19 @@ def check(
             stats={
                 "device": str(dev),
                 "visited_backend": visited_backend,
-                "fanout": step.C,
+                "pipeline": pipe_name,
+                "fanout": C,
                 "lanes": K,
-                "hash_table_capacity": int(table.shape[0]),
-                "hash_table_size": hash_n,
+                **visited.stats(),
             },
         )
 
     # invariants on the init states
-    bad = step.invariants(spec.unpack(init_packed))
+    bad = invariant_stage(model, spec.unpack(init_packed))
     if bad is not None:
         return finish(violation_at(bad[0], 0, bad[1]))
 
-    chunk = _next_pow2(max(min_bucket, chunk_size))
+    chunk = next_pow2(max(min_bucket, chunk_size))
     frontier = init_packed
     depth = 0
     violation = None
@@ -261,39 +277,20 @@ def check(
         verdict = None  # (frontier index, invariant name)
         for start in range(0, frontier.shape[0], chunk):
             piece = frontier[start : start + chunk]
-            if 2 * hash_n > table.shape[0]:
-                # keep the load factor under 1/2 so probe chains stay short
-                table = hashset.rehash_into(table, 2 * table.shape[0])
-            states, en, cand = step.expand(piece)
-            bad = step.invariants(states)
-            if bad is not None:
-                verdict = (start + bad[1], bad[0])
+            bucket = next_pow2(max(piece.shape[0], min_bucket))
+            visited.reserve(bucket * C)
+            out = run_chunk(model, piece, compacts(bucket, compact_shift, compact_gate),
+                            check_deadlock)
+            if out.verdict is not None:
+                verdict = (start + out.verdict[0], out.verdict[1])
                 break
-            if check_deadlock:
-                dead = ~en.any(dim=1)
-                if bool(dead.any()):
-                    verdict = (start + int(torch.argmax(dead.to(torch.uint8))), "Deadlock")
-                    break
-            rows, parent, act, keys = step.candidates(en, cand)
-            if keys.shape[0] == 0:
+            if out.rows.shape[0] == 0:
                 continue
-            isnew, n_new = None, 0
-            while True:
-                # n and ovf come to the host in one read
-                table, is_new, n, ovf = probe_insert(table, keys)
-                isnew = is_new if isnew is None else isnew | is_new
-                n_new += n
-                if not ovf:
-                    break
-                # rows the failed attempt inserted (and counted) report
-                # "seen" on the re-run; OR-ing keeps them new, so nothing is
-                # lost or counted twice
-                table = hashset.rehash_into(table, 2 * table.shape[0])
-            hash_n += n_new
-            lvl_new += n_new
-            lvl_rows.append(rows[isnew])
-            lvl_parent.append(parent[isnew] + start)
-            lvl_act.append(act[isnew])
+            win = visited.insert(out.hi, out.lo)
+            lvl_new += win.shape[0]
+            lvl_rows.append(out.rows[win])
+            lvl_parent.append(out.parent[win] + start)
+            lvl_act.append(out.act[win])
 
         if verdict is not None:
             idx, name = verdict
@@ -319,7 +316,7 @@ def check(
     if violation is None and frontier.shape[0]:
         # the loop was cut (max_depth) before the remaining frontier was
         # expanded: its states still need their invariant pass
-        bad = step.invariants(spec.unpack(frontier))
+        bad = invariant_stage(model, spec.unpack(frontier))
         if bad is not None:
             violation = violation_at(bad[0], depth, bad[1])
     return finish(violation)

@@ -16,7 +16,7 @@ Counterpart of ``kafka_specification_tpu/models/base.py``.  A Model is
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 from ..ops.packing import StateSpec
@@ -67,6 +67,9 @@ class Model:
     # canonical Python value for a decoded state (numpy fields in, the JAX
     # package's decoded form out), so traces compare across the packages
     decode: Optional[Callable[[dict], object]] = None
+    # what the trace renderer reads (utils/pretty.py): "variant", the
+    # module's name, and "replica_names", the .cfg's model values
+    meta: dict = field(default_factory=dict)
 
     def __post_init__(self):
         check_spec_fields(self.spec.fields, context=self.name)

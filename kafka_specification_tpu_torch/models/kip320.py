@@ -339,6 +339,7 @@ def make_model(cfg: Config, invariants: Sequence[str] = DEFAULT_INVARIANTS) -> M
         actions=actions,
         invariants=invariant_kernels(cfg, invariants),
         decode=kr.make_decode(cfg),
+        meta={"variant": "Kip320", "cfg": cfg},
     )
 
 
@@ -365,4 +366,5 @@ def make_first_try_model(
         actions=actions,
         invariants=invariant_kernels(cfg, invariants),
         decode=kr.make_decode(cfg),
+        meta={"variant": "Kip320FirstTry", "cfg": cfg},
     )

@@ -65,4 +65,5 @@ def make_model(
         actions=actions,
         invariants=invariant_kernels(cfg, invariants),
         decode=kr.make_decode(cfg),
+        meta={"variant": variant, "cfg": cfg},
     )

@@ -1,8 +1,9 @@
 """TLC .cfg parsing and model instantiation for the PyTorch port.
 
 The parser is a copy of ``kafka_specification_tpu/utils/cfg.py::parse_cfg``
-(the port imports nothing from the JAX package).  ``build_model`` covers the
-five hand-written Kafka modules; every other module raises.
+(the port imports nothing from the JAX package).  ``build_model`` covers
+IdSequence, FiniteReplicatedLog and the five hand-written Kafka modules;
+every other module raises.
 
 Supported .cfg subset:
   CONSTANT / CONSTANTS   name = value   (ints, model-value sets {a, b, c})
@@ -94,6 +95,7 @@ def parse_cfg(path_or_text) -> TlcConfig:
     return cfg
 
 
+SMALL_MODULES = ("IdSequence", "FiniteReplicatedLog")
 KAFKA_VARIANTS = ("KafkaTruncateToHighWatermark", "Kip101", "Kip279")
 KIP320_MODULES = ("Kip320", "Kip320FirstTry")
 
@@ -102,19 +104,41 @@ def _setlen(v) -> int:
     return len(v) if isinstance(v, list) else int(v)
 
 
+def _with_names(model, constants):
+    """Record the .cfg's replica model-value names (`Replicas = {b1, b2,
+    b3}`) in the model's meta, so traces render with the config's own
+    vocabulary (utils/pretty.py)."""
+    names = constants.get("Replicas")
+    if isinstance(names, list):
+        model.meta.setdefault("replica_names", list(names))
+    return model
+
+
 def build_model(module: str, cfg: TlcConfig):
-    """The tensor model for a Kafka TLA+ module name under a parsed config.
-    Invariants are the .cfg's, in its order (TypeOk when it names none)."""
-    if module not in KAFKA_VARIANTS + KIP320_MODULES:
+    """The tensor model for a TLA+ module name under a parsed config.
+    Kafka modules check the .cfg's invariants in its order (TypeOk when it
+    names none); IdSequence and FiniteReplicatedLog check their built-in
+    TypeOk, as in the JAX package."""
+    if module not in SMALL_MODULES + KAFKA_VARIANTS + KIP320_MODULES:
         raise KeyError(
             f"module {module!r} is not ported to PyTorch yet "
-            f"(ported: {', '.join(KAFKA_VARIANTS + KIP320_MODULES)})"
+            f"(ported: {', '.join(SMALL_MODULES + KAFKA_VARIANTS + KIP320_MODULES)})"
         )
     if cfg.constraints:
         raise ValueError(
             f"CONSTRAINT {cfg.constraints} is not supported for module {module!r}"
         )
     c = cfg.constants
+    if module == "IdSequence":
+        from ..models import id_sequence
+
+        return id_sequence.make_model(int(c["MaxId"]))
+    if module == "FiniteReplicatedLog":
+        from ..models import finite_replicated_log
+
+        return finite_replicated_log.make_model(
+            _setlen(c["Replicas"]), int(c["LogSize"]), _setlen(c["LogRecords"])
+        )
     if _setlen(c.get("Partitions", 1)) > 1:
         raise ValueError("the partition product (Partitions > 1) is not ported yet")
     from ..models.kafka_replication import Config
@@ -129,9 +153,9 @@ def build_model(module: str, cfg: TlcConfig):
     if module in KAFKA_VARIANTS:
         from ..models import variants
 
-        return variants.make_model(module, kcfg, invs)
+        return _with_names(variants.make_model(module, kcfg, invs), c)
     from ..models import kip320
 
     if module == "Kip320":
-        return kip320.make_model(kcfg, invs)
-    return kip320.make_first_try_model(kcfg, invs)
+        return _with_names(kip320.make_model(kcfg, invs), c)
+    return _with_names(kip320.make_first_try_model(kcfg, invs), c)

@@ -3,10 +3,11 @@ and K4's rungs at n = 256 and 2^24: their inputs, and their own, route,
 host, bound and plain times on the card; and the split of one call's host
 time into the parts of the launch route (``host_split``).
 
-K1 (fingerprint) runs on M = 1,671,168 rows of K = 3 lanes (a full chunk's
-lattice), ~10% invalid; K2 (hash insert-or-find) at cap 2^22 with
-M = 109,260 keys (the path's largest batch): in-batch duplicates, an eighth
-of the keys already in the table.  For each kernel:
+K1 (fingerprint) runs on M = 109,260 rows of K = 3 lanes, all valid: the
+enabled candidates of the largest chunk, which check() packs and hands to
+it with an all-true mask; K2 (hash insert-or-find) at cap 2^22 with the
+same M = 109,260 keys (the path's largest batch): in-batch duplicates, an
+eighth of the keys already in the table.  For each kernel:
 
   own_ms    the kernel's device time per call: CUDA events around 100
             back-to-back launches of its `launch` on a ring of prepared
@@ -48,8 +49,8 @@ import torch
 from ..ops.dedup import pair_key, split_key
 from . import timing
 
-K1_M, K1_K = 32768 * 51, 3
 K2_CAP, K2_M = 1 << 22, 109260
+K1_M, K1_K = K2_M, 3
 OWN_LAUNCHES, ROUTE_CALLS, HOST_CALLS = 100, 50, 50
 LADDER_N, LADDER_LARGE_N = 256, 1 << 24
 LADDER_LAUNCHES, LADDER_HOST_CALLS = 1000, 200
@@ -69,8 +70,9 @@ def _spread(times):
     return {"median": statistics.median(times), "min": min(times), "max": max(times)}
 
 
-def k1_inputs(dev, m=K1_M, k=K1_K, seed=1, invalid=0.1):
-    """int64[m, k] random u32 lanes and a bool[m] mask with a share invalid."""
+def k1_inputs(dev, m=K1_M, k=K1_K, seed=1, invalid=0.0):
+    """int64[m, k] random u32 lanes and a bool[m] mask with a share invalid
+    (none by default, as check() calls it)."""
     rng = np.random.default_rng(seed)
     lanes = torch.from_numpy(rng.integers(0, 2**32, size=(m, k), dtype=np.uint32).astype(np.int64))
     valid = torch.from_numpy(rng.random(m) >= invalid)
@@ -201,7 +203,7 @@ def ladder_times(n, dev, ops=None) -> list[dict]:
 
 def split_inputs(ops) -> types.SimpleNamespace:
     """The inputs and outputs of the calls host_split times, on the card:
-    a rung at n = 256, K1 at M = 1,671,168, K = 3, K2 at cap 2^22,
+    a rung at n = 256, K1 at M = 109,260, K = 3, K2 at cap 2^22,
     M = 109,260 (its workspace for the stream, made by one call)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     x32 = torch.arange(LADDER_N, dtype=torch.int32, device=dev)

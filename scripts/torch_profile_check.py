@@ -2,7 +2,7 @@
 """Where the time of one check() goes on the card (PyTorch port).
 
     python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
-        [--runs N] [--root DIR]
+        [--runs N] [--root DIR] [--visited-backend device|device-hash]
 
 Runs check() of the .cfg once to build the kernels and warm up, then `--runs`
 times (default 3) unprofiled for the wall time (host clock, ending in
@@ -12,10 +12,21 @@ unprofiled walls, the profiled run's wall time, the summed device time of
 all kernels, the device's busy and idle share of the wall time (one
 stream, so kernels do not overlap), the number of operations the run put on
 the card (kernels, fills and copies), the port's two CUDA kernels' device
-time and launches, and the kernels with the most device time.  The last
-line is the same as JSON.  --root DIR profiles the package of another
-checkout (the parent commit unpacked with `git archive`, say).  Needs one
-CUDA card; imports no JAX.
+time and launches, the device time of each stage of the level loop (the
+profiled run only: each stage function is wrapped in a
+torch.profiler.record_function range, whose device time sums the kernels
+launched inside it by PyTorch operations; K1's and K2's launches go
+through ctypes and count only in their own lines), and the kernels with
+the most device time.  The last
+line is the same as JSON.
+
+check() runs with its defaults (the sorted `device` visited set, the fused
+pipeline, compact_shift 2); --visited-backend device-hash runs the path the
+port had before the sorted set: the hash table, pipeline "legacy",
+compact_shift 0.  --root DIR profiles the package of another checkout (the
+parent commit unpacked with `git archive`, say), whose check() takes those
+knobs for --visited-backend device-hash.  Needs one CUDA card; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +53,46 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# stage -> (module, attribute) of the function wrapped in a profiler range
+STAGES = {
+    "invariants": ("engine.pipeline", "invariant_stage"),
+    "expand": ("engine.pipeline", "expand_stage"),
+    "squeeze": ("engine.pipeline", "squeeze_stage"),
+    "pack": ("ops.packing", "StateSpec.pack"),
+    "fingerprint": ("engine.pipeline", "fp_stage"),
+    "dedup_sorted": ("engine.bfs", "sorted_dedup_stage"),
+    "dedup_hash": ("engine.bfs", "_HashVisited.insert"),
+    "rank": ("ops.dedup", "rank_sorted"),
+    "merge": ("ops.dedup", "merge_ranked"),
+}
+
+
+def _wrap_stages(pkg):
+    """Wrap each stage function found in the package in a record_function
+    range named stage:<name>; returns the names wrapped."""
+    import functools
+    import importlib
+
+    wrapped = []
+    for stage, (mod_name, attr) in STAGES.items():
+        try:
+            owner = importlib.import_module(f"{pkg}.{mod_name}")
+            *path, name = attr.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            fn = getattr(owner, name)
+        except (ImportError, AttributeError):
+            continue  # an older package without this stage
+
+        def ranged(*a, _fn=fn, _label=f"stage:{stage}", **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+
+        setattr(owner, name, functools.wraps(fn)(ranged))
+        wrapped.append(stage)
+    return wrapped
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cfg", nargs="?", default="configs/Kip320.cfg")
@@ -50,6 +101,9 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3, help="unprofiled runs timed for the wall")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package is profiled")
+    ap.add_argument("--visited-backend", choices=["device", "device-hash"], default="device",
+                    help="device: check() with its defaults; device-hash: the hash table, "
+                         "pipeline legacy, compact_shift 0")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     from kafka_specification_tpu_torch import build_model, check, load_config
@@ -62,32 +116,44 @@ def main() -> int:
     module = args.module or Path(args.cfg).stem
     cfg = load_config(args.cfg)
 
-    warm = check(build_model(module, cfg))
+    knobs = ({} if args.visited_backend == "device" else
+             dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0))
+    warm = check(build_model(module, cfg), **knobs)
     walls = []
     for _ in range(args.runs):
         model = build_model(module, cfg)
         t0 = time.perf_counter()
-        res = check(model)
+        res = check(model, **knobs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if res.levels != warm.levels:
             raise SystemExit("a timed run disagrees with the warm-up run")
+    wrapped = _wrap_stages("kafka_specification_tpu_torch")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     model = build_model(module, cfg)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        res = check(model)
+        res = check(model, **knobs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if res.levels != warm.levels:
         raise SystemExit("the profiled run disagrees with the warm-up run")
 
-    # kernels only: an operator's row repeats the device time of its kernels
+    # kernels only: an operator's row repeats the device time of its kernels,
+    # and a stage's range shows on the card's timeline too, as a span
     by_name = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.key.startswith("stage:")):
             by_name[evt.key] = (us, evt.count)
+    # a stage's device time: the kernels launched inside its host-side range
+    stages = {}
+    for evt in prof.events():
+        if evt.name.startswith("stage:") and evt.device_type == torch.autograd.DeviceType.CPU:
+            st = stages.setdefault(evt.name[6:], {"device_ms": 0.0, "calls": 0})
+            st["device_ms"] += evt.device_time_total / 1e3
+            st["calls"] += 1
     device_s = sum(us for us, _ in by_name.values()) / 1e6
     device_ops = sum(n for _, n in by_name.values())
     own = {}
@@ -100,7 +166,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
 
     print(f"card: {card}")
-    print(f"{res.model}: ok={res.ok} total={res.total} diameter={res.diameter}")
+    print(f"{res.model}: ok={res.ok} total={res.total} diameter={res.diameter}; "
+          f"{res.stats['visited_backend']}, {res.stats.get('pipeline')}")
     print("unprofiled walls " + ", ".join(f"{w:.3f}" for w in walls) + " s")
     print(f"wall {wall:.3f} s (host clock, ends in synchronize); "
           f"{res.total / wall:.0f} states/s")
@@ -108,6 +175,10 @@ def main() -> int:
           f"idle {1 - device_s / wall:.1%}; {device_ops} operations on the card")
     for kname, v in own.items():
         print(f"  {kname}: {v['device_ms']:.3f} ms device over {v['launches']} launches")
+    print("device time by stage (ranges nest: squeeze holds pack, dedup_sorted rank and merge):")
+    for stage in wrapped:
+        v = stages.get(stage, {"device_ms": 0.0, "calls": 0})
+        print(f"  {stage}: {v['device_ms']:.3f} ms over {v['calls']} calls")
     print("top device time:")
     for name, (us, n) in top:
         print(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:90]}")
@@ -120,7 +191,10 @@ def main() -> int:
         "device_ops": device_ops,
         "device_s": device_s,
         "busy_share": device_s / wall,
+        "visited_backend": res.stats["visited_backend"],
+        "pipeline": res.stats.get("pipeline"),
         "own_kernels": own,
+        "stages": stages,
         "top": [{"name": n, "device_ms": us / 1e3, "count": c} for n, (us, c) in top],
     }))
     return 0

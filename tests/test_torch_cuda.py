@@ -17,6 +17,8 @@ from kafka_specification_tpu_torch import check
 from kafka_specification_tpu_torch.models import kip320, variants
 from kafka_specification_tpu_torch.models.kafka_replication import Config
 from kafka_specification_tpu_torch.ops import build, cuda_fingerprint, cuda_hashset, cuda_ladder, hashset
+from kafka_specification_tpu_torch.engine import pipeline
+from kafka_specification_tpu_torch.ops import dedup
 from kafka_specification_tpu_torch.ops.dedup import pair_key
 
 pytestmark = pytest.mark.cuda
@@ -146,6 +148,63 @@ def test_check_on_card_equals_cpu(card):
     invs = ("TypeOk", "WeakIsr")
     m = lambda: variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1), invs)
     assert check(m(), device=card).violation.trace == check(m(), device="cpu").violation.trace
+
+
+def test_sorted_path_on_card_equals_cpu_with_k1(card):
+    """The default path (sorted set, fused, compact order above the gate)
+    on Kip320 3r, cut at depth 11 (levels up to 40,629 states, so chunks
+    of 8,192 rows and more take action-major order): every level's rows
+    equal the CPU run's, and every fingerprint came from K1."""
+    cfg = Config(3, 2, 2, 2)
+    on_card, on_cpu = [], []
+    before = cuda_fingerprint.LAUNCHES
+    r_card = check(kip320.make_model(cfg), device=card, max_depth=11, collect_levels=on_card)
+    launched = cuda_fingerprint.LAUNCHES - before
+    r_cpu = check(kip320.make_model(cfg), device="cpu", max_depth=11, collect_levels=on_cpu)
+    assert r_card.stats["visited_backend"] == "device" and r_card.stats["pipeline"] == "fused"
+    assert r_card.levels == r_cpu.levels and len(r_card.levels) == 12
+    assert r_card.stats["visited_capacity"] == r_cpu.stats["visited_capacity"]
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    # one K1 launch for the inits and one a chunk: one chunk a level here
+    assert launched == 1 + 11
+
+
+def test_fp_stage_launches_k1_never_plain(card, monkeypatch):
+    spec = kip320.make_model(Config(3, 2, 2, 2)).spec
+    rows = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 2**20, size=(5000, spec.num_lanes)).astype(np.int64)
+    ).to(card)
+    want = cuda_fingerprint.fingerprint_plain(rows, torch.ones(5000, dtype=torch.bool, device=card))
+
+    def no_plain(*a):
+        raise AssertionError("the plain fingerprint ran on the card")
+
+    monkeypatch.setattr(cuda_fingerprint, "fingerprint_plain", no_plain)
+    before = cuda_fingerprint.LAUNCHES
+    hi, lo = pipeline.fp_stage(spec, rows)
+    assert cuda_fingerprint.LAUNCHES == before + 1
+    assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+
+
+def test_merge_ranked_at_cap_2_22_equals_cpu(card):
+    rng = np.random.default_rng(9)
+    cap, n, m = 1 << 22, (1 << 21) + 12345, 100000
+    keys = np.unique(rng.integers(-(2**63), 2**63 - 1, size=n + m, dtype=np.int64))
+    rng.shuffle(keys)
+    old = torch.sort(torch.from_numpy(keys[:n])).values
+    new = torch.sort(torch.from_numpy(keys[n:])).values
+    set_keys = torch.cat([old, torch.full((cap - old.shape[0],), dedup.PAD)])
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        s, q = set_keys.to(dev), new.to(dev)
+        found, rank = dedup.rank_sorted(s, old.shape[0], q)
+        assert not bool(found.any())
+        merged, size = dedup.merge_ranked(s, old.shape[0], q, rank, 2 * cap)
+        outs.append((merged.cpu(), size))
+    assert outs[0][1] == outs[1][1] == old.shape[0] + new.shape[0]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[1][0][: outs[1][1]], torch.sort(torch.cat([old, new])).values)
 
 
 def _ladder_input(kind):

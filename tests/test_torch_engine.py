@@ -1,7 +1,9 @@
 """PyTorch port: check(device="cpu") against the JAX engine's check() with
-the same knobs (device-hash visited set, legacy full-lattice step): level
-counts, every level's rows in discovery order, the first violation and its
-trace, decoded states included."""
+the same knobs (device-hash visited set, legacy full-lattice step, passed
+to both: the port's defaults are the JAX package's sorted set and fused
+pipeline, tests/test_torch_pipeline.py): level counts, every level's rows
+in discovery order, the first violation and its trace, decoded states
+included."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ JAX_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift
 def run_both(jmodel, tmodel, **kw):
     jl, tl = [], []
     jr = jbfs.check(jmodel, collect_levels=jl, **JAX_KNOBS, **kw)
-    tr = check(tmodel, device="cpu", collect_levels=tl, **kw)
+    tr = check(tmodel, device="cpu", collect_levels=tl, **JAX_KNOBS, **kw)
     assert tr.levels == jr.levels
     assert (tr.total, tr.diameter) == (jr.total, jr.diameter)
     assert len(tl) == len(jl)
@@ -117,6 +119,10 @@ def test_max_depth_and_violation_at_init():
 
 
 def test_rejects_unported_backend():
-    with pytest.raises(ValueError, match="not ported"):
-        check(tkip320.make_model(tkr.Config(2, 2, 1, 1)), device="cpu",
-              visited_backend="device")
+    """The host visited set and the device-resident pipeline are not
+    ported: both raise, naming what is."""
+    model = tkip320.make_model(tkr.Config(2, 2, 1, 1))
+    with pytest.raises(ValueError, match="not ported.*device, device-hash"):
+        check(model, device="cpu", visited_backend="host")
+    with pytest.raises(ValueError, match="not ported.*fused, legacy"):
+        check(model, device="cpu", pipeline="device")

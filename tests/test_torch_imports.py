@@ -32,6 +32,11 @@ def test_import_and_tiny_check_load_no_jax():
         cfg.invariants = ["TypeOk"]
         res = check(build_model("Kip101", cfg), device="cpu")
         assert res.ok and res.total == 341, res
+        from kafka_specification_tpu_torch import cli
+        assert cli.main(["check", "configs/IdSequence.cfg", "--device", "cpu", "--json"]) == 0
+        for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
+                     "utils.pretty", "models.id_sequence", "models.finite_replicated_log"):
+            assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "kafka_specification_tpu")

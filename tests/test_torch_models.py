@@ -133,7 +133,8 @@ def test_decode_matches_jax(rows):
 
 
 @pytest.mark.parametrize(
-    "module", ["Kip320", "Kip320FirstTry", "KafkaTruncateToHighWatermark", "Kip101", "Kip279"]
+    "module", ["Kip320", "Kip320FirstTry", "KafkaTruncateToHighWatermark", "Kip101", "Kip279",
+               "IdSequence", "FiniteReplicatedLog"]
 )
 def test_cfg_builds_the_same_model(module):
     path = REPO / "configs" / f"{module}.cfg"
@@ -151,6 +152,8 @@ def test_cfg_builds_the_same_model(module):
     assert [(f.name, f.shape, f.lo, f.hi) for f in tm.spec.fields] == [
         (f.name, f.shape, f.lo, f.hi) for f in jm.spec.fields
     ]
+    assert tm.meta.get("variant") == jm.meta.get("variant")
+    assert tm.meta.get("replica_names") == jm.meta.get("replica_names")
 
 
 def test_cfg_rejects_unported_modules():
