@@ -49,24 +49,41 @@ print no result:
          compact_gate 4096): the same counts, K1 launched, K2 not
   trace-default  the trace model with no knobs: the JAX package's trace
          for its defaults (pinned below)
+  host   configs/Kip320.cfg through check() on the card with
+         visited_backend="host" (the native C++ fingerprint set, built by
+         g++): the same counts, K1 launched, K2 not
+  resume configs/Kip320.cfg with a checkpoint every level, cut at
+         max_depth=12, then resumed in a fresh check() to the end, on each
+         of `device`, `device-hash` and `host`: the same counts, and the
+         digest chain in the newest checkpoint equal, row for row, to the
+         JAX package's (pinned below) on all three
+  first-try-strong  configs/Kip320FirstTry.cfg with StrongIsr only, no
+         knobs: violated at depth 12 after 284,803 states with the JAX
+         package's trace (pinned below)
   cli    `python -m kafka_specification_tpu_torch.cli check
          configs/Kip320FirstTry.cfg --json` in a subprocess: exit 1 and the
          JAX package's kspec-verdict/1 record (WeakIsr at depth 11; pinned
-         below, timing fields aside)
+         below, timing fields aside); then `cli check configs/Kip320.cfg
+         --max-states 100000 --json --stats FILE`: exit 0, the JAX
+         package's record and the deterministic fields of its stats lines
+         (pinned below)
 
 A kernel's `ms` is its own time (CUDA events around back-to-back launches),
 `route_ms` the entry point's time as check() calls it, host work included.
 Then three lines: the kernels as JSON, the card's name and power limit as
 nvidia-smi gives them, and the device as JSON.  Exits 1 with no result
 when CUDA is not available or the port's package is not beside it.
+Checkpoints and stats files go to build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -115,8 +132,87 @@ FIRST_TRY_VERDICT = {
     "violation": {"invariant": "WeakIsr", "depth": 11, "trace_len": 12},
     "exit_code": 1,
 }
+# JAX package, `cli check configs/Kip320.cfg --max-states 100000 --json
+# --stats FILE --cpu`: the record, with seconds, states_per_sec and run_id
+# left out, and per stats line (depth, frontier, enabled_candidates, new,
+# duplicates, total, action_enablement in the order of KIP320_ACTIONS)
+KIP320_MAX_STATES_VERDICT = {
+    "schema": "kspec-verdict/1", "model": "Kip320(3r,L2,R2,E2)",
+    "distinct_states": 109030, "diameter": 11, "levels": KIP320_LEVELS[:12],
+    "violation": None, "exit_code": 0,
+}
+KIP320_ACTIONS = [
+    "ControllerElectLeader", "ControllerShrinkIsr", "BecomeLeader", "FencedLeaderExpandIsr",
+    "FencedLeaderShrinkIsr", "LeaderWrite", "FencedLeaderIncHighWatermark",
+    "FencedBecomeFollowerAndTruncate", "FencedFollowerFetch",
+]
+KIP320_MAX_STATES_STATS = [
+    (1, 1, 6, 6, 0, 7, [3, 3, 0, 0, 0, 0, 0, 0, 0]),
+    (2, 6, 30, 30, 0, 37, [12, 15, 3, 0, 0, 0, 0, 0, 0]),
+    (3, 30, 153, 138, 15, 175, [42, 63, 33, 0, 6, 3, 0, 6, 0]),
+    (4, 138, 573, 366, 207, 541, [72, 117, 204, 0, 42, 48, 0, 90, 0]),
+    (5, 366, 2100, 1170, 930, 1711, [222, 387, 294, 18, 156, 369, 0, 648, 6]),
+    (6, 1170, 5889, 2715, 3174, 4426, [429, 786, 924, 144, 432, 1251, 33, 1800, 90]),
+    (7, 2715, 13164, 5673, 7491, 10099, [729, 1401, 1701, 414, 1068, 2967, 198, 4014, 672]),
+    (8, 5673, 26193, 10836, 15357, 20935, [1101, 2259, 2781, 984, 2400, 5529, 837, 8142, 2160]),
+    (9, 10836, 46182, 18648, 27534, 39583,
+     [1476, 3294, 4065, 2064, 4590, 8328, 2433, 14562, 5370]),
+    (10, 18648, 72645, 28818, 43827, 68401,
+     [1773, 4314, 5352, 3972, 7536, 10884, 5592, 23196, 10026]),
+    (11, 28818, 103389, 40629, 62760, 109030,
+     [2076, 5391, 6225, 6426, 10464, 12867, 10476, 33408, 16056]),
+]
+STATS_FIELDS = ("depth", "frontier", "enabled_candidates", "new", "duplicates", "total")
+# JAX package, check() of configs/Kip320.cfg with checkpoint_dir on the CPU:
+# the digest_chain of its last checkpoint, (count, xor, sum, link) a level
+KIP320_CHAIN = [
+    (1, 0xA6B28F315173DD33, 0xA6B28F315173DD33, 0xC0330C80E17CFE32),
+    (6, 0xFEF7079FA398CAC4, 0x55801BDE4124FB50, 0x9DF70F8EA5A2A21B),
+    (30, 0xEEE5D887D2589EED, 0x35165C36F9E704AB, 0x732EFFB42F620CE0),
+    (138, 0x6FA4672DEB3EDFC4, 0x34BE496812C47574, 0xE574A273797AC99B),
+    (366, 0x8A9B2379A3096111, 0x80852F5FEC2E2FC1, 0x554113A9B57F0480),
+    (1170, 0x10459B81B7DF8489, 0x8FCC5C4DF1F002BD, 0xA07617CFA35DEC78),
+    (2715, 0xEB01A72F271C0664, 0x9B20217ABCE9973E, 0xBC5849C6C1E13562),
+    (5673, 0x3B75129C478349F0, 0x459FC6B077593AB8, 0x6620952505F131EA),
+    (10836, 0x8846B6F79B3F4DCB, 0xB5240B36146B7BAD, 0x84975C9B3D8D53D9),
+    (18648, 0x81240DC00E8461E1, 0x41E3D6174D776ECF, 0xAB770A9292F2F31C),
+    (28818, 0xE0CE9B7D3D826783, 0x4A50652BA510400F, 0x56284D204B322259),
+    (40629, 0x608A9EE01F80D438, 0xFF11A97278C98EDC, 0x6C4C46AF60ED66C6),
+    (53691, 0xDD1E4FD764F7A853, 0x6652214DF5BB9D19, 0x1E851C36050A79C2),
+    (66432, 0x4B8E3E28B6F2E33A, 0x4D6DE5756AF30D90, 0xE39DB9AC371350AE),
+    (77400, 0x2E6F6FE2E6E004BF, 0x8A5D16A69B2829E5, 0x7FDC57E2CF99355B),
+    (84072, 0xB0170748C8F9C179, 0x710B8D2650A7A0DF, 0xDB883F27DDB0E70D),
+    (85404, 0x19A38FFEB0C5D8F8, 0xF288F4C2719A0BF0, 0x7CA022C478FB13A1),
+    (78909, 0x2EDCA0B9F51292B2, 0x3781DDE764BD2E5C, 0x00C20C4B57FF294E),
+    (66447, 0x4E62335A065346A8, 0x9BE0908BA7445870, 0x2AB0677157A4339E),
+    (49422, 0xDBCE8A1F88DA1ABC, 0x508EF82F2CE02834, 0xF9BFD6848ABF94BE),
+    (32916, 0x73C37B783E9819C9, 0x3CC1EC1F46075A3D, 0x0F3407F29C04D0D7),
+    (19542, 0xAC1041C59C8D4C86, 0x424C58AEBCC7966C, 0xFC54C344967017E4),
+    (9939, 0xC5014C296F60BFCA, 0xC59B946BF5EEC5F8, 0xE7A97950F75E8F3F),
+    (3660, 0xCDDF200BAF1C0BBD, 0x7D46D3E3D5640F83, 0x2DB91949F7271865),
+    (834, 0xA974FF5036640607, 0xA479A68E5AC86663, 0x0D4935DE08EA4FF1),
+    (96, 0x9B50DDEFF69C3136, 0xC19685495D38368E, 0x2A66CFFD77374827),
+]
+# JAX package, check() of configs/Kip320FirstTry.cfg with StrongIsr only,
+# no knobs, on the CPU
+FIRST_TRY_STRONG_LEVELS = [
+    1, 6, 36, 207, 837, 2244, 4563, 8991, 17307, 30030, 48150, 71769, 100662,
+]
+FIRST_TRY_STRONG_ACTIONS = [
+    "<init>", "ControllerElectLeader", "ControllerElectLeader", "ControllerElectLeader",
+    "BecomeLeader", "BecomeFollower", "LeaderWrite", "FollowerFetch",
+    "LeaderShrinkIsrBetterFencing", "ImprovedLeaderIncHighWatermark", "BecomeFollower",
+    "BecomeLeader", "FollowerTruncate",
+]
+FIRST_TRY_STRONG_STATE = [
+    [[], [], [[0, 2]]],
+    [[0, 1, 1, [0, 1, 2]], [0, 1, 1, [0, 1, 2]], [1, 2, 2, [0, 2]]],
+    1, 3, [[0, 2, [0, 1, 2]], [1, 1, [0, 1, 2]], [2, 2, [0, 1, 2]]], [2, 2, [0, 2]],
+]
 # the knobs of the path before the sorted backend was ported
 HASH_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
+# where checkpoints and stats files go: inside the checkout, gitignored
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 DEV = torch.device("cuda")
 
@@ -490,20 +586,124 @@ def phase_trace_default():
     return _trace({}, ("fingerprint",), THW_DEFAULT_ACTIONS, THW_DEFAULT_STATE)
 
 
-def phase_cli():
-    cmd = [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check",
-           "configs/Kip320FirstTry.cfg", "--json"]
+def phase_host():
+    return _kip320({"visited_backend": "host"}, ("fingerprint",))
+
+
+def phase_resume():
+    """Kip320 3r checkpointed every level, cut at depth 12 and resumed by a
+    fresh check(), per backend; the newest checkpoint's digest chain must
+    be the JAX package's."""
+    from kafka_specification_tpu_torch import build_model, check, load_config
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    want = np.array(KIP320_CHAIN, dtype=np.uint64)
+    parts = []
+    for backend, path_kernels in (("device", ("fingerprint",)),
+                                  ("device-hash", ("fingerprint", "hash_probe_insert")),
+                                  ("host", ("fingerprint",))):
+        ckpt = WORK / f"resume-{backend}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _reset_counts()
+        walls, results = [], []
+        for leg in (dict(max_depth=12), {}):
+            model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+            t0 = time.perf_counter()
+            results.append(check(model, device=DEV, visited_backend=backend,
+                                 checkpoint_dir=str(ckpt), **leg))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = _read_counts(path_kernels)
+        cut, res = results
+        if not cut.ok or cut.levels != KIP320_LEVELS[:13]:
+            raise AssertionError(f"{backend}: the cut leg gave {cut.levels}")
+        if not res.ok or res.levels != KIP320_LEVELS or res.diameter != 25:
+            raise AssertionError(f"{backend}: the resumed leg gave {res.levels}")
+        chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+        if chain.shape != want.shape or not np.array_equal(chain, want):
+            bad = [d for d in range(min(len(chain), len(want)))
+                   if not np.array_equal(chain[d], want[d])]
+            raise AssertionError(f"{backend}: digest chain {chain.shape} differs from the JAX "
+                                 f"package's at levels {bad[:5]}")
+        parts.append(f"{backend} {walls[0]:.2f} s + {walls[1]:.2f} s, launches {counts}")
+    return {"line": f"Kip320 3r cut at depth 12 and resumed to {res.total} states, diameter 25; "
+                    f"chain equal to the JAX package's on all three ({'; '.join(parts)})"}
+
+
+def phase_first_try_strong():
+    from kafka_specification_tpu_torch import build_model, check, load_config
+
+    cfg = load_config("configs/Kip320FirstTry.cfg")
+    cfg.invariants = ["StrongIsr"]
+    model = build_model("Kip320FirstTry", cfg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = check(model, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(("fingerprint",))
+    v = res.violation
+    if v is None or (v.invariant, v.depth, res.total) != ("StrongIsr", 12, 284_803):
+        raise AssertionError(f"expected StrongIsr at depth 12 after 284803 states, got "
+                             f"{v and (v.invariant, v.depth)} after {res.total}")
+    if res.levels != FIRST_TRY_STRONG_LEVELS:
+        raise AssertionError(f"levels differ: {res.levels}")
+    if [a for a, _ in v.trace] != FIRST_TRY_STRONG_ACTIONS:
+        raise AssertionError(f"trace actions differ: {[a for a, _ in v.trace]}")
+    if canon(v.state) != FIRST_TRY_STRONG_STATE:
+        raise AssertionError(f"violating state differs: {canon(v.state)}")
+    return {"line": f"Kip320FirstTry StrongIsr violated at depth 12 after {res.total} states, "
+                    f"trace as pinned; {wall:.2f} s; launches {counts}"}
+
+
+def stats_fields(rec):
+    """The fields of a per-level stats record that do not depend on timing."""
+    return {k: rec[k] for k in ("kind", *STATS_FIELDS, "action_enablement")}
+
+
+def max_states_stats():
+    """KIP320_MAX_STATES_STATS as the records' deterministic fields."""
+    return [{"kind": "level", **dict(zip(STATS_FIELDS, row[:6])),
+             "action_enablement": dict(zip(KIP320_ACTIONS, row[6]))}
+            for row in KIP320_MAX_STATES_STATS]
+
+
+def _cli(args, want_rc):
+    cmd = [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check", *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
-    if out.returncode != 1:
-        raise AssertionError(f"exit {out.returncode}, expected 1: {out.stderr[-2000:]}")
+    if out.returncode != want_rc:
+        raise AssertionError(f"{args}: exit {out.returncode}, expected {want_rc}: "
+                             f"{out.stderr[-2000:]}")
     rec = json.loads(out.stdout.splitlines()[-1])
     got = {k: v for k, v in rec.items() if k not in ("seconds", "states_per_sec", "run_id")}
+    return rec, got, wall
+
+
+def phase_cli():
+    rec, got, wall = _cli(["configs/Kip320FirstTry.cfg", "--json"], 1)
     if got != FIRST_TRY_VERDICT:
         raise AssertionError(f"verdict differs from the JAX package's: {got}")
+    WORK.mkdir(parents=True, exist_ok=True)
+    stats = WORK / "cli-stats.jsonl"
+    stats.unlink(missing_ok=True)
+    rec2, got2, wall2 = _cli(["configs/Kip320.cfg", "--max-states", "100000", "--json",
+                              "--stats", str(stats)], 0)
+    if got2 != KIP320_MAX_STATES_VERDICT:
+        raise AssertionError(f"--max-states record differs from the JAX package's: {got2}")
+    with open(stats) as fh:
+        lines = [stats_fields(json.loads(line)) for line in fh]
+    if lines != max_states_stats():
+        bad = [i for i, (a, b) in enumerate(zip(lines, max_states_stats())) if a != b]
+        raise AssertionError(f"stats lines differ from the JAX package's ({len(lines)} lines, "
+                             f"first differing {bad[:3]})")
     return {"line": f"Kip320FirstTry: WeakIsr at depth 11, {rec['distinct_states']} states, "
-                    f"record as pinned, exit 1; check {rec['seconds']} s, process {wall:.1f} s"}
+                    f"record as pinned, exit 1; check {rec['seconds']} s, process {wall:.1f} s; "
+                    f"Kip320 --max-states 100000: {rec2['distinct_states']} states at depth "
+                    f"{rec2['diameter']}, record and {len(lines)} stats lines as pinned, exit 0; "
+                    f"check {rec2['seconds']} s, process {wall2:.1f} s"}
 
 
 def main() -> int:
@@ -526,6 +726,9 @@ def main() -> int:
     ph.run("trace", phase_trace)
     default = ph.run("default", phase_default)
     ph.run("trace-default", phase_trace_default)
+    ph.run("host", phase_host)
+    ph.run("resume", phase_resume)
+    ph.run("first-try-strong", phase_first_try_strong)
     ph.run("cli", phase_cli)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)

@@ -20,9 +20,13 @@ Layout (module names mirror the JAX package):
     ops/       packing, fingerprints, dedup and the sorted set, the hash
                set, kernels + build
     models/    tensor encodings and batched action/invariant kernels
-    engine/    the BFS checker (bfs.py: the level loop and the sorted and
-               hash visited sets; pipeline.py: the per-chunk stages and
-               the candidate order)
+    engine/    the BFS checker (bfs.py: the level loop, its run options,
+               checkpoints and the sorted, hash and host visited sets;
+               pipeline.py: the per-chunk stages and the candidate order)
+    native/    the host fingerprint set (fpset.cpp, g++ at first use)
+    resilience/  the level digest chain, the checkpoint store, the
+               per-level heartbeat record
+    durable_io.py  the file steps checkpoints and stats lines take
     utils/     TLC .cfg parsing and model instantiation, trace rendering,
                device timing
     cli.py     `python -m kafka_specification_tpu_torch.cli check CFG`

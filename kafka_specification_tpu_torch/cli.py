@@ -1,16 +1,20 @@
 """Command line of the PyTorch port: check a TLC .cfg.
 
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
-    python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --device cpu --json
+    python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --cpu --json
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg \
+        --checkpoint ckpt/ --stats stats.jsonl --visited-backend host
 
 ``check`` takes the options of the JAX package's ``cli check`` that the
 ported engine serves, with the same names and defaults, and prints what it
 prints: TLC's closing summary (distinct states, diameter, and on a
-violation the invariant and a numbered counterexample trace), or with
-``--json`` the ``kspec-verdict/1`` record (``verdict.py``).  The module
-defaults to the .cfg file's stem; CHECK_DEADLOCK comes from the .cfg.  The
-check runs on the card unless ``--device cpu`` is given.  Exit codes: 0 no
-violation, 1 a violation, 2 an error.
+violation the invariant and a numbered counterexample trace, or the
+violating state when no trace was kept), or with ``--json`` the
+``kspec-verdict/1`` record (``verdict.py``).  The module defaults to the
+.cfg file's stem; CHECK_DEADLOCK comes from the .cfg.  The check runs on
+the card unless ``--cpu`` (or ``--device cpu``) is given.  Exit codes: 0
+no violation, 1 a violation, 2 an error, 76 a failed integrity check (the
+level digest chain).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from pathlib import Path
 
 from .engine.bfs import VISITED_BACKENDS
 from .pipeline_registry import PORTED
+from .resilience.checkpoints import CheckpointCorrupt
+from .resilience.integrity import EXIT_INTEGRITY, IntegrityError
 from .utils.cfg import build_model, parse_cfg
 from .verdict import EXIT_ERROR, error_verdict, verdict_exit_code, verdict_from_result
 
@@ -47,7 +53,14 @@ def _print_result(res, model_meta: dict) -> None:
         print(render_state(model_meta, v.state))
 
 
+def _progress(depth, new_n, total):
+    print(f"  level {depth}: {new_n} new, {total} total", file=sys.stderr)
+
+
 def _check(args) -> int:
+    if args.checkpoint_every < 1 or args.checkpoint_keep < 1:
+        print("error: --checkpoint-every and --checkpoint-keep must be >= 1", file=sys.stderr)
+        return EXIT_ERROR
     try:
         tlc_cfg = parse_cfg(args.cfg)
     except (OSError, ValueError) as e:
@@ -69,15 +82,31 @@ def _check(args) -> int:
         res = check(
             model,
             max_depth=args.max_depth,
+            max_states=args.max_states,
+            store_trace=not args.no_trace,
             min_bucket=args.min_bucket,
+            progress=_progress if args.progress else None,
+            checkpoint_dir=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_keep=args.checkpoint_keep,
             check_deadlock=tlc_cfg.check_deadlock,
+            stats_path=args.stats,
             visited_backend=args.visited_backend,
             pipeline=args.pipeline,
-            device=args.device,
+            device="cpu" if args.cpu else args.device,
             **kw,
         )
-    except (RuntimeError, ValueError) as e:
-        # no card, an unported $KSPEC_PIPELINE: the run produced no result
+    except IntegrityError as e:
+        # the run's data failed a check: its own exit code, so a
+        # supervisor resumes from the newest chain-verified generation
+        print(f"INTEGRITY VIOLATION: {e}", file=sys.stderr)
+        if args.json:
+            print(json.dumps(error_verdict(f"INTEGRITY_VIOLATION[{e.site}]: {e.detail}",
+                                           exit_code=EXIT_INTEGRITY)))
+        return EXIT_INTEGRITY
+    except (RuntimeError, ValueError, CheckpointCorrupt) as e:
+        # no card, an unported $KSPEC_PIPELINE, no g++ for the host set, a
+        # checkpoint of another config or none that verifies: no result
         rec = error_verdict(f"{type(e).__name__}: {e}")
         if args.json:
             print(json.dumps(rec))
@@ -99,6 +128,8 @@ def main(argv=None) -> int:
     pc.add_argument("cfg")
     pc.add_argument("--module", help="TLA+ module (default: cfg file stem)")
     pc.add_argument("--max-depth", type=int)
+    pc.add_argument("--max-states", type=int)
+    pc.add_argument("--no-trace", action="store_true", help="skip trace storage")
     pc.add_argument("--min-bucket", type=int, default=256)
     pc.add_argument(
         "--chunk-size",
@@ -106,13 +137,34 @@ def main(argv=None) -> int:
         default=None,
         help="max frontier rows per chunk (default: the engine's, 32768)",
     )
+    pc.add_argument("--progress", action="store_true")
     pc.add_argument("--json", action="store_true", help="print the kspec-verdict/1 record")
+    pc.add_argument(
+        "--checkpoint", help="directory for level-synchronous checkpoint/resume"
+    )
+    pc.add_argument(
+        "--checkpoint-every",
+        type=int,
+        default=1,
+        help="persist a checkpoint every N BFS levels (default 1)",
+    )
+    pc.add_argument(
+        "--checkpoint-keep",
+        type=int,
+        default=3,
+        help="rotated checkpoint generations to keep (default 3; corrupt "
+        "newest falls back to the next verifying one)",
+    )
+    pc.add_argument(
+        "--stats", help="append per-level JSONL stats (e.g. PROGRESS.jsonl)"
+    )
     pc.add_argument(
         "--visited-backend",
         choices=list(VISITED_BACKENDS),
         default="device",
         help="fingerprint set: 'device' = sorted pair set in device memory, "
-        "'device-hash' = open-addressing hash table in device memory",
+        "'device-hash' = open-addressing hash table in device memory, "
+        "'host' = the native C++ FpSet (spill mode for huge state spaces)",
     )
     pc.add_argument(
         "--pipeline",
@@ -127,6 +179,7 @@ def main(argv=None) -> int:
         help="torch device to check on (default: the card, 'cuda'; 'cpu' runs "
         "the plain versions of the kernels)",
     )
+    pc.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
     args = p.parse_args(argv)
     return _check(args)
 

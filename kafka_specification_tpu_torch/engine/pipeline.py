@@ -148,7 +148,8 @@ def sorted_dedup_stage(okeys: torch.Tensor, vkeys: torch.Tensor, vn: int):
 
 class Chunk(NamedTuple):
     """One chunk's outcome: a verdict (frontier index, invariant name), or
-    its enabled candidates in candidate order with their fingerprints."""
+    its enabled candidates in candidate order with their fingerprints, and
+    (when asked for) the enabled cells of each action, int64[A]."""
 
     verdict: Optional[tuple]
     rows: Optional[torch.Tensor] = None
@@ -156,22 +157,27 @@ class Chunk(NamedTuple):
     act: Optional[torch.Tensor] = None
     hi: Optional[torch.Tensor] = None
     lo: Optional[torch.Tensor] = None
+    act_en: Optional[torch.Tensor] = None
 
 
-def run_chunk(model: Model, piece: torch.Tensor, action_major: bool,
-              check_deadlock: bool) -> Chunk:
+def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadlock: bool,
+              check_invariants: bool, enablement: bool) -> Chunk:
     """Stages 1-3 and 5 of one chunk of frontier rows, int64[rows, K], in
     the candidate order `action_major` selects (``compacts``).  Serves the
-    "legacy" and "fused" pipelines alike (module docstring)."""
+    "legacy" and "fused" pipelines alike (module docstring).  Stage 5 runs
+    when `check_invariants`; `enablement` counts each action's enabled
+    cells (for the per-level stats)."""
     states = model.spec.unpack(piece)
-    bad = invariant_stage(model, states)
-    if bad is not None:
-        return Chunk((bad[1], bad[0]))
+    if check_invariants:
+        bad = invariant_stage(model, states)
+        if bad is not None:
+            return Chunk((bad[1], bad[0]))
     en, parts = expand_stage(model, states)
     if check_deadlock:
         dead = ~en.any(dim=1)
         if bool(dead.any()):
             return Chunk((int(torch.argmax(dead.to(torch.uint8))), "Deadlock"))
+    act_en = torch.stack([e.sum() for e, _ in parts]) if enablement else None
     rows, parent, act = squeeze_stage(model.spec, parts, action_major)
     hi, lo = fp_stage(model.spec, rows)
-    return Chunk(None, rows, parent, act, hi, lo)
+    return Chunk(None, rows, parent, act, hi, lo, act_en)

@@ -10,7 +10,8 @@ produces as numpy-convertible arrays (a JAX array converts through
   fingerprint lanes -> int64 tensors of the same u32 values;
 - a ``kafka_replication.Config`` -> the port's Config.
 
-The tests use them to start the port from exactly the JAX package's state.
+The tests use them to start the port from exactly the JAX package's state,
+and the engine to read and write checkpoint arrays (uint32 in the file).
 """
 
 from __future__ import annotations

@@ -1,0 +1,197 @@
+// Host-side 64-bit fingerprint set: open-addressing, linear probing,
+// batch-oriented C ABI for ctypes.
+//
+// The PyTorch port's own copy of kafka_specification_tpu/native/fpset.cpp,
+// host C++ (no CUDA): the dedup store of check(..., visited_backend="host"),
+// for state spaces whose fingerprints outgrow device memory.  The card
+// fingerprints each chunk's candidates; this set decides which are new.
+//
+// Design: power-of-two capacity, linear probing, empty slot = 0; the
+// fingerprint 0 itself is tracked by a dedicated has_zero flag (exact-mode
+// fingerprints ARE packed states, so value 0 is a real state and must not
+// be conflated with any other). Batch insert returns a novelty mask so one
+// FFI crossing handles a whole BFS level.
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+namespace {
+
+struct FpSet {
+  uint64_t* slots;
+  uint64_t mask;      // capacity - 1
+  uint64_t count;
+  uint64_t capacity;
+  uint8_t has_zero;   // membership of the fingerprint value 0
+};
+
+inline uint64_t mix(uint64_t x) {
+  // splitmix64 finalizer — decorrelates the probe sequence from the raw fp
+  x ^= x >> 30;
+  x *= 0xbf58476d1ce4e5b9ULL;
+  x ^= x >> 27;
+  x *= 0x94d049bb133111ebULL;
+  x ^= x >> 31;
+  return x;
+}
+
+bool grow(FpSet* s);
+
+// insert one; returns 1 if newly inserted, 0 if already present
+inline int insert_one(FpSet* s, uint64_t fp) {
+  if (fp == 0) {
+    int is_new = !s->has_zero;
+    s->has_zero = 1;
+    s->count += static_cast<uint64_t>(is_new);
+    return is_new;
+  }
+  uint64_t i = mix(fp) & s->mask;
+  while (true) {
+    uint64_t v = s->slots[i];
+    if (v == fp) return 0;
+    if (v == 0) {
+      s->slots[i] = fp;
+      s->count++;
+      return 1;
+    }
+    i = (i + 1) & s->mask;
+  }
+}
+
+bool grow(FpSet* s) {
+  uint64_t old_cap = s->capacity;
+  uint64_t* old_slots = s->slots;
+  uint64_t new_cap = old_cap << 1;
+  uint64_t* new_slots = static_cast<uint64_t*>(calloc(new_cap, sizeof(uint64_t)));
+  if (!new_slots) return false;
+  s->slots = new_slots;
+  s->capacity = new_cap;
+  s->mask = new_cap - 1;
+  s->count = s->has_zero;  // re-count; zero membership carries over
+  for (uint64_t i = 0; i < old_cap; i++) {
+    if (old_slots[i] != 0) insert_one(s, old_slots[i]);
+  }
+  free(old_slots);
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* fpset_create(uint64_t initial_capacity) {
+  uint64_t cap = 64;
+  while (cap < initial_capacity) cap <<= 1;
+  FpSet* s = static_cast<FpSet*>(malloc(sizeof(FpSet)));
+  if (!s) return nullptr;
+  s->slots = static_cast<uint64_t*>(calloc(cap, sizeof(uint64_t)));
+  if (!s->slots) {
+    free(s);
+    return nullptr;
+  }
+  s->capacity = cap;
+  s->mask = cap - 1;
+  s->count = 0;
+  s->has_zero = 0;
+  return s;
+}
+
+void fpset_destroy(void* h) {
+  FpSet* s = static_cast<FpSet*>(h);
+  if (!s) return;
+  free(s->slots);
+  free(s);
+}
+
+uint64_t fpset_count(void* h) { return static_cast<FpSet*>(h)->count; }
+
+uint64_t fpset_capacity(void* h) { return static_cast<FpSet*>(h)->capacity; }
+
+// Insert a batch; out_new[i] = 1 iff fps[i] was not present before this call
+// (duplicates *within* the batch: only the first occurrence reports new).
+// Returns the number of new fingerprints, or UINT64_MAX on alloc failure.
+uint64_t fpset_insert_batch(void* h, const uint64_t* fps, uint64_t n,
+                            uint8_t* out_new) {
+  FpSet* s = static_cast<FpSet*>(h);
+  uint64_t added = 0;
+  for (uint64_t i = 0; i < n; i++) {
+    // keep load factor under 0.75
+    if ((s->count + 1) * 4 > s->capacity * 3) {
+      if (!grow(s)) return UINT64_MAX;
+    }
+    int is_new = insert_one(s, fps[i]);
+    if (out_new) out_new[i] = static_cast<uint8_t>(is_new);
+    added += static_cast<uint64_t>(is_new);
+  }
+  return added;
+}
+
+// Fused level assembly (engine/bfs host backend): one pass over a chunk's
+// candidates that (a) inserts each (hi,lo) fingerprint, and (b) for the
+// NEW ones only, appends the packed state row, globalized parent index and
+// action id into caller-provided arena slices.  Replaces the Python-side
+// u64 packing + novelty-mask gather + per-level concatenate with a single
+// cache-friendly pass (the probe is the only random access).  Returns the
+// number of rows appended, or UINT64_MAX on alloc failure.
+uint64_t fpset_insert_compact(void* h, const uint32_t* hi, const uint32_t* lo,
+                              uint64_t n, const uint32_t* rows, uint64_t K,
+                              const int32_t* parent_in, int64_t parent_base,
+                              const int32_t* act_in, uint32_t* arena_rows,
+                              int64_t* parent_out, int32_t* act_out) {
+  FpSet* s = static_cast<FpSet*>(h);
+  uint64_t w = 0;
+  for (uint64_t i = 0; i < n; i++) {
+    if ((s->count + 1) * 4 > s->capacity * 3) {
+      if (!grow(s)) return UINT64_MAX;
+    }
+    uint64_t fp = (static_cast<uint64_t>(hi[i]) << 32) |
+                  static_cast<uint64_t>(lo[i]);
+    if (insert_one(s, fp)) {
+      memcpy(arena_rows + w * K, rows + i * K, K * sizeof(uint32_t));
+      parent_out[w] = static_cast<int64_t>(parent_in[i]) + parent_base;
+      act_out[w] = act_in[i];
+      w++;
+    }
+  }
+  return w;
+}
+
+// Membership only (no mutation): out_found[i] = 1 iff present.
+void fpset_contains_batch(void* h, const uint64_t* fps, uint64_t n,
+                          uint8_t* out_found) {
+  FpSet* s = static_cast<FpSet*>(h);
+  for (uint64_t i = 0; i < n; i++) {
+    uint64_t fp = fps[i];
+    if (fp == 0) {
+      out_found[i] = s->has_zero;
+      continue;
+    }
+    uint64_t j = mix(fp) & s->mask;
+    uint8_t found = 0;
+    while (true) {
+      uint64_t v = s->slots[j];
+      if (v == fp) {
+        found = 1;
+        break;
+      }
+      if (v == 0) break;
+      j = (j + 1) & s->mask;
+    }
+    out_found[i] = found;
+  }
+}
+
+// Serialize the live fingerprints into out (caller allocates count slots);
+// returns the number written. Order is unspecified.
+uint64_t fpset_dump(void* h, uint64_t* out, uint64_t max_n) {
+  FpSet* s = static_cast<FpSet*>(h);
+  uint64_t w = 0;
+  if (s->has_zero && w < max_n) out[w++] = 0;
+  for (uint64_t i = 0; i < s->capacity && w < max_n; i++) {
+    if (s->slots[i] != 0) out[w++] = s->slots[i];
+  }
+  return w;
+}
+
+}  // extern "C"

@@ -9,7 +9,7 @@ scripting against it can switch packages without changing its parser:
      "model": ..., "distinct_states": ..., "diameter": ..., "levels": [...],
      "states_per_sec": ..., "seconds": ...,
      "violation": null | {"invariant": ..., "depth": ..., "trace_len": ...},
-     "run_id": ..., "exit_code": 0|1|75|2}
+     "run_id": ..., "exit_code": 0|1|75|2|76}
 
 Exit codes:
   0   exhaustive pass, no violation
@@ -17,6 +17,8 @@ Exit codes:
   75  RESOURCE_EXHAUSTED: the run ran out of a budget (the JAX package's
       resource governor; the port has none yet, so it never gives it)
   2   error (bad config, unknown module, engine failure)
+  76  INTEGRITY_VIOLATION: the level digest chain caught corrupt state
+      (``resilience/integrity.py``)
 """
 
 from __future__ import annotations

@@ -1,20 +1,29 @@
 """PyTorch port's `cli check`: its --json record equals the JAX package's
 kspec-verdict/1 record of the same .cfg (timing fields and run_id aside),
 its text trace equals the JAX package's render_trace, and its exit codes
-are 0 (no violation), 1 (a violation) and 2 (an error)."""
+are 0 (no violation), 1 (a violation) and 2 (an error).  The run options
+take JAX's names: --cpu, --max-states, --no-trace, --progress, --stats and
+--checkpoint/--checkpoint-every/--checkpoint-keep, each held to the JAX
+package's record, stats lines and checkpoint files."""
 
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from kafka_specification_tpu.engine import bfs as jbfs
 from kafka_specification_tpu.service.verdict import verdict_from_result as jax_verdict
 from kafka_specification_tpu.utils import cfg as jcfg
 from kafka_specification_tpu.utils.pretty import render_trace as jax_render_trace
+from kafka_specification_tpu.resilience import checkpoints as jckpt
+from kafka_specification_tpu.utils.pretty import render_state as jax_render_state
 from kafka_specification_tpu_torch import cli
+from kafka_specification_tpu_torch.resilience import checkpoints as tckpt
 from kafka_specification_tpu_torch.utils import pretty
 
 REPO = Path(__file__).resolve().parents[1]
@@ -31,15 +40,49 @@ CHECK_DEADLOCK FALSE
 """
 
 
-def jax_run(path, module):
+KIP320_2R_CFG = """\\* Kip320 with 2 replicas: 5,973 states, diameter 17
+SPECIFICATION Spec
+CONSTANTS
+    Replicas = {b1, b2}
+    LogSize = 2
+    MaxRecords = 2
+    MaxLeaderEpoch = 2
+INVARIANTS TypeOk LeaderInIsr WeakIsr StrongIsr
+CHECK_DEADLOCK FALSE
+"""
+DETERMINISTIC = ("kind", "depth", "frontier", "enabled_candidates", "new", "duplicates",
+                 "total", "action_enablement")
+
+
+def jax_run(path, module, **kw):
     tlc = jcfg.parse_cfg(path)
     model = jcfg.build_model(module, tlc, analysis_gate=False)
-    return model, jbfs.check(model, check_deadlock=tlc.check_deadlock)
+    return model, jbfs.check(model, check_deadlock=tlc.check_deadlock, **kw)
+
+
+def chip_smoke():
+    """chip_smoke.py's pins of the JAX package's runs at Kip320 3r."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stats_lines(path):
+    with open(path) as fh:
+        return [{k: json.loads(line)[k] for k in DETERMINISTIC} for line in fh]
 
 
 def run_cli(capsys, *argv):
     rc = cli.main(["check", *map(str, argv), "--device", "cpu"])
     return rc, capsys.readouterr()
+
+
+@pytest.fixture(scope="module")
+def kip320_2r(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cfg") / "Kip320.cfg"
+    path.write_text(KIP320_2R_CFG)
+    return path
 
 
 def drop_timing(rec):
@@ -119,3 +162,81 @@ def test_module_entry_point():
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout)
     assert rec["schema"] == "kspec-verdict/1" and rec["distinct_states"] == 12
+
+
+def test_cpu_flag_equals_jax(capsys):
+    """`--cpu` is `--device cpu`, as JAX's flag of that name."""
+    path = REPO / "configs" / "IdSequence.cfg"
+    rc = cli.main(["check", str(path), "--cpu", "--json"])
+    rec = json.loads(capsys.readouterr().out)
+    _, jres = jax_run(path, "IdSequence")
+    assert rc == 0 and drop_timing(rec) == drop_timing(jax_verdict(jres))
+
+
+def test_max_states_3r_equals_the_jax_pin(capsys, tmp_path):
+    """`cli check configs/Kip320.cfg --max-states 100000 --json --stats F`:
+    the JAX package's record and stats lines, as chip_smoke.py pins them
+    from its `--cpu` run: cut at the first level boundary past 100,000."""
+    pins = chip_smoke()
+    stats = tmp_path / "stats.jsonl"
+    rc = cli.main(["check", str(REPO / "configs" / "Kip320.cfg"), "--cpu", "--max-states",
+                   "100000", "--json", "--stats", str(stats)])
+    rec = json.loads(capsys.readouterr().out)
+    assert rc == 0 and drop_timing(rec) == pins.KIP320_MAX_STATES_VERDICT
+    assert stats_lines(stats) == pins.max_states_stats()
+
+
+def test_max_states_stats_and_progress_equal_jax(capsys, tmp_path, kip320_2r):
+    calls = []
+    _, jres = jax_run(kip320_2r, "Kip320", max_states=1000, stats_path=str(tmp_path / "jax.jsonl"),
+                      progress=lambda *a: calls.append(a))
+    rc, out = run_cli(capsys, kip320_2r, "--max-states", 1000, "--json", "--progress",
+                      "--stats", tmp_path / "port.jsonl")
+    assert rc == 0 and drop_timing(json.loads(out.out)) == drop_timing(jax_verdict(jres))
+    assert stats_lines(tmp_path / "port.jsonl") == stats_lines(tmp_path / "jax.jsonl")
+    assert out.err.splitlines() == [f"  level {d}: {n} new, {t} total" for d, n, t in calls]
+
+
+def test_no_trace_equals_jax(capsys, violating):
+    violating_cfg, jmodel, _ = violating
+    _, jres = jax_run(violating_cfg, violating_cfg.stem, store_trace=False)
+    rc, out = run_cli(capsys, violating_cfg, "--no-trace", "--json")
+    rec = json.loads(out.out)
+    assert rc == 1 and drop_timing(rec) == drop_timing(jax_verdict(jres))
+    assert rec["violation"]["trace_len"] == 0
+    rc, out = run_cli(capsys, violating_cfg, "--no-trace")
+    lines = out.out.splitlines()
+    assert rc == 1 and lines[3] == "Violating state:"
+    assert "\n".join(lines[4:]) == jax_render_state(jmodel.meta, jres.violation.state)
+
+
+def test_checkpoint_resume_equals_jax(capsys, tmp_path, kip320_2r):
+    """--checkpoint with a --max-depth cut, then the same command without
+    it: the uninterrupted record, and the JAX package's chain and files."""
+    _, jres = jax_run(kip320_2r, "Kip320", visited_backend="host",
+                      checkpoint_dir=str(tmp_path / "jax"))
+    ck = tmp_path / "port"
+    args = (kip320_2r, "--json", "--visited-backend", "host", "--checkpoint", ck)
+    rc, out = run_cli(capsys, *args, "--max-depth", 6)
+    assert rc == 0 and json.loads(out.out)["levels"] == jres.levels[:7]
+    rc, out = run_cli(capsys, *args)
+    assert rc == 0 and drop_timing(json.loads(out.out)) == drop_timing(jax_verdict(jres))
+    port = tckpt.verify_file(str(ck / "bfs_checkpoint.npz"))
+    jax_ = jckpt.verify_file(str(tmp_path / "jax" / "bfs_checkpoint.npz"))
+    for key in ("digest_chain", "levels", "total", "depth", "ident", "frontier", "vcap"):
+        np.testing.assert_array_equal(port[key], jax_[key], err_msg=key)
+    assert sorted(os.listdir(ck)) == ["bfs_checkpoint.1.npz", "bfs_checkpoint.2.npz",
+                                      "bfs_checkpoint.npz"]
+
+    # every 4th level, one generation kept
+    ck2 = tmp_path / "every4"
+    rc, out = run_cli(capsys, kip320_2r, "--visited-backend", "host", "--checkpoint", ck2,
+                      "--checkpoint-every", 4, "--checkpoint-keep", 1)
+    assert rc == 0 and os.listdir(ck2) == ["bfs_checkpoint.npz"]
+    assert int(tckpt.verify_file(str(ck2 / "bfs_checkpoint.npz"))["depth"]) == 16
+
+
+def test_checkpoint_cadence_must_be_positive(capsys, kip320_2r):
+    for flag in ("--checkpoint-every", "--checkpoint-keep"):
+        rc, out = run_cli(capsys, kip320_2r, flag, 0)
+        assert rc == 2 and "must be >= 1" in out.err

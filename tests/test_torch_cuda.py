@@ -166,8 +166,55 @@ def test_sorted_path_on_card_equals_cpu_with_k1(card):
     assert r_card.stats["visited_capacity"] == r_cpu.stats["visited_capacity"]
     for a, b in zip(on_card, on_cpu):
         assert torch.equal(a.cpu(), b)
-    # one K1 launch for the inits and one a chunk: one chunk a level here
-    assert launched == 1 + 11
+    # one K1 launch for the inits and one a chunk (one chunk a level here),
+    # and one a level for the digest chain's check of the frontier about to
+    # be expanded (depths 0-11)
+    assert launched == 1 + 11 + 12
+
+
+def test_host_backend_on_card_equals_cpu(card):
+    """visited_backend="host" on Kip320 3r (three lanes: hashed
+    fingerprints) cut at depth 11: the card fingerprints (K1), the native
+    set on the host dedups; every level's rows equal the CPU run's, K2
+    idle."""
+    cfg = Config(3, 2, 2, 2)
+    on_card, on_cpu = [], []
+    k1, k2 = cuda_fingerprint.LAUNCHES, cuda_hashset.LAUNCHES
+    r_card = check(kip320.make_model(cfg), device=card, visited_backend="host", max_depth=11,
+                   collect_levels=on_card)
+    assert cuda_fingerprint.LAUNCHES > k1 and cuda_hashset.LAUNCHES == k2
+    r_cpu = check(kip320.make_model(cfg), device="cpu", visited_backend="host", max_depth=11,
+                  collect_levels=on_cpu)
+    assert r_card.levels == r_cpu.levels and r_card.total == 109_030
+    assert r_card.stats["host_fpset_size"] == 109_030
+    for a, b in zip(on_card, on_cpu):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("backend", ["device", "device-hash", "host"])
+def test_checkpoint_round_trip_on_card(card, backend, tmp_path):
+    """A checkpoint written on the card resumes on the card and on the CPU,
+    and one written on the CPU resumes on the card: the levels and digest
+    chain of an uninterrupted CPU run.  A device-hash resume rebuilds the
+    table through K2."""
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    def chain(d):
+        return verify_file(str(d / CHECKPOINT_BASENAME))["digest_chain"]
+
+    model = lambda: kip320.make_model(Config(2, 2, 2, 2))  # noqa: E731
+    ref = check(model(), device="cpu", visited_backend=backend,
+                checkpoint_dir=str(tmp_path / "ref"))
+    for first, then in ((card, card), (card, "cpu"), ("cpu", card)):
+        d = tmp_path / f"{first}-{then}"
+        check(model(), device=first, visited_backend=backend, checkpoint_dir=str(d), max_depth=7)
+        k2 = cuda_hashset.LAUNCHES
+        res = check(model(), device=then, visited_backend=backend, checkpoint_dir=str(d))
+        assert res.levels == ref.levels and res.total == 5973
+        assert np.array_equal(chain(d), chain(tmp_path / "ref"))
+        if backend == "device-hash" and then == card:
+            assert cuda_hashset.LAUNCHES > k2
 
 
 def test_fp_stage_launches_k1_never_plain(card, monkeypatch):

@@ -119,10 +119,10 @@ def test_max_depth_and_violation_at_init():
 
 
 def test_rejects_unported_backend():
-    """The host visited set and the device-resident pipeline are not
-    ported: both raise, naming what is."""
+    """An unknown visited backend and the device-resident pipeline (not
+    ported) raise, naming what there is."""
     model = tkip320.make_model(tkr.Config(2, 2, 1, 1))
-    with pytest.raises(ValueError, match="not ported.*device, device-hash"):
-        check(model, device="cpu", visited_backend="host")
+    with pytest.raises(ValueError, match="one of device, device-hash, host.*'disk'"):
+        check(model, device="cpu", visited_backend="disk")
     with pytest.raises(ValueError, match="not ported.*fused, legacy"):
         check(model, device="cpu", pipeline="device")

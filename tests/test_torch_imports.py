@@ -34,8 +34,16 @@ def test_import_and_tiny_check_load_no_jax():
         assert res.ok and res.total == 341, res
         from kafka_specification_tpu_torch import cli
         assert cli.main(["check", "configs/IdSequence.cfg", "--device", "cpu", "--json"]) == 0
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            # the host set, checkpoints, the chain and the stats stream
+            assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
+                             "--visited-backend", "host", "--checkpoint", tmp + "/ck",
+                             "--stats", tmp + "/stats.jsonl"]) == 0
         for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
-                     "utils.pretty", "models.id_sequence", "models.finite_replicated_log"):
+                     "utils.pretty", "models.id_sequence", "models.finite_replicated_log",
+                     "durable_io", "native", "resilience.integrity",
+                     "resilience.checkpoints", "resilience.heartbeat"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -65,10 +73,15 @@ def _imported_roots(path: Path):
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "kafka_specification_tpu_torch").rglob("*.py"))
+    # the copies of the JAX package's jax-free modules are scanned too
+    names = {str(f.relative_to(REPO / "kafka_specification_tpu_torch")) for f in files}
+    assert {"durable_io.py", "native/__init__.py", "resilience/integrity.py",
+            "resilience/checkpoints.py", "resilience/heartbeat.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
-        "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py")]
+        "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
+        "torch_slice_walls.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)

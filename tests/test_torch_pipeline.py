@@ -1,6 +1,6 @@
 """PyTorch port: check(device="cpu") against the JAX engine's check() over
 the knobs that decide the candidate order: visited backend {device,
-device-hash} x pipeline {legacy, fused} x compact_shift {0, 2}, with the
+device-hash, host} x pipeline {legacy, fused} x compact_shift {0, 2}, with the
 JAX package's own test knobs (min_bucket 32, chunk_size 256, compact_gate
 32, tests/test_pipeline.py), on a violating model (TruncateToHW 2r, WeakIsr)
 and a passing one (Kip320 2r L2 R1 E1); then at full defaults, and where
@@ -67,7 +67,7 @@ def run_both(name, **kw):
 
 @pytest.mark.parametrize("shift", [0, 2])
 @pytest.mark.parametrize("pipeline", ["legacy", "fused"])
-@pytest.mark.parametrize("backend", ["device", "device-hash"])
+@pytest.mark.parametrize("backend", ["device", "device-hash", "host"])
 @pytest.mark.parametrize("name", [THW, "Kip320"])
 def test_port_equals_jax_over_the_knobs(name, backend, pipeline, shift):
     jr, tr = run_both(name, visited_backend=backend, pipeline=pipeline,
@@ -76,11 +76,11 @@ def test_port_equals_jax_over_the_knobs(name, backend, pipeline, shift):
         assert (tr.violation.invariant, tr.violation.depth) == ("WeakIsr", 8)
     else:
         assert tr.ok and tr.total == 277
-    if backend == "device":
-        assert tr.stats["visited_capacity"] == jr.stats["visited_capacity"]
+    assert tr.stats["visited_capacity"] == jr.stats["visited_capacity"]
+    assert tr.stats.get("host_fpset_size") == jr.stats.get("host_fpset_size")
 
 
-@pytest.mark.parametrize("backend", ["device", "device-hash"])
+@pytest.mark.parametrize("backend", ["device", "device-hash", "host"])
 def test_full_defaults(backend):
     """No knob but the backend: fused, compact_shift 2, gate 4096, so every
     bucket of this model lies below the gate (state-major order).  The
@@ -91,6 +91,7 @@ def test_full_defaults(backend):
     assert tr.stats["pipeline"] == "fused"
     assert not tpipeline.compacts(256, 2, 4096)
     steps = [a for a, _ in tr.violation.trace]
+    # the host set commits in candidate order, as the hash table does
     assert steps[3] == ("BecomeFollowerTruncateToHighWatermark" if backend == "device"
                         else "BecomeLeader")
 

@@ -1,8 +1,8 @@
 """PyTorch port of the small models, IdSequence and FiniteReplicatedLog:
 every action kernel gives the JAX package's (enabled, packed successor) on
 every choice of random in-range states, and check() gives the JAX engine's
-levels row for row, total, diameter and traces, on both visited backends
-(the tests/test_engine.py cases: MaxId + 2 states, FRL(3,4,1) = 125,
+levels row for row, total, diameter and traces, on the three visited
+backends (the tests/test_engine.py cases: MaxId + 2 states, FRL(3,4,1) = 125,
 FRL(2,2,2) = 49 in exact and forced-hashed mode, the BelowBound trace
 0 -> 4, a violation at Init)."""
 
@@ -23,7 +23,7 @@ from kafka_specification_tpu_torch.models import finite_replicated_log as tfrl
 from kafka_specification_tpu_torch.models import id_sequence as tids
 from kafka_specification_tpu_torch.models.base import Invariant as TInvariant
 
-BACKENDS = ["device", "device-hash"]
+BACKENDS = ["device", "device-hash", "host"]
 
 
 def model_pair(name, *args, **kw):
