@@ -67,9 +67,44 @@ print no result:
          --max-states 100000 --json --stats FILE`: exit 0, the JAX
          package's record and the deterministic fields of its stats lines
          (pinned below)
+  async-isr  AsyncIsr 4r M3 V3 (Replicas {b1..b4}, MaxOffset 3,
+         MaxVersion 3: the widest the encoding admits) through check() with
+         no knobs and with visited_backend="device-hash": ok, 8,134,400
+         states, diameter 30, per-level counts equal to the JAX package's
+         (pinned below), K1 launched (and K2 on device-hash); then `cli check
+         configs/AsyncIsr.cfg --json` in a subprocess: exit 0 and the JAX
+         package's record (4,088 states, diameter 16; pinned below)
+  product  TINY^3, the product of three Kip320 2r L2 R1 E1 partitions
+         (27 actions, all four invariants), through check() with no knobs:
+         ok, 21,253,933 states, diameter 33, per-level counts equal to the
+         closed form (the base's 12 JAX levels convolved three times,
+         computed here), K1 launched; then TruncateToHW 2r (TypeOk, WeakIsr)
+         x 2 with no knobs: WeakIsr at depth 8 after 15,997 states with the
+         JAX package's trace (pinned below as a digest of the whole trace)
+  simulate  `cli simulate` in a subprocess, twice: configs/
+         KafkaTruncateToHighWatermark.cfg --walks 200 --depth 30 --seed 0
+         (exit 1, WeakIsr at depth 12 after 1,673 states, the JAX package's
+         rendered trace, pinned as a digest) and configs/Kip320Stretch.cfg
+         --module Kip320 --walks 10 --depth 50 --seed 0 (exit 0, "498
+         states visited, no violations"); each run's process wall and the
+         states/s it printed
+
+Each path run through one check() (main, default, host, first-try-strong,
+async-isr on both backends, both products) then holds K1, and K2 where the
+path launched it, against the plain versions at the path's own largest
+launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
+valid; K2 with that batch size (a table rebuild's, where the table grew)
+and with K1's largest M (no smaller than any chunk's batch: a chunk's keys
+are rows K1 hashed in one launch), each into a table of the largest
+capacity the path grew, holding the path's states less the batch, grown
+and re-run on an overflow as check() does.  The phase line names those
+shapes; these launches come after the path's counts are read.
 
 A kernel's `ms` is its own time (CUDA events around back-to-back launches),
 `route_ms` the entry point's time as check() calls it, host work included.
+A kernel's `launches` is its count on the default path (K1) or on the
+device-hash path (K2), and `launches_by_path` its count on every path it
+runs, each counted from 0 just before that path and read just after.
 Then three lines: the kernels as JSON, the card's name and power limit as
 nvidia-smi gives them, and the device as JSON.  Exits 1 with no result
 when CUDA is not available or the port's package is not beside it.
@@ -209,6 +244,52 @@ FIRST_TRY_STRONG_STATE = [
     [[0, 1, 1, [0, 1, 2]], [0, 1, 1, [0, 1, 2]], [1, 2, 2, [0, 2]]],
     1, 3, [[0, 2, [0, 1, 2]], [1, 1, [0, 1, 2]], [2, 2, [0, 1, 2]]], [2, 2, [0, 2]],
 ]
+# JAX package, check() of AsyncIsr(4r, M3, V3) on the CPU (visited_backend
+# "host"; the counts do not depend on the knobs)
+ASYNC_4R_LEVELS = [
+    1, 7, 31, 116, 377, 1082, 2819, 6829, 15413, 32324, 63333, 115993, 197528,
+    312282, 458565, 623812, 783474, 907380, 967941, 947673, 847266, 687960,
+    503619, 328506, 187557, 91359, 36627, 11493, 2622, 384, 27,
+]
+# JAX package, `cli check configs/AsyncIsr.cfg --json --cpu`, timing fields
+# and run_id left out
+ASYNC_CFG_VERDICT = {
+    "schema": "kspec-verdict/1", "model": "AsyncIsr(3r,M2,V2)",
+    "distinct_states": 4088, "diameter": 16,
+    "levels": [1, 5, 16, 42, 92, 171, 282, 414, 535, 614, 620, 536, 390, 232, 104, 30, 4],
+    "violation": None, "exit_code": 0,
+}
+# JAX package, check() of Kip320(2r, L2, R1, E1): the base of the product
+TINY_LEVELS = [1, 4, 12, 18, 36, 44, 48, 48, 30, 22, 12, 2]
+# JAX package, check() of product_model(TruncateToHW(2r, L2, R1, E1) with
+# TypeOk and WeakIsr, 2) with no knobs on the CPU: its levels, the actions
+# of its trace, and the sha256 of json.dumps(canon(trace))
+PRODUCT_VIOLATION_LEVELS = [1, 8, 44, 172, 520, 1276, 2588, 4488, 6900]
+PRODUCT_VIOLATION_ACTIONS = [
+    "<init>", "p1.ControllerElectLeader", "p1.BecomeFollowerTruncateToHighWatermark",
+    "p1.BecomeLeader", "p1.LeaderWrite", "p1.FollowerReplicate",
+    "p1.LeaderIncHighWatermark", "p1.ControllerShrinkIsr",
+    "p1.BecomeFollowerTruncateToHighWatermark",
+]
+PRODUCT_VIOLATION_SHA = "5e2872b44018e2da38fa1fd54093d4811bcf64a35d28dd15d50e9cde843d99fe"
+# JAX package, `cli simulate configs/KafkaTruncateToHighWatermark.cfg --walks
+# 200 --depth 30 --seed 0 --cpu --hand`: exit 1, WeakIsr at depth 12 after
+# 1,673 states; the sha256 of the lines of its rendered trace (91 lines)
+SIM_THW_ARGS = ["configs/KafkaTruncateToHighWatermark.cfg", "--walks", "200", "--depth", "30",
+                "--seed", "0"]
+SIM_THW_HEAD = [
+    "Model: KafkaTruncateToHighWatermark(3r,L2,R2,E2)",
+    "1673 distinct states found, diameter 0, ",
+    "Invariant WeakIsr is VIOLATED at depth 12.",
+    "Counterexample trace:",
+]
+SIM_THW_TRACE_SHA = "bbe403f0f02c486d20d8e347650c438f3dddd07470e9b66e1b5f5dd3df9ffb0e"
+# JAX package, `cli simulate configs/Kip320Stretch.cfg --module Kip320
+# --walks 10 --depth 50 --seed 0 --cpu --hand`: exit 0 and this line, up to
+# its rate
+SIM_STRETCH_ARGS = ["configs/Kip320Stretch.cfg", "--module", "Kip320", "--walks", "10",
+                    "--depth", "50", "--seed", "0"]
+SIM_STRETCH_LINE = "Simulation: 10 walks x depth 50, 498 states visited, no violations ("
 # the knobs of the path before the sorted backend was ported
 HASH_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
 # where checkpoints and stats files go: inside the checkout, gitignored
@@ -324,6 +405,25 @@ def _k2_same(t_plain, t_kern, q, valid, what):
         raise AssertionError(f"{what}: K2 count or membership differs from its plain version")
 
 
+def _insert_as_check(insert, table, q):
+    """`insert` (the kernel's or the plain probe_insert) as check()'s
+    device-hash set calls it: on an overflow the table is doubled and the
+    batch re-run, the novelty OR-ed.  -> (growths, novelty, sorted members,
+    new keys summed over the runs)."""
+    from kafka_specification_tpu_torch.ops import hashset
+
+    isnew = torch.zeros(q.shape[0], dtype=torch.bool, device=DEV)
+    rounds = total = 0
+    while True:
+        table, new, n, ovf = insert(table, q)
+        isnew |= new
+        total += int(n)
+        if not bool(ovf):
+            return rounds, isnew, _members(table), total
+        rounds += 1
+        table = hashset.rehash_into(table, 2 * table.shape[0])
+
+
 def phase_k2():
     from kafka_specification_tpu_torch.ops import cuda_hashset as k2
     from kafka_specification_tpu_torch.ops import hashset
@@ -348,21 +448,9 @@ def phase_k2():
 
     # overflow: 4096 distinct keys into 1024 slots, grown and re-run
     small_q = kt.keys(np.random.default_rng(6), 4096, DEV)
-    results = []
-    for insert in (hashset.probe_insert, k2.probe_insert):
-        table = hashset.new_table(1024, DEV)
-        isnew = torch.zeros(4096, dtype=torch.bool, device=DEV)
-        rounds = total = 0
-        while True:
-            table, new, n, ovf = insert(table, small_q)
-            isnew |= new
-            total += int(n)
-            if not bool(ovf):
-                break
-            rounds += 1
-            table = hashset.rehash_into(table, 2 * table.shape[0])
-        results.append((rounds, isnew, _members(table), total))
-    (p_rounds, p_isnew, p_mem, p_total), (k_rounds, k_isnew, k_mem, k_total) = results
+    (p_rounds, p_isnew, p_mem, p_total), (k_rounds, k_isnew, k_mem, k_total) = (
+        _insert_as_check(insert, hashset.new_table(1024, DEV), small_q)
+        for insert in (hashset.probe_insert, k2.probe_insert))
     if k_rounds == 0 or p_rounds == 0:
         raise AssertionError("the tiny table did not overflow")
     if not (torch.equal(p_isnew, k_isnew) and torch.equal(p_mem, k_mem)):
@@ -507,6 +595,8 @@ def _reset_counts():
 
     cuda_fingerprint.LAUNCHES = 0
     cuda_hashset.LAUNCHES = 0
+    cuda_fingerprint.LARGEST = (0, 0)
+    cuda_hashset.LARGEST = (0, 0)
 
 
 def _read_counts(path_kernels):
@@ -521,17 +611,83 @@ def _read_counts(path_kernels):
     return counts
 
 
-def _kip320(knobs, path_kernels):
-    """configs/Kip320.cfg through check() on the card with `knobs`."""
-    from kafka_specification_tpu_torch import build_model, check, load_config
+def _k2_filled(cap, m, fill, seed=8):
+    """-> (table0, keys): a k2_batch of m keys (in-batch duplicates), its
+    first eighth in a table of `cap` slots that holds `fill` other random
+    keys besides, all put there by the plain version (a key past its probe
+    budget is left out: the fill's load only has to match the run's)."""
+    from kafka_specification_tpu_torch.ops import hashset
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
 
-    model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+    rng = np.random.default_rng(seed)
+    q = kt.k2_batch(rng, m, DEV)
+    seeded = torch.cat([kt.keys(rng, fill, DEV), q[: m // 8]])
+    table = hashset.new_table(cap, DEV)
+    for start in range(0, seeded.shape[0], 1 << 20):
+        table = hashset.probe_insert(table, seeded[start : start + (1 << 20)])[0]
+    return table, q
+
+
+def _hold_path_shapes(shapes, total):
+    """K1, and K2 where the path launched it, against their plain versions
+    at the path's largest launch (launches made here are not the path's):
+    K1 at its largest (M, K), every row valid as check() passes them; K2 on
+    its largest batch, and on K1's largest M (which bounds every chunk's
+    batch), each into a table of the largest capacity the path grew,
+    holding the path's `total` states less the batch, as check() calls it
+    (no mask; on an overflow, doubled and re-run).  -> the phase line's
+    note of the shapes."""
+    from kafka_specification_tpu_torch.ops import cuda_fingerprint as k1
+    from kafka_specification_tpu_torch.ops import cuda_hashset as k2
+    from kafka_specification_tpu_torch.ops import hashset
+    from kafka_specification_tpu_torch.utils import kernel_times as kt
+
+    m, k = shapes["fingerprint"]
+    lanes, valid = kt.k1_inputs(DEV, m, k, seed=m)
+    (hi, lo), (p_hi, p_lo) = k1.fingerprint(lanes, valid), k1.fingerprint_plain(lanes, valid)
+    if not (torch.equal(hi, p_hi) and torch.equal(lo, p_lo)):
+        raise AssertionError(f"K1 differs from its plain version at the path's M={m} K={k}")
+    note = f"K1 bit-identical at the path's largest launch M={m} K={k}"
+    cap, m2 = shapes["hash_probe_insert"]
+    # the largest batch (a rebuild's, when the table grew), and K1's largest
+    # M, which bounds every chunk's batch (a chunk's keys are rows K1 hashed)
+    for m_k2 in sorted({m2, m} if cap else ()):
+        table0, q = _k2_filled(cap, m_k2, max(0, total - m_k2))
+        fill = int((table0 != hashset.SENT_KEY).sum())
+        (p_rounds, p_isnew, p_mem, p_total), (k_rounds, k_isnew, k_mem, k_total) = (
+            _insert_as_check(insert, table0.clone(), q)
+            for insert in (hashset.probe_insert, k2.probe_insert))
+        if not (torch.equal(p_isnew, k_isnew) and torch.equal(p_mem, k_mem)
+                and p_total == k_total == int(k_isnew.sum())):
+            raise AssertionError(f"K2 differs from its plain version at the path's cap={cap} "
+                                 f"M={m_k2} (table holding {fill})")
+        note += (f"; K2 winners/count/membership identical at the path's cap={cap} M={m_k2}, "
+                 f"table holding {fill} (new {k_total}, growths {k_rounds} / plain {p_rounds})")
+    return note
+
+
+def _timed_check(model, path_kernels, **knobs):
+    """check() on the card with the launch counts from 0, then the path's
+    kernels held at its largest launch: (result, wall, counts, note)."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset
+
     _reset_counts()
     t0 = time.perf_counter()
     res = check(model, device=DEV, **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts(path_kernels)
+    shapes = {"fingerprint": cuda_fingerprint.LARGEST, "hash_probe_insert": cuda_hashset.LARGEST}
+    return res, wall, counts, _hold_path_shapes(shapes, res.total)
+
+
+def _kip320(knobs, path_kernels):
+    """configs/Kip320.cfg through check() on the card with `knobs`."""
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+    res, wall, counts, held = _timed_check(model, path_kernels, **knobs)
     if not res.ok or res.total != 737_794 or res.diameter != 25:
         raise AssertionError(f"ok={res.ok} total={res.total} diameter={res.diameter}")
     if res.levels != KIP320_LEVELS:
@@ -541,7 +697,7 @@ def _kip320(knobs, path_kernels):
     return {
         "line": f"Kip320 3r ok, {res.total} states, diameter 25, levels as pinned; "
                 f"{wall:.2f} s wall, {res.total / wall:.0f} states/s; "
-                f"launches {counts}; {stats}",
+                f"launches {counts}; {stats}; {held}",
         "counts": counts,
     }
 
@@ -632,17 +788,11 @@ def phase_resume():
 
 
 def phase_first_try_strong():
-    from kafka_specification_tpu_torch import build_model, check, load_config
+    from kafka_specification_tpu_torch import build_model, load_config
 
     cfg = load_config("configs/Kip320FirstTry.cfg")
     cfg.invariants = ["StrongIsr"]
-    model = build_model("Kip320FirstTry", cfg)
-    _reset_counts()
-    t0 = time.perf_counter()
-    res = check(model, device=DEV)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _read_counts(("fingerprint",))
+    res, wall, counts, held = _timed_check(build_model("Kip320FirstTry", cfg), ("fingerprint",))
     v = res.violation
     if v is None or (v.invariant, v.depth, res.total) != ("StrongIsr", 12, 284_803):
         raise AssertionError(f"expected StrongIsr at depth 12 after 284803 states, got "
@@ -654,7 +804,7 @@ def phase_first_try_strong():
     if canon(v.state) != FIRST_TRY_STRONG_STATE:
         raise AssertionError(f"violating state differs: {canon(v.state)}")
     return {"line": f"Kip320FirstTry StrongIsr violated at depth 12 after {res.total} states, "
-                    f"trace as pinned; {wall:.2f} s; launches {counts}"}
+                    f"trace as pinned; {wall:.2f} s; launches {counts}; {held}"}
 
 
 def stats_fields(rec):
@@ -669,15 +819,22 @@ def max_states_stats():
             for row in KIP320_MAX_STATES_STATS]
 
 
-def _cli(args, want_rc):
-    cmd = [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check", *args]
+def _run_cli(cmd, args, want_rc):
+    """`python -m kafka_specification_tpu_torch.cli cmd args` in a
+    subprocess: (stdout, process wall)."""
+    argv = [sys.executable, "-m", "kafka_specification_tpu_torch.cli", cmd, *args]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if out.returncode != want_rc:
-        raise AssertionError(f"{args}: exit {out.returncode}, expected {want_rc}: "
+        raise AssertionError(f"{cmd} {args}: exit {out.returncode}, expected {want_rc}: "
                              f"{out.stderr[-2000:]}")
-    rec = json.loads(out.stdout.splitlines()[-1])
+    return out.stdout, wall
+
+
+def _cli(args, want_rc):
+    stdout, wall = _run_cli("check", args, want_rc)
+    rec = json.loads(stdout.splitlines()[-1])
     got = {k: v for k, v in rec.items() if k not in ("seconds", "states_per_sec", "run_id")}
     return rec, got, wall
 
@@ -706,6 +863,98 @@ def phase_cli():
                     f"check {rec2['seconds']} s, process {wall2:.1f} s"}
 
 
+def phase_async_isr():
+    """AsyncIsr 4r M3 V3 from configs/AsyncIsr.cfg's constants widened, on
+    the default path and on device-hash; then `cli check` of the .cfg."""
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    cfg = load_config("configs/AsyncIsr.cfg")
+    cfg.constants.update(Replicas=["b1", "b2", "b3", "b4"], MaxOffset=3, MaxVersion=3)
+    parts, counts = [], {}
+    for backend, path_kernels in (("device", ("fingerprint",)),
+                                  ("device-hash", ("fingerprint", "hash_probe_insert"))):
+        knobs = {} if backend == "device" else {"visited_backend": backend}
+        model = build_model("AsyncIsr", cfg)
+        res, wall, counts[backend], held = _timed_check(model, path_kernels, **knobs)
+        if (res.model, res.ok, res.total, res.diameter) != ("AsyncIsr(4r,M3,V3)", True,
+                                                            8_134_400, 30):
+            raise AssertionError(f"{backend}: {res.model} ok={res.ok} total={res.total} "
+                                 f"diameter={res.diameter}")
+        if res.levels != ASYNC_4R_LEVELS:
+            raise AssertionError(f"{backend}: per-level counts differ: {res.levels}")
+        parts.append(f"{backend} {wall:.2f} s, {res.total / wall:.0f} states/s, "
+                     f"{res.stats['lanes']} lanes, launches {counts[backend]}, "
+                     f"{ {k: res.stats[k] for k in res.stats if 'capacity' in k} }; {held}")
+    rec, got, wall = _cli(["configs/AsyncIsr.cfg", "--json"], 0)
+    if got != ASYNC_CFG_VERDICT:
+        raise AssertionError(f"AsyncIsr.cfg record differs from the JAX package's: {got}")
+    return {"line": f"AsyncIsr 4r M3 V3 ok, 8134400 states, diameter 30, levels as pinned: "
+                    f"{'; '.join(parts)}; cli check configs/AsyncIsr.cfg: record as pinned, "
+                    f"exit 0, check {rec['seconds']} s, process {wall:.1f} s",
+            "counts": counts}
+
+
+def phase_product():
+    """TINY^3 to the end against the closed form; a product violation's
+    trace against the JAX pin."""
+    import hashlib
+
+    from kafka_specification_tpu_torch.models import kip320, variants
+    from kafka_specification_tpu_torch.models.kafka_replication import Config
+    from kafka_specification_tpu_torch.models.product import product_model
+
+    want = np.convolve(np.convolve(TINY_LEVELS, TINY_LEVELS), TINY_LEVELS).tolist()
+    model = product_model(kip320.make_model(Config(2, 2, 1, 1), (
+        "TypeOk", "LeaderInIsr", "WeakIsr", "StrongIsr")), 3)
+    res, wall, counts, held = _timed_check(model, ("fingerprint",))
+    if (res.ok, res.total, res.diameter) != (True, 21_253_933, 33):
+        raise AssertionError(f"TINY^3: ok={res.ok} total={res.total} diameter={res.diameter}")
+    if res.levels != want:
+        raise AssertionError(f"TINY^3 per-level counts differ from the closed form: {res.levels}")
+    base = variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1),
+                               ("TypeOk", "WeakIsr"))
+    vres, vwall, vcounts, vheld = _timed_check(product_model(base, 2), ("fingerprint",))
+    v = vres.violation
+    if v is None or (v.invariant, v.depth, vres.total) != ("WeakIsr", 8, 15_997):
+        raise AssertionError(f"expected WeakIsr at depth 8 after 15997 states, got "
+                             f"{v and (v.invariant, v.depth)} after {vres.total}")
+    if vres.levels != PRODUCT_VIOLATION_LEVELS:
+        raise AssertionError(f"levels differ: {vres.levels}")
+    if [a for a, _ in v.trace] != PRODUCT_VIOLATION_ACTIONS:
+        raise AssertionError(f"trace actions differ: {[a for a, _ in v.trace]}")
+    sha = hashlib.sha256(json.dumps(canon(v.trace)).encode()).hexdigest()
+    if sha != PRODUCT_VIOLATION_SHA:
+        raise AssertionError(f"the trace differs from the JAX package's (sha256 {sha})")
+    return {"line": f"TINY^3 ok, {res.total} states, diameter 33, levels = the closed form; "
+                    f"{wall:.2f} s, {res.total / wall:.0f} states/s, {res.stats['lanes']} "
+                    f"lanes, launches {counts}; {held}; TruncateToHW 2r x 2: WeakIsr at depth 8 "
+                    f"after {vres.total} states, trace as pinned, {vwall:.2f} s, launches "
+                    f"{vcounts}; {vheld}",
+            "counts": counts, "violation_counts": vcounts}
+
+
+def phase_simulate():
+    import hashlib
+
+    out, wall = _run_cli("simulate", SIM_THW_ARGS, 1)
+    lines = out.splitlines()
+    head_ok = all(a.startswith(b) for a, b in zip(lines[:4], SIM_THW_HEAD))
+    if not head_ok or len(lines) < 5:
+        raise AssertionError(f"TruncateToHW simulate printed {lines[:4]}")
+    sha = hashlib.sha256("\n".join(lines[4:]).encode()).hexdigest()
+    if sha != SIM_THW_TRACE_SHA:
+        raise AssertionError(f"the TruncateToHW walk differs from the JAX package's "
+                             f"(sha256 {sha} of {len(lines) - 4} lines)")
+    rate = lines[1].rsplit("(", 1)[-1].rstrip(")")
+    out2, wall2 = _run_cli("simulate", SIM_STRETCH_ARGS, 0)
+    line = out2.strip()
+    if not (line.startswith(SIM_STRETCH_LINE) and len(out2.splitlines()) == 1):
+        raise AssertionError(f"Stretch simulate printed {out2[-500:]!r}")
+    return {"line": f"TruncateToHW 200 x 30 seed 0: exit 1, WeakIsr at depth 12 after 1673 "
+                    f"states, trace as pinned, {rate}, process {wall:.1f} s; Stretch 10 x 50 "
+                    f"seed 0: exit 0, {line.split(', ', 1)[1]} process {wall2:.1f} s"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -730,14 +979,23 @@ def main() -> int:
     ph.run("resume", phase_resume)
     ph.run("first-try-strong", phase_first_try_strong)
     ph.run("cli", phase_cli)
+    async_isr = ph.run("async-isr", phase_async_isr)
+    product = ph.run("product", phase_product)
+    ph.run("simulate", phase_simulate)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
     kernels = []
     # K1's launches on the default path, K2's on the device-hash path
+    by_path = {"default": default["counts"], "main (device-hash)": main_path["counts"],
+               "async-isr": async_isr["counts"]["device"],
+               "async-isr device-hash": async_isr["counts"]["device-hash"],
+               "product TINY^3": product["counts"],
+               "product violation": product["violation_counts"]}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]
+        kern["launches_by_path"] = {p: c[kern["name"]] for p, c in by_path.items()}
         kernels.append(kern)
     kernels += k4["kernels"]  # a rung's launches: one ladder run (no rung is on check())
     print(json.dumps({"kernels": kernels}))

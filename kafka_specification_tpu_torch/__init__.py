@@ -19,17 +19,20 @@ where the kernels' plain PyTorch versions run instead.
 Layout (module names mirror the JAX package):
     ops/       packing, fingerprints, dedup and the sorted set, the hash
                set, kernels + build
-    models/    tensor encodings and batched action/invariant kernels
+    models/    tensor encodings and batched action/invariant kernels: the
+               Kafka replication family, AsyncIsr, IdSequence, FRL, and
+               the partition product (product.py)
     engine/    the BFS checker (bfs.py: the level loop, its run options,
                checkpoints and the sorted, hash and host visited sets;
                pipeline.py: the per-chunk stages and the candidate order)
+               and random simulation (simulate.py, TLC's -simulate)
     native/    the host fingerprint set (fpset.cpp, g++ at first use)
     resilience/  the level digest chain, the checkpoint store, the
                per-level heartbeat record
     durable_io.py  the file steps checkpoints and stats lines take
     utils/     TLC .cfg parsing and model instantiation, trace rendering,
                device timing
-    cli.py     `python -m kafka_specification_tpu_torch.cli check CFG`
+    cli.py     `python -m kafka_specification_tpu_torch.cli check|simulate CFG`
     verdict.py the kspec-verdict/1 record and exit codes
     pipeline_registry.py  pipeline names ("fused", "legacy"; "device" is
                not ported) and $KSPEC_PIPELINE

@@ -1,9 +1,12 @@
-"""Command line of the PyTorch port: check a TLC .cfg.
+"""Command line of the PyTorch port: check or simulate a TLC .cfg.
 
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --cpu --json
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg \
         --checkpoint ckpt/ --stats stats.jsonl --visited-backend host
+    python -m kafka_specification_tpu_torch.cli check configs/AsyncIsr.cfg --cpu
+    python -m kafka_specification_tpu_torch.cli simulate configs/Kip320Stretch.cfg \
+        --module Kip320 --walks 10 --depth 50 --seed 0
 
 ``check`` takes the options of the JAX package's ``cli check`` that the
 ported engine serves, with the same names and defaults, and prints what it
@@ -15,6 +18,12 @@ violating state when no trace was kept), or with ``--json`` the
 the card unless ``--cpu`` (or ``--device cpu``) is given.  Exit codes: 0
 no violation, 1 a violation, 2 an error, 76 a failed integrity check (the
 level digest chain).
+
+``simulate`` is TLC's ``-simulate`` (``engine/simulate.py``): ``--walks``
+random walks of at most ``--depth`` steps from ``--seed``, the same walks
+as the JAX package's ``cli simulate``.  It prints what that prints: one
+"Simulation: ..." line when no walk breaks an invariant (exit 0), else the
+violation as ``check`` prints it, or its record with ``--json`` (exit 1).
 """
 
 from __future__ import annotations
@@ -57,24 +66,58 @@ def _progress(depth, new_n, total):
     print(f"  level {depth}: {new_n} new, {total} total", file=sys.stderr)
 
 
-def _check(args) -> int:
-    if args.checkpoint_every < 1 or args.checkpoint_keep < 1:
-        print("error: --checkpoint-every and --checkpoint-keep must be >= 1", file=sys.stderr)
-        return EXIT_ERROR
+def _build(args):
+    """(parsed .cfg, model), or None after printing why not."""
     try:
         tlc_cfg = parse_cfg(args.cfg)
     except (OSError, ValueError) as e:
         print(f"error: cannot parse {args.cfg}: {e}", file=sys.stderr)
-        return EXIT_ERROR
+        return None
     module = args.module or Path(args.cfg).stem
     try:
-        model = build_model(module, tlc_cfg)
+        return tlc_cfg, build_model(module, tlc_cfg)
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
-        return EXIT_ERROR
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
+    return None
+
+
+def _simulate(args) -> int:
+    built = _build(args)
+    if built is None:
         return EXIT_ERROR
+    _, model = built
+    from .engine.simulate import simulate
+
+    try:
+        res = simulate(model, num_walks=args.walks, max_depth=args.depth, seed=args.seed,
+                       device="cpu" if args.cpu else args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    if res.violation is None:
+        print(
+            f"Simulation: {args.walks} walks x depth {args.depth}, "
+            f"{res.total} states visited, no violations "
+            f"({res.states_per_sec:,.0f} states/sec)."
+        )
+        return 0
+    if args.json:
+        print(json.dumps(verdict_from_result(res)))
+    else:
+        _print_result(res, model.meta)
+    return 1
+
+
+def _check(args) -> int:
+    if args.checkpoint_every < 1 or args.checkpoint_keep < 1:
+        print("error: --checkpoint-every and --checkpoint-keep must be >= 1", file=sys.stderr)
+        return EXIT_ERROR
+    built = _build(args)
+    if built is None:
+        return EXIT_ERROR
+    tlc_cfg, model = built
     from .engine.bfs import check
 
     kw = {} if args.chunk_size is None else {"chunk_size": args.chunk_size}
@@ -180,8 +223,19 @@ def main(argv=None) -> int:
         "the plain versions of the kernels)",
     )
     pc.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
+    ps = sub.add_parser("simulate", help="random-walk checking (TLC -simulate equivalent)")
+    ps.add_argument("cfg")
+    ps.add_argument("--module", help="TLA+ module (default: cfg file stem)")
+    ps.add_argument("--walks", type=int, default=100)
+    ps.add_argument("--depth", type=int, default=100)
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--json", action="store_true",
+                    help="print a violation as its kspec-verdict/1 record")
+    ps.add_argument("--device", default=None,
+                    help="torch device (default: the card, 'cuda'; 'cpu' runs the plain kernels)")
+    ps.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
     args = p.parse_args(argv)
-    return _check(args)
+    return _simulate(args) if args.cmd == "simulate" else _check(args)
 
 
 if __name__ == "__main__":

@@ -327,7 +327,9 @@ def check(
     both run the same stages.  compact_shift/compact_gate select the
     candidate order of a chunk (``pipeline.compacts``).
     check_deadlock: report a reachable state with no enabled action as a
-    violation of the pseudo-invariant "Deadlock".
+    violation of the pseudo-invariant "Deadlock".  A model's constraint
+    prunes successors (not explored, not counted in the stats' enablement);
+    deadlock is judged on the actions' guards before it.
     collect_levels: optional list that receives the init rows and each
     non-empty level's packed rows, int64[n, K], in discovery order.
     checkpoint_dir: save the visited set, the frontier, the level counts

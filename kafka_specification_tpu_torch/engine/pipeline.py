@@ -88,10 +88,15 @@ def invariant_stage(model: Model, states: dict):
 
 
 def expand_stage(model: Model, states: dict):
-    """-> (enabled bool[B, C], [(enabled[B, n_a], next fields[B, n_a, ...])
-    per action])."""
+    """-> (enabled bool[B, C] before the constraint, [(enabled[B, n_a],
+    next fields[B, n_a, ...]) per action] with the constraint ANDed in).
+    The first mask is the one deadlock reads: a state is deadlocked when no
+    action's guard holds, whatever the constraint prunes."""
     parts = [a.kernel(states) for a in model.actions]
-    return torch.cat([en for en, _ in parts], dim=1), parts
+    en_pre = torch.cat([en for en, _ in parts], dim=1)
+    if model.constraint is not None:
+        parts = [(en & model.constraint(nxt), nxt) for en, nxt in parts]
+    return en_pre, parts
 
 
 def squeeze_stage(spec, parts, action_major: bool):
@@ -166,15 +171,15 @@ def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadl
     the candidate order `action_major` selects (``compacts``).  Serves the
     "legacy" and "fused" pipelines alike (module docstring).  Stage 5 runs
     when `check_invariants`; `enablement` counts each action's enabled
-    cells (for the per-level stats)."""
+    cells after the constraint (for the per-level stats)."""
     states = model.spec.unpack(piece)
     if check_invariants:
         bad = invariant_stage(model, states)
         if bad is not None:
             return Chunk((bad[1], bad[0]))
-    en, parts = expand_stage(model, states)
+    en_pre, parts = expand_stage(model, states)
     if check_deadlock:
-        dead = ~en.any(dim=1)
+        dead = ~en_pre.any(dim=1)
         if bool(dead.any()):
             return Chunk((int(torch.argmax(dead.to(torch.uint8))), "Deadlock"))
     act_en = torch.stack([e.sum() for e, _ in parts]) if enablement else None

@@ -8,7 +8,7 @@ produces as numpy-convertible arrays (a JAX array converts through
   the port's one-word-per-slot table, slot for slot;
 - packed frontier rows (uint32 lanes), and any other uint32 array such as
   fingerprint lanes -> int64 tensors of the same u32 values;
-- a ``kafka_replication.Config`` -> the port's Config.
+- a ``kafka_replication.Config`` or an ``AsyncIsrConfig`` -> the port's.
 
 The tests use them to start the port from exactly the JAX package's state,
 and the engine to read and write checkpoint arrays (uint32 in the file).
@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.async_isr import AsyncIsrConfig
 from .models.kafka_replication import Config
 from .ops import dedup
 
@@ -53,4 +54,11 @@ def config_from_jax(cfg) -> Config:
         log_size=cfg.log_size,
         max_records=cfg.max_records,
         max_leader_epoch=cfg.max_leader_epoch,
+    )
+
+
+def async_isr_config_from_jax(cfg) -> AsyncIsrConfig:
+    """A JAX-package AsyncIsrConfig (any object with its three constants)."""
+    return AsyncIsrConfig(
+        n_replicas=cfg.n_replicas, max_offset=cfg.max_offset, max_version=cfg.max_version
     )

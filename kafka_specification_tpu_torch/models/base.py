@@ -11,7 +11,11 @@ Counterpart of ``kafka_specification_tpu/models/base.py``.  A Model is
   next dict of int64[B, n_choices, *shape])``: every choice of every state
   at once, where the JAX kernel is one (state, choice) pair under vmap;
 - each Invariant is a predicate kernel, dict of int64[B, ...] -> bool[B]
-  (True = the state is fine).
+  (True = the state is fine);
+- `constraint`, if set, is TLC's CONSTRAINT over successors: a dict of
+  int64[B, n, ...] -> bool[B, n].  A successor that breaks it is pruned
+  (not explored, not counted); deadlock is still judged on the kernels'
+  own enabled masks, before the constraint.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ class Model:
     init_states: Callable[[], Sequence[dict]]
     actions: Sequence[Action]
     invariants: Sequence[Invariant]
+    constraint: Optional[Callable] = None  # successors[B, n] -> bool[B, n]
     # canonical Python value for a decoded state (numpy fields in, the JAX
     # package's decoded form out), so traces compare across the packages
     decode: Optional[Callable[[dict], object]] = None

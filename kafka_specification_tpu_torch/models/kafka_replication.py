@@ -111,9 +111,14 @@ def init_state(cfg: Config) -> dict:
 # --------------------------------------------------------------------------
 
 
+def _first(s: dict) -> torch.Tensor:
+    """Any field of the batch: its device and batch size are the batch's."""
+    return next(iter(s.values()))
+
+
 def choices(s: dict, n: int) -> torch.Tensor:
     """The choice index of each cell: int64[1, n]."""
-    return torch.arange(n, device=s["nrid"].device).unsqueeze(0)
+    return torch.arange(n, device=_first(s).device).unsqueeze(0)
 
 
 def col(s: dict, name: str) -> torch.Tensor:
@@ -169,7 +174,7 @@ def _member(mask, r):
 
 def _out(s: dict, n: int, enabled, upd: dict):
     """(enabled[B, n], next state[B, n, ...]) with untouched fields shared."""
-    b = s["nrid"].shape[0]
+    b = _first(s).shape[0]
     nxt = {}
     for k, v in s.items():
         shape = (b, n, *v.shape[1:])

@@ -9,7 +9,8 @@ loads) and what bounds it on the card.
 the plain version, ``fingerprint_plain``; on a CUDA tensor it launches the
 kernel on the port's int64 lanes and bool mask as they are, on their card,
 through ``build``'s launch route, and runs nothing else on the card, or
-raises.  ``LAUNCHES`` counts the kernel's launches.  ``to_i32``/``from_i32``
+raises.  ``LAUNCHES`` counts the kernel's launches, and ``LARGEST`` is the
+(M, K) of the largest launch since it was last set to (0, 0).  ``to_i32``/``from_i32``
 convert the u32-in-int64 carrier to int32 bit patterns and back for kernels
 that take those (``cuda_ladder``).
 """
@@ -25,6 +26,7 @@ from .dedup import SENT
 from .fingerprint import MASK32, hash_pair
 
 LAUNCHES = 0
+LARGEST = (0, 0)
 # lanes a row at most: a block stages 256 rows of K int64 words in shared
 # memory, and a block may have 227 KB (232,448 bytes)
 MAX_LANES = 232448 // (256 * 8)
@@ -70,7 +72,7 @@ def _check(lanes: torch.Tensor, valid: torch.Tensor):
 def launch(lanes: torch.Tensor, valid: torch.Tensor):
     """The kernel itself: int64[M, K] u32 lanes x bool[M] on the card ->
     (hi, lo) int64[M] u32 values, the sentinel pair for invalid rows."""
-    global LAUNCHES
+    global LAUNCHES, LARGEST
     m, k, index = _check(lanes, valid)
     hi = lanes.new_empty(m)
     lo = lanes.new_empty(m)
@@ -81,6 +83,7 @@ def launch(lanes: torch.Tensor, valid: torch.Tensor):
     if rc:
         raise KSPEC_FINGERPRINT.error(rc, "fingerprint kernel launch")
     LAUNCHES += 1
+    LARGEST = max(LARGEST, (m, k))
     return hi, lo
 
 

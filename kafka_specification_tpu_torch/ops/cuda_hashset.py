@@ -14,7 +14,9 @@ as a host int and bool, read together; ``valid=None`` means every row.  On
 a CPU tensor it runs that plain version; on a CUDA tensor it launches the
 kernel or raises.  Winners, ``n_new`` and table membership equal the plain
 version's; slot positions may differ where two probe chains interleave,
-which changes neither.  ``LAUNCHES`` counts calls that launched the kernel.
+which changes neither.  ``LAUNCHES`` counts calls that launched the kernel,
+and ``LARGEST`` holds the largest capacity and the largest batch launched
+since it was last set to (0, 0).
 A launch goes through ``build``'s launch route, on the table's card.
 
 A call on the card runs no PyTorch operation there and allocates only its
@@ -38,6 +40,7 @@ from .hashset import MAX_PROBES
 from .hashset import probe_insert as probe_insert_plain
 
 LAUNCHES = 0
+LARGEST = (0, 0)  # (cap, M), each the largest since reset
 MAX_CAP = 1 << 31  # slots are int32 in the row scratch
 MAX_ROWS = (1 << 32) - 2  # a row is the low half of a claim word; all ones is the fill
 FIRST_CODE = (1 << 32) - 1
@@ -97,7 +100,7 @@ def launch(table: torch.Tensor, q: torch.Tensor, valid=None):
     """The kernel itself: int64[cap] table (updated in place) x int64[M]
     keys x bool[M] (None: every row valid) on the card -> (is_new bool[M],
     counts int32[2]: n_new, overflow)."""
-    global LAUNCHES
+    global LAUNCHES, LARGEST
     index = _check(table, q, valid)
     cap, m = table.shape[0], q.shape[0]
     stream = build.stream_handle(index)
@@ -113,6 +116,7 @@ def launch(table: torch.Tensor, q: torch.Tensor, valid=None):
     if rc:
         raise KSPEC_PROBE_INSERT.error(rc, "hash probe kernel launch")
     LAUNCHES += 1
+    LARGEST = (max(LARGEST[0], cap), max(LARGEST[1], m))
     return is_new, counts
 
 

@@ -1,14 +1,17 @@
 """TLC .cfg parsing and model instantiation for the PyTorch port.
 
 The parser is a copy of ``kafka_specification_tpu/utils/cfg.py::parse_cfg``
-(the port imports nothing from the JAX package).  ``build_model`` covers
-IdSequence, FiniteReplicatedLog and the five hand-written Kafka modules;
-every other module raises.
+(the port imports nothing from the JAX package).  ``build_model`` and
+``resolved_invariants`` are copies of that module's, for the hand-written
+models: IdSequence, FiniteReplicatedLog, the five Kafka modules (with the
+authored constant ``Partitions = K`` building the K-partition product,
+``models/product.py``) and AsyncIsr; every other module raises.
 
 Supported .cfg subset:
   CONSTANT / CONSTANTS   name = value   (ints, model-value sets {a, b, c})
   INVARIANT / INVARIANTS name...
-  CONSTRAINT name                        (rejected: no ported module has one)
+  CONSTRAINT name                        (AsyncIsr only: its bound is the
+                                          MaxOffset/MaxVersion constants)
   SPECIFICATION / INIT / NEXT            (parsed, informational)
   CHECK_DEADLOCK TRUE|FALSE
   \\* and (* ... *) comments
@@ -98,10 +101,24 @@ def parse_cfg(path_or_text) -> TlcConfig:
 SMALL_MODULES = ("IdSequence", "FiniteReplicatedLog")
 KAFKA_VARIANTS = ("KafkaTruncateToHighWatermark", "Kip101", "Kip279")
 KIP320_MODULES = ("Kip320", "Kip320FirstTry")
+MODULES = SMALL_MODULES + KAFKA_VARIANTS + KIP320_MODULES + ("AsyncIsr",)
 
 
 def _setlen(v) -> int:
     return len(v) if isinstance(v, list) else int(v)
+
+
+def resolved_invariants(module: str, cfg: TlcConfig) -> tuple:
+    """The invariant names, in order, that the model ``build_model`` makes
+    for this module and .cfg checks: the .cfg's, else the module's default;
+    the small models check their built-in TypeOk whatever the .cfg says."""
+    if module in SMALL_MODULES:
+        return ("TypeOk",)
+    if module in KAFKA_VARIANTS + KIP320_MODULES:
+        return tuple(cfg.invariants) or ("TypeOk",)
+    if module == "AsyncIsr":
+        return tuple(cfg.invariants) or ("TypeOk", "ValidHighWatermark")
+    raise KeyError(f"unknown module {module!r}")
 
 
 def _with_names(model, constants):
@@ -115,18 +132,20 @@ def _with_names(model, constants):
 
 
 def build_model(module: str, cfg: TlcConfig):
-    """The tensor model for a TLA+ module name under a parsed config.
-    Kafka modules check the .cfg's invariants in its order (TypeOk when it
-    names none); IdSequence and FiniteReplicatedLog check their built-in
-    TypeOk, as in the JAX package."""
-    if module not in SMALL_MODULES + KAFKA_VARIANTS + KIP320_MODULES:
+    """The tensor model for a TLA+ module name under a parsed config, with
+    the invariants of ``resolved_invariants``.  CONSTRAINT is accepted for
+    AsyncIsr only, whose bound the MaxOffset/MaxVersion constants already
+    are (MaxVersion defaults to MaxOffset); a Kafka module's ``Partitions =
+    K > 1`` builds the product of K copies of it."""
+    if module not in MODULES:
         raise KeyError(
             f"module {module!r} is not ported to PyTorch yet "
-            f"(ported: {', '.join(SMALL_MODULES + KAFKA_VARIANTS + KIP320_MODULES)})"
+            f"(ported: {', '.join(MODULES)})"
         )
-    if cfg.constraints:
+    if cfg.constraints and module != "AsyncIsr":
         raise ValueError(
-            f"CONSTRAINT {cfg.constraints} is not supported for module {module!r}"
+            f"CONSTRAINT {cfg.constraints} is not supported for module "
+            f"{module!r} (only AsyncIsr's bound is defined in this corpus)"
         )
     c = cfg.constants
     if module == "IdSequence":
@@ -139,8 +158,16 @@ def build_model(module: str, cfg: TlcConfig):
         return finite_replicated_log.make_model(
             _setlen(c["Replicas"]), int(c["LogSize"]), _setlen(c["LogRecords"])
         )
-    if _setlen(c.get("Partitions", 1)) > 1:
-        raise ValueError("the partition product (Partitions > 1) is not ported yet")
+    invs = resolved_invariants(module, cfg)
+    if module == "AsyncIsr":
+        from ..models import async_isr
+
+        acfg = async_isr.AsyncIsrConfig(
+            n_replicas=_setlen(c["Replicas"]),
+            max_offset=int(c["MaxOffset"]),
+            max_version=int(c.get("MaxVersion", c["MaxOffset"])),
+        )
+        return _with_names(async_isr.make_model(acfg, invs), c)
     from ..models.kafka_replication import Config
 
     kcfg = Config(
@@ -149,13 +176,19 @@ def build_model(module: str, cfg: TlcConfig):
         max_records=int(c["MaxRecords"]),
         max_leader_epoch=int(c["MaxLeaderEpoch"]),
     )
-    invs = tuple(cfg.invariants) or ("TypeOk",)
     if module in KAFKA_VARIANTS:
         from ..models import variants
 
-        return _with_names(variants.make_model(module, kcfg, invs), c)
-    from ..models import kip320
+        built = variants.make_model(module, kcfg, invs)
+    else:
+        from ..models import kip320
 
-    if module == "Kip320":
-        return _with_names(kip320.make_model(kcfg, invs), c)
-    return _with_names(kip320.make_first_try_model(kcfg, invs), c)
+        make = kip320.make_model if module == "Kip320" else kip320.make_first_try_model
+        built = make(kcfg, invs)
+    built = _with_names(built, c)
+    k = _setlen(c.get("Partitions", 1))
+    if k > 1:
+        from ..models.product import product_model
+
+        built = product_model(built, k)
+    return built

@@ -87,14 +87,20 @@ def keys(rng, n, dev):
     return pair_key(hi, lo).to(dev)
 
 
-def k2_fixture(dev, cap=K2_CAP, m=K2_M, seed=5, hashset=None):
-    """-> (table0, keys, valid): a quarter of the second half duplicates the
-    first half, the first eighth already in the table; `valid` masks ~10%
-    of the rows for the checks that pass a mask (check() passes none)."""
-    rng = np.random.default_rng(seed)
+def k2_batch(rng, m, dev):
+    """m keys, a quarter of the second half duplicating the first half."""
     q = keys(rng, m, dev)
     dup = torch.from_numpy(rng.integers(0, m // 2, size=m // 4)).to(dev)
     q[m // 2 : m // 2 + m // 4] = q[dup]
+    return q
+
+
+def k2_fixture(dev, cap=K2_CAP, m=K2_M, seed=5, hashset=None):
+    """-> (table0, keys, valid): a k2_batch, the first eighth already in
+    the table; `valid` masks ~10% of the rows for the checks that pass a
+    mask (check() passes none)."""
+    rng = np.random.default_rng(seed)
+    q = k2_batch(rng, m, dev)
     valid = torch.from_numpy(rng.random(m) < 0.9).to(dev)
     s_hi, s_lo = split_key(q[: m // 8])
     hashset = hashset or this_ops().hashset

@@ -1,10 +1,11 @@
 """TLA-style rendering of decoded states for counterexample traces.
 
 The port's copy of ``kafka_specification_tpu/utils/pretty.py`` for the
-models the port has: the Kafka replication family renders as named
-records, one variable per line, with the .cfg's replica model-value names
-where it gave them (``meta["replica_names"]``, else b0..bN-1); every other
-model (IdSequence, FiniteReplicatedLog) as the repr of its decoded state.
+models the port has: the Kafka replication family and AsyncIsr render as
+named records, one variable per line, with the .cfg's replica model-value
+names where it gave them (``meta["replica_names"]``, else b0..bN-1); a
+product renders partition by partition; every other model (IdSequence,
+FiniteReplicatedLog) as the repr of its decoded state.
 """
 
 from __future__ import annotations
@@ -55,9 +56,38 @@ def render_kafka_state(state, nm=None) -> str:
     return "\n".join("  " + ln for ln in lines)
 
 
+def render_async_isr_state(state, nm=None) -> str:
+    """Decoded AsyncIsr state -> TLA-like record text (AsyncIsr.tla:31-56)."""
+    nm = nm or (lambda r: f"b{r}")
+    (c_isr, c_ver), (l_isr, l_ver, pend, pver, offs), reqs, upds = state
+
+    def msgs(items):
+        return ", ".join(f"[isr|->{_set(isr, nm)}, version|->{v}]"
+                         for isr, v in sorted(items, key=str))
+
+    lines = [
+        f"controllerState = [isr|->{_set(c_isr, nm)}, version|->{c_ver}]",
+        f"leaderState = [isr|->{_set(l_isr, nm)}, version|->{l_ver}, "
+        f"pendingIsr|->{_set(pend, nm)}, pendingVersion|->{pver}, "
+        f"offsets|->({', '.join(f'{nm(r)} :> {o}' for r, o in enumerate(offs))})]",
+        "requests = {" + msgs(reqs) + "}",
+        "updates = {" + msgs(upds) + "}",
+    ]
+    return "\n".join("  " + ln for ln in lines)
+
+
 def render_state(model_meta: dict, state) -> str:
-    """Dispatch on the model family; anything else renders as its repr."""
-    if model_meta.get("variant", "") in KAFKA_VARIANTS:
+    """Dispatch on the model family; anything else renders as its repr.  A
+    product (meta "partitions") renders each partition under a heading."""
+    if "partitions" in model_meta:
+        sub_meta = {k: v for k, v in model_meta.items() if k != "partitions"}
+        return "\n".join(
+            f"  partition {p}:\n" + render_state(sub_meta, sub) for p, sub in enumerate(state)
+        )
+    variant = model_meta.get("variant", "")
+    if variant == "AsyncIsr":
+        return render_async_isr_state(state, _namer(model_meta))
+    if variant in KAFKA_VARIANTS:
         return render_kafka_state(state, _namer(model_meta))
     return "  " + repr(state)
 

@@ -2,7 +2,9 @@
 """Where the time of one check() goes on the card (PyTorch port).
 
     python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
-        [--runs N] [--root DIR] [--visited-backend device|device-hash]
+        [--runs N] [--root DIR] [--set NAME=VALUE ...]
+        [--visited-backend device|device-hash] [--max-depth N]
+        | [--simulate [--walks W] [--depth D] [--seed S]]
 
 Runs check() of the .cfg once to build the kernels and warm up, then `--runs`
 times (default 3) unprofiled for the wall time (host clock, ending in
@@ -25,8 +27,14 @@ pipeline, compact_shift 2); --visited-backend device-hash runs the path the
 port had before the sorted set: the hash table, pipeline "legacy",
 compact_shift 0.  --root DIR profiles the package of another checkout (the
 parent commit unpacked with `git archive`, say), whose check() takes those
-knobs for --visited-backend device-hash.  Needs one CUDA card; imports no
-JAX.
+knobs for --visited-backend device-hash.  --set overrides a constant of the
+.cfg (a comma-separated value is a set of model values: `--set
+Replicas=b1,b2`), --max-depth cuts the check (a profile of a run of tens
+of millions of operations would not fit in memory), and --simulate profiles
+`simulate` (engine/simulate.py) of the model in place of check(): it
+takes --walks, --depth and --seed (default 100, 100, 0), which check()
+does not, and refuses check()'s --visited-backend and --max-depth.  Needs
+one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -101,12 +109,25 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3, help="unprofiled runs timed for the wall")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package is profiled")
-    ap.add_argument("--visited-backend", choices=["device", "device-hash"], default="device",
-                    help="device: check() with its defaults; device-hash: the hash table, "
-                         "pipeline legacy, compact_shift 0")
+    ap.add_argument("--visited-backend", choices=["device", "device-hash"], default=None,
+                    help="device (default): check() with its defaults; device-hash: the hash "
+                         "table, pipeline legacy, compact_shift 0")
+    ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
+                    help="override a .cfg constant (a,b,c: a set of model values)")
+    ap.add_argument("--max-depth", type=int, default=None)
+    ap.add_argument("--simulate", action="store_true",
+                    help="profile simulate(--walks, --depth, --seed) in place of check()")
+    ap.add_argument("--walks", type=int, default=None, help="with --simulate (default 100)")
+    ap.add_argument("--depth", type=int, default=None, help="with --simulate (default 100)")
+    ap.add_argument("--seed", type=int, default=None, help="with --simulate (default 0)")
     args = ap.parse_args()
+    if args.simulate and (args.visited_backend is not None or args.max_depth is not None):
+        ap.error("--simulate takes no --visited-backend or --max-depth")
+    if not args.simulate and (args.walks, args.depth, args.seed) != (None, None, None):
+        ap.error("--walks, --depth and --seed need --simulate")
     sys.path.insert(0, str(Path(args.root).resolve()))
-    from kafka_specification_tpu_torch import build_model, check, load_config
+    from kafka_specification_tpu_torch import build_model, load_config
+    from kafka_specification_tpu_torch import check as _check
     from kafka_specification_tpu_torch.utils.timing import card_line
 
     if not torch.cuda.is_available():
@@ -115,28 +136,44 @@ def main() -> int:
     card = card_line()
     module = args.module or Path(args.cfg).stem
     cfg = load_config(args.cfg)
+    for item in args.set:
+        name, _, value = item.partition("=")
+        cfg.constants[name] = (value.split(",") if "," in value else
+                               int(value) if value.lstrip("-").isdigit() else value)
 
-    knobs = ({} if args.visited_backend == "device" else
-             dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0))
-    warm = check(build_model(module, cfg), **knobs)
+    if args.simulate:
+        from kafka_specification_tpu_torch.engine.simulate import simulate
+
+        walks, depth, seed = (100 if args.walks is None else args.walks,
+                              100 if args.depth is None else args.depth, args.seed or 0)
+
+        def run(model):
+            return simulate(model, num_walks=walks, max_depth=depth, seed=seed)
+    else:
+        knobs = ({} if args.visited_backend in (None, "device") else
+                 dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0))
+
+        def run(model):
+            return _check(model, max_depth=args.max_depth, **knobs)
+    warm = run(build_model(module, cfg))
     walls = []
     for _ in range(args.runs):
         model = build_model(module, cfg)
         t0 = time.perf_counter()
-        res = check(model, **knobs)
+        res = run(model)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        if res.levels != warm.levels:
+        if (res.levels, res.total) != (warm.levels, warm.total):
             raise SystemExit("a timed run disagrees with the warm-up run")
     wrapped = _wrap_stages("kafka_specification_tpu_torch")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     model = build_model(module, cfg)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        res = check(model, **knobs)
+        res = run(model)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if res.levels != warm.levels:
+    if (res.levels, res.total) != (warm.levels, warm.total):
         raise SystemExit("the profiled run disagrees with the warm-up run")
 
     # kernels only: an operator's row repeats the device time of its kernels,
@@ -167,7 +204,8 @@ def main() -> int:
 
     print(f"card: {card}")
     print(f"{res.model}: ok={res.ok} total={res.total} diameter={res.diameter}; "
-          f"{res.stats['visited_backend']}, {res.stats.get('pipeline')}")
+          f"{res.stats.get('visited_backend', res.stats.get('mode'))}, "
+          f"{res.stats.get('pipeline')}")
     print("unprofiled walls " + ", ".join(f"{w:.3f}" for w in walls) + " s")
     print(f"wall {wall:.3f} s (host clock, ends in synchronize); "
           f"{res.total / wall:.0f} states/s")
@@ -191,7 +229,10 @@ def main() -> int:
         "device_ops": device_ops,
         "device_s": device_s,
         "busy_share": device_s / wall,
-        "visited_backend": res.stats["visited_backend"],
+        "visited_backend": res.stats.get("visited_backend"),
+        "mode": res.stats.get("mode", "check"),
+        "max_depth": args.max_depth,
+        "set": args.set,
         "pipeline": res.stats.get("pipeline"),
         "own_kernels": own,
         "stages": stages,

@@ -1,9 +1,10 @@
 """PyTorch port: checkpoints (resilience/checkpoints.py, durable_io.py, and
 check()'s checkpoint_dir) against the JAX package's, with zero tolerance:
 the manifest, rotation, pruning and the fallback past a corrupt newest
-generation; the identity string byte for byte for every ported .cfg; a
-checkpoint written by either package resumed by the other, per visited
-backend, to the uninterrupted run's levels and chain; a CRC-consistent
+generation; the identity string byte for byte for every ported .cfg
+(AsyncIsr and the Stretch product included); a checkpoint written by
+either package resumed by the other, per visited backend, to the
+uninterrupted run's levels and chain (and for AsyncIsr 2r); a CRC-consistent
 corrupt frontier caught by the chain on resume; and the empty trace of a
 violation found after a resume."""
 
@@ -162,11 +163,12 @@ def jax_ident(model, backend, check_invariants, check_deadlock):
 
 @pytest.mark.parametrize("name", ["IdSequence", "FiniteReplicatedLog",
                                   "KafkaTruncateToHighWatermark", "Kip101", "Kip279", "Kip320",
-                                  "Kip320FirstTry"])
+                                  "Kip320FirstTry", "AsyncIsr", "Kip320Stretch"])
 def test_identity_string_byte_for_byte(name):
     path = REPO / "configs" / f"{name}.cfg"
-    jm = jcfg.build_model(name, jcfg.parse_cfg(path), analysis_gate=False)
-    tm = tcfg.build_model(name, tcfg.parse_cfg(path))
+    module = {"Kip320Stretch": "Kip320"}.get(name, name)  # the 5r x 3 product
+    jm = jcfg.build_model(module, jcfg.parse_cfg(path), analysis_gate=False)
+    tm = tcfg.build_model(module, tcfg.parse_cfg(path))
     for backend in BACKENDS:
         for inv in (True, False):
             for dl in (True, False):
@@ -177,6 +179,29 @@ def test_identity_string_byte_for_byte(name):
 
 def _newest(directory):
     return tckpt.verify_file(os.path.join(directory, CHECKPOINT_BASENAME))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_async_isr_resume_across_packages(backend, tmp_path):
+    """AsyncIsr 2r M2 V2 (84 states, diameter 11): JAX writes up to depth
+    5 and the port resumes, and the other way round."""
+    from kafka_specification_tpu.models import async_isr as jasync
+    from kafka_specification_tpu_torch.models import async_isr as tasync
+
+    jm = jasync.make_model(jasync.AsyncIsrConfig(2, 2, 2))
+    tm = tasync.make_model(tasync.AsyncIsrConfig(2, 2, 2))
+    kw = dict(visited_backend=backend, **KW)
+    ref = jbfs.check(jm, checkpoint_dir=str(tmp_path / "ref"), **kw)
+    ref_chain = _newest(str(tmp_path / "ref"))["digest_chain"]
+    jdir, tdir = str(tmp_path / "jax-first"), str(tmp_path / "port-first")
+    jbfs.check(jm, checkpoint_dir=jdir, max_depth=5, **kw)
+    check(tm, device="cpu", checkpoint_dir=tdir, max_depth=5, **kw)
+    assert str(_newest(tdir)["ident"]) == str(_newest(jdir)["ident"])
+    t_res = check(tm, device="cpu", checkpoint_dir=jdir, **kw)
+    j_res = jbfs.check(jm, checkpoint_dir=tdir, **kw)
+    for res, d in ((t_res, jdir), (j_res, tdir)):
+        assert (res.levels, res.total, res.ok) == (ref.levels, 84, True)
+        np.testing.assert_array_equal(_newest(d)["digest_chain"], ref_chain)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -4,7 +4,8 @@ its text trace equals the JAX package's render_trace, and its exit codes
 are 0 (no violation), 1 (a violation) and 2 (an error).  The run options
 take JAX's names: --cpu, --max-states, --no-trace, --progress, --stats and
 --checkpoint/--checkpoint-every/--checkpoint-keep, each held to the JAX
-package's record, stats lines and checkpoint files."""
+package's record, stats lines and checkpoint files.  AsyncIsr.cfg and the
+Stretch product check; `cli simulate` prints JAX's lines and exit codes."""
 
 import importlib.util
 import json
@@ -143,7 +144,7 @@ def test_exit_code_2_on_errors(capsys, tmp_path, monkeypatch):
     bad.write_text("CONSTANTS\n    Replicas\n")
     rc, out = run_cli(capsys, bad)
     assert rc == 2 and "cannot parse" in out.err
-    rc, out = run_cli(capsys, REPO / "configs" / "AsyncIsr.cfg")
+    rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--module", "AlterPartition")
     assert rc == 2 and "not ported" in out.err
     monkeypatch.setenv("KSPEC_PIPELINE", "device")
     rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--json")
@@ -240,3 +241,86 @@ def test_checkpoint_cadence_must_be_positive(capsys, kip320_2r):
     for flag in ("--checkpoint-every", "--checkpoint-keep"):
         rc, out = run_cli(capsys, kip320_2r, flag, 0)
         assert rc == 2 and "must be >= 1" in out.err
+
+
+# --- AsyncIsr, the product and simulate ---------------------------------------
+
+
+def test_async_isr_cfg_json_equals_jax(capsys):
+    path = REPO / "configs" / "AsyncIsr.cfg"
+    rc = cli.main(["check", str(path), "--cpu", "--json"])
+    rec = json.loads(capsys.readouterr().out)
+    _, jres = jax_run(path, "AsyncIsr")
+    assert rc == 0 and drop_timing(rec) == drop_timing(jax_verdict(jres))
+    assert (rec["distinct_states"], rec["diameter"]) == (4088, 16)
+
+
+def test_async_isr_five_replicas_exit_2(capsys, tmp_path):
+    path = tmp_path / "AsyncIsr.cfg"
+    path.write_text((REPO / "configs" / "AsyncIsr.cfg").read_text().replace(
+        "Replicas = {b1, b2, b3}", "Replicas = {b1, b2, b3, b4, b5}"))
+    rc, out = run_cli(capsys, path)
+    assert rc == 2 and "AsyncIsr supports at most 4 replicas, got 5" in out.err
+    bad = tmp_path / "Kip320.cfg"
+    bad.write_text(KIP320_2R_CFG + "CONSTRAINT Bounded\n")
+    rc, out = run_cli(capsys, bad)
+    assert rc == 2 and "only AsyncIsr's bound is defined" in out.err
+
+
+def test_stretch_product_cut_at_depth_3(capsys):
+    """Kip320Stretch.cfg (5 replicas x 3 partitions) with --max-depth 3:
+    the levels are the closed form, the convolution of the base's."""
+    from kafka_specification_tpu_torch import build_model, check, load_config
+
+    path = REPO / "configs" / "Kip320Stretch.cfg"
+    rc, out = run_cli(capsys, path, "--module", "Kip320", "--max-depth", 3, "--json")
+    rec = json.loads(out.out)
+    cfg = load_config(path)
+    cfg.constants["Partitions"] = 1
+    base = check(build_model("Kip320", cfg), device="cpu", max_depth=3).levels
+    assert rc == 0 and rec["model"] == "Kip320(5r,L2,R2,E2) x3partitions"
+    assert rec["levels"] == np.convolve(np.convolve(base, base), base)[:4].tolist()
+
+
+@pytest.fixture(scope="module")
+def simulated(tmp_path_factory):
+    """JAX's simulate of the 3-replica TruncateToHW .cfg: 200 walks of depth
+    30 from seed 0."""
+    from kafka_specification_tpu.engine.simulate import simulate as jax_simulate
+
+    path = REPO / "configs" / "KafkaTruncateToHighWatermark.cfg"
+    model = jcfg.build_model(path.stem, jcfg.parse_cfg(path), analysis_gate=False)
+    return path, model, jax_simulate(model, num_walks=200, max_depth=30, seed=0)
+
+
+def test_simulate_violation_lines_equal_jax(capsys, simulated):
+    path, jmodel, jres = simulated
+    args = ["simulate", str(path), "--cpu", "--walks", "200", "--depth", "30", "--seed", "0"]
+    rc = cli.main(args)
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 1 and jres.violation.invariant == "WeakIsr" and jres.violation.depth == 12
+    assert lines[0] == f"Model: {jres.model}"
+    assert lines[1].startswith(f"{jres.total} distinct states found, diameter 0, ")
+    assert jres.total == 1673
+    assert lines[2] == "Invariant WeakIsr is VIOLATED at depth 12."
+    assert lines[3] == "Counterexample trace:"
+    assert "\n".join(lines[4:]) == jax_render_trace(jmodel.meta, jres.violation.trace)
+    rc = cli.main(args + ["--json"])
+    rec = json.loads(capsys.readouterr().out)
+    assert rc == 1 and drop_timing(rec) == drop_timing(jax_verdict(jres))
+
+
+def test_simulate_clean_line_and_errors(capsys, kip320_2r):
+    from kafka_specification_tpu.engine.simulate import simulate as jax_simulate
+
+    model = jcfg.build_model("Kip320", jcfg.parse_cfg(kip320_2r), analysis_gate=False)
+    jres = jax_simulate(model, num_walks=12, max_depth=15, seed=3)
+    for extra in ([], ["--json"]):
+        rc = cli.main(["simulate", str(kip320_2r), "--device", "cpu", "--walks", "12",
+                       "--depth", "15", "--seed", "3", *extra])
+        out = capsys.readouterr().out
+        assert rc == 0 and out.startswith(
+            f"Simulation: 12 walks x depth 15, {jres.total} states visited, no violations (")
+        assert out.endswith(" states/sec).\n") and len(out.splitlines()) == 1
+    rc = cli.main(["simulate", str(kip320_2r), "--cpu", "--module", "Nope"])
+    assert rc == 2 and "not ported" in capsys.readouterr().err

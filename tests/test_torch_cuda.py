@@ -150,6 +150,65 @@ def test_check_on_card_equals_cpu(card):
     assert check(m(), device=card).violation.trace == check(m(), device="cpu").violation.trace
 
 
+def _simulate_both(make, card, **kw):
+    """simulate() of make() on the card and on the CPU, walk for walk: the
+    states visited after each walk, the total, and the violation with its
+    state and trace (or none on both)."""
+    from kafka_specification_tpu_torch.engine.simulate import simulate
+
+    walks_card, walks_cpu = [], []
+    s_card = simulate(make(), device=card, progress=lambda w, v: walks_card.append((w, v)), **kw)
+    s_cpu = simulate(make(), device="cpu", progress=lambda w, v: walks_cpu.append((w, v)), **kw)
+    assert walks_card == walks_cpu and s_card.total == s_cpu.total
+    assert s_card.stats["device"].startswith("cuda")
+    assert (s_card.violation is None) == (s_cpu.violation is None)
+    if s_cpu.violation is not None:
+        a, b = s_card.violation, s_cpu.violation
+        assert (a.invariant, a.depth, a.state, a.trace) == (b.invariant, b.depth, b.state, b.trace)
+    return s_card
+
+
+@pytest.mark.parametrize("backend", ["device", "device-hash"])
+def test_async_isr_on_card_equals_cpu(card, backend):
+    """AsyncIsr 3r M3 V3 (48,120 states, 3 lanes: hashed fingerprints, K1)
+    on the card: every level's rows equal the CPU run's; and a walk of
+    simulate equal step for step."""
+    from kafka_specification_tpu_torch.models import async_isr
+
+    m = lambda: async_isr.make_model(async_isr.AsyncIsrConfig(3, 3, 3))
+    on_card, on_cpu = [], []
+    k1 = cuda_fingerprint.LAUNCHES
+    r_card = check(m(), device=card, visited_backend=backend, collect_levels=on_card)
+    assert cuda_fingerprint.LAUNCHES > k1
+    r_cpu = check(m(), device="cpu", visited_backend=backend, collect_levels=on_cpu)
+    assert r_card.levels == r_cpu.levels and (r_card.total, r_card.diameter) == (48120, 23)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    _simulate_both(m, card, num_walks=5, max_depth=30, seed=1)
+
+
+def test_product_cut_on_card_equals_cpu(card):
+    """TINY^2 (Kip320 2r L2 R1 E1, two partitions: 18 actions) cut at
+    depth 12: the levels are the closed form's, every level's rows equal
+    the CPU run's; and a product violation's trace equals the CPU's, in
+    check() and in simulate() walk for walk."""
+    from kafka_specification_tpu_torch.models.product import product_model
+
+    base = [1, 4, 12, 18, 36, 44, 48, 48, 30, 22, 12, 2]
+    m = lambda: product_model(kip320.make_model(Config(2, 2, 1, 1), ("TypeOk",)), 2)
+    on_card, on_cpu = [], []
+    r_card = check(m(), device=card, max_depth=12, collect_levels=on_card)
+    r_cpu = check(m(), device="cpu", max_depth=12, collect_levels=on_cpu)
+    assert r_card.levels == r_cpu.levels == np.convolve(base, base)[:13].tolist()
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    invs = ("TypeOk", "WeakIsr")
+    v = lambda: product_model(variants.make_model("KafkaTruncateToHighWatermark",
+                                                  Config(2, 2, 1, 1), invs), 2)
+    assert check(v(), device=card).violation.trace == check(v(), device="cpu").violation.trace
+    assert _simulate_both(v, card, num_walks=200, max_depth=30, seed=0).violation is not None
+
+
 def test_sorted_path_on_card_equals_cpu_with_k1(card):
     """The default path (sorted set, fused, compact order above the gate)
     on Kip320 3r, cut at depth 11 (levels up to 40,629 states, so chunks

@@ -34,6 +34,12 @@ def test_import_and_tiny_check_load_no_jax():
         assert res.ok and res.total == 341, res
         from kafka_specification_tpu_torch import cli
         assert cli.main(["check", "configs/IdSequence.cfg", "--device", "cpu", "--json"]) == 0
+        # AsyncIsr, the partition product and simulate
+        assert cli.main(["check", "configs/AsyncIsr.cfg", "--cpu", "--json"]) == 0
+        assert cli.main(["check", "configs/Kip320Stretch.cfg", "--module", "Kip320", "--cpu",
+                         "--max-depth", "1"]) == 0
+        assert cli.main(["simulate", "configs/KafkaTruncateToHighWatermark.cfg", "--cpu",
+                         "--walks", "3", "--depth", "5"]) == 0
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             # the host set, checkpoints, the chain and the stats stream
@@ -43,7 +49,8 @@ def test_import_and_tiny_check_load_no_jax():
         for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
                      "utils.pretty", "models.id_sequence", "models.finite_replicated_log",
                      "durable_io", "native", "resilience.integrity",
-                     "resilience.checkpoints", "resilience.heartbeat"):
+                     "resilience.checkpoints", "resilience.heartbeat",
+                     "models.async_isr", "models.product", "engine.simulate"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -76,7 +83,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     # the copies of the JAX package's jax-free modules are scanned too
     names = {str(f.relative_to(REPO / "kafka_specification_tpu_torch")) for f in files}
     assert {"durable_io.py", "native/__init__.py", "resilience/integrity.py",
-            "resilience/checkpoints.py", "resilience/heartbeat.py"} <= names
+            "resilience/checkpoints.py", "resilience/heartbeat.py", "models/async_isr.py",
+            "models/product.py", "engine/simulate.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
@@ -91,6 +99,17 @@ def test_check_runs_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         check(kip320.make_model(Config(2, 2, 1, 1)))
+
+
+def test_simulate_and_cli_simulate_run_on_the_card_by_default(monkeypatch, capsys):
+    from kafka_specification_tpu_torch import cli
+    from kafka_specification_tpu_torch.engine.simulate import simulate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate(kip320.make_model(Config(2, 2, 1, 1)), num_walks=1)
+    assert cli.main(["simulate", str(REPO / "configs" / "IdSequence.cfg")]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
