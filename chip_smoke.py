@@ -88,9 +88,22 @@ print no result:
          --module Kip320 --walks 10 --depth 50 --seed 0 (exit 0, "498
          states visited, no violations"); each run's process wall and the
          states/s it printed
+  device-pipeline  check(pipeline="device"), the device-resident level
+         pipeline: configs/Kip320.cfg on `device` and `host` (737,794
+         states, diameter 25, the pinned levels, the JAX package's chain
+         from one checkpoint after the last level, 18 levels on the card as
+         a JAX CPU run gave), then on device-hash (the same counts, 0 levels
+         and the JAX package's fallback reason); the trace model (the JAX
+         package's default trace, 4 levels on the card); AsyncIsr 4r M3 V3
+         and TINY^3 to the end (a level on the card wherever the JAX
+         package's plan puts one); each run's host reads a level (1, or 2
+         when a level is re-dispatched); then one warm Kip320 level (the
+         frontier at depth 12) queued under
+         torch.cuda.set_sync_debug_mode("error"): no host sync inside it
 
 Each path run through one check() (main, default, host, first-try-strong,
-async-isr on both backends, both products) then holds K1, and K2 where the
+async-isr on both backends, both products, each device-pipeline run) then
+holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
 valid; K2 with that batch size (a table rebuild's, where the table grew)
@@ -290,6 +303,16 @@ SIM_THW_TRACE_SHA = "bbe403f0f02c486d20d8e347650c438f3dddd07470e9b66e1b5f5dd3df9
 SIM_STRETCH_ARGS = ["configs/Kip320Stretch.cfg", "--module", "Kip320", "--walks", "10",
                     "--depth", "50", "--seed", "0"]
 SIM_STRETCH_LINE = "Simulation: 10 walks x depth 50, 498 states visited, no violations ("
+# levels run device-resident at check()'s default knobs: Kip320.cfg
+# (`device` and `host`) and the trace model from the JAX package's
+# check(pipeline="device") on the CPU; AsyncIsr 4r M3 V3 and TINY^3 from
+# the JAX package's DevicePipeline.plan_level applied to their pinned
+# level sizes (chunk 32768, min_bucket 256, compact_shift 2, gate 4096),
+# which gives 18 and 4 for the first two as well
+KIP320_DEVICE_LEVELS = 18
+THW_DEVICE_LEVELS = 4
+ASYNC_4R_DEVICE_LEVELS = 23
+TINY_DEVICE_LEVELS = 26
 # the knobs of the path before the sorted backend was ported
 HASH_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
 # where checkpoints and stats files go: inside the checkout, gitignored
@@ -933,6 +956,183 @@ def phase_product():
             "counts": counts, "violation_counts": vcounts}
 
 
+class _RecordingPipelines:
+    """Within the block, every DevicePipeline check() makes records its host
+    reads, one count per level run on the card."""
+
+    def __enter__(self):
+        from kafka_specification_tpu_torch.engine import bfs, pipeline
+
+        made = self.made = []
+
+        class Recording(pipeline.DevicePipeline):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.level_reads = []
+                made.append(self)
+
+            def run_level(self, *a, **k):
+                out = super().run_level(*a, **k)
+                self.level_reads.append(out.reads)
+                return out
+
+        self._bfs, self._real = bfs, bfs.DevicePipeline
+        bfs.DevicePipeline = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self._bfs.DevicePipeline = self._real
+        return False
+
+    def reads(self) -> str:
+        reads = self.made[-1].level_reads
+        return (f"host reads a level: {reads.count(1)} levels x 1, "
+                f"{reads.count(2)} x 2 (re-dispatched)")
+
+
+def _device_stats(res, levels):
+    got = res.stats.get("device")
+    if res.stats["pipeline"] != "device" or got != {"levels": levels, "fallback": None}:
+        raise AssertionError(f"pipeline {res.stats['pipeline']}, stats['device'] {got}, "
+                             f"expected {levels} levels and no fallback")
+
+
+def _sync_free_level(model):
+    """Queue one warm Kip320 level (the frontier at depth 12, two chunks)
+    under torch.cuda.set_sync_debug_mode("error"): any host
+    synchronisation inside the chunks raises.  The level is read afterwards
+    and must equal a run queued the ordinary way."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.engine import bfs
+    from kafka_specification_tpu_torch.engine.pipeline import DevicePipeline
+    from kafka_specification_tpu_torch.ops import devlevel
+
+    levels = []
+    check(model, device=DEV, pipeline="device", max_depth=12, collect_levels=levels,
+          store_trace=False)
+    frontier = levels[12]
+    visited = bfs._SortedVisited.fresh(*bfs.fp_stage(model.spec, torch.cat(levels)),
+                                       next_pow2_cap(sum(x.shape[0] for x in levels)))
+    pipe = DevicePipeline(model, "device", True, False, 2, 4096)
+    B, nc, handled = pipe.plan_level(frontier.shape[0], 32768, 256)
+    # the widths this level needs, measured by one run at the first rung
+    widths = pipe.widths(B)
+    LN = devlevel.level_new_bound(nc * sum(widths))
+    visited.reserve(LN + sum(widths))
+    first = pipe.read_level(pipe.queue_level(frontier, handled, B, nc, widths, LN, visited.keys))
+    widths = pipe.widths(B, first[5].astype(np.float64))
+    T = sum(widths)
+    LN = devlevel.level_new_bound(nc * T)
+    visited.reserve(LN + T)
+    runs = []
+    for debug in (False, True):
+        torch.cuda.synchronize()
+        if debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = pipe.queue_level(frontier, handled, B, nc, widths, LN, visited.keys)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        runs.append(pipe.read_level(st))
+    (ovf, kind, _, _, on, *_), again = runs
+    if ovf or kind or runs[0][:5] != again[:5] or on != KIP320_LEVELS[13]:
+        raise AssertionError(f"the level queued under the sync check gave {again[:5]}, the "
+                             f"ordinary one {runs[0][:5]}; want {KIP320_LEVELS[13]} new")
+    return (f"a warm level ({frontier.shape[0]} rows, {nc} chunks at B = {B}, T = {T}) queued "
+            f"with no host synchronisation under set_sync_debug_mode('error'), {on} new")
+
+
+def next_pow2_cap(n):
+    return 1 << max(1, (n - 1).bit_length())
+
+
+def phase_device_pipeline():
+    """check(pipeline="device"): the device-resident level pipeline on
+    Kip320 3r (`device` and `host`, with the JAX package's chain; then
+    device-hash, which degrades), the trace model, AsyncIsr 4r M3 V3 and
+    TINY^3; the host reads of each level; one warm level with no sync."""
+    from kafka_specification_tpu_torch import build_model, load_config
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.models import kip320, variants
+    from kafka_specification_tpu_torch.models.kafka_replication import Config
+    from kafka_specification_tpu_torch.models.product import product_model
+    from kafka_specification_tpu_torch.pipeline_registry import backend_fallback_reason
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    parts, counts = [], {}
+    want_chain = np.array(KIP320_CHAIN, dtype=np.uint64)
+    for backend in ("device", "host"):
+        ckpt = WORK / f"device-pipeline-{backend}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+        with _RecordingPipelines() as rec:
+            # one checkpoint, after the last level: the whole run's chain
+            res, wall, counts[f"Kip320 {backend}"], held = _timed_check(
+                model, ("fingerprint",), pipeline="device", visited_backend=backend,
+                checkpoint_dir=str(ckpt), checkpoint_every=26)
+        if (res.ok, res.total, res.diameter, res.levels) != (True, 737_794, 25, KIP320_LEVELS):
+            raise AssertionError(f"Kip320 {backend}: ok={res.ok} total={res.total} "
+                                 f"levels {res.levels}")
+        _device_stats(res, KIP320_DEVICE_LEVELS)
+        chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+        if not np.array_equal(chain, want_chain):
+            raise AssertionError(f"Kip320 {backend}: the digest chain differs from the JAX "
+                                 f"package's")
+        parts.append(f"Kip320 3r {backend}: ok, 737794 states, diameter 25, levels and chain "
+                     f"as pinned, {KIP320_DEVICE_LEVELS} levels on the card, {rec.reads()}; "
+                     f"{wall:.2f} s (one checkpoint); launches {counts[f'Kip320 {backend}']}; "
+                     f"{held}")
+    model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+    res, wall, c, held = _timed_check(model, ("fingerprint", "hash_probe_insert"),
+                                      pipeline="device", visited_backend="device-hash")
+    reason = backend_fallback_reason("device", "device-hash")
+    if (res.total, res.levels, res.stats["device"]) != (
+            737_794, KIP320_LEVELS, {"levels": 0, "fallback": reason}):
+        raise AssertionError(f"device-hash: total {res.total}, stats['device'] "
+                             f"{res.stats['device']}")
+    parts.append(f"device-hash: the same counts, 0 levels on the card, the JAX package's "
+                 f"reason; {wall:.2f} s, launches {c}")
+    thw = variants.make_model("KafkaTruncateToHighWatermark", Config(3, 2, 2, 2),
+                              invariants=("StrongIsr",))
+    with _RecordingPipelines() as rec:
+        res, wall, counts["trace"], held = _timed_check(thw, ("fingerprint",), pipeline="device")
+    v = res.violation
+    if (v is None or (v.invariant, v.depth) != ("StrongIsr", 8) or res.levels != THW_LEVELS
+            or [a for a, _ in v.trace] != THW_DEFAULT_ACTIONS
+            or canon(v.state) != THW_DEFAULT_STATE):
+        raise AssertionError(f"trace model: {v and (v.invariant, v.depth)}, {res.levels}")
+    _device_stats(res, THW_DEVICE_LEVELS)
+    parts.append(f"TruncateToHW 3r StrongIsr: violated at depth 8, trace as pinned, "
+                 f"{THW_DEVICE_LEVELS} levels on the card, {rec.reads()}")
+    cfg = load_config("configs/AsyncIsr.cfg")
+    cfg.constants.update(Replicas=["b1", "b2", "b3", "b4"], MaxOffset=3, MaxVersion=3)
+    tiny = product_model(kip320.make_model(Config(2, 2, 1, 1), (
+        "TypeOk", "LeaderInIsr", "WeakIsr", "StrongIsr")), 3)
+    tiny_levels = np.convolve(np.convolve(TINY_LEVELS, TINY_LEVELS), TINY_LEVELS).tolist()
+    for name, model, want, on_card in (
+            ("AsyncIsr 4r M3 V3", build_model("AsyncIsr", cfg), ASYNC_4R_LEVELS,
+             ASYNC_4R_DEVICE_LEVELS),
+            ("TINY^3", tiny, tiny_levels, TINY_DEVICE_LEVELS)):
+        counts[name], line = _device_path(name, model, want, on_card)
+        parts.append(line)
+    parts.append(_sync_free_level(build_model("Kip320", load_config("configs/Kip320.cfg"))))
+    return {"line": "; ".join(parts), "counts": counts}
+
+
+def _device_path(name, model, want, on_card):
+    """A passing model through check(pipeline="device") to the end: its
+    pinned levels, and `on_card` levels on the card, the JAX package's
+    count.  -> (launch counts, the phase line's part)."""
+    with _RecordingPipelines() as rec:
+        res, wall, counts, held = _timed_check(model, ("fingerprint",), pipeline="device")
+    if (res.ok, res.levels) != (True, want):
+        raise AssertionError(f"{name}: ok={res.ok} total={res.total} levels {res.levels}")
+    _device_stats(res, on_card)
+    return counts, (f"{name}: ok, {res.total} states, diameter {res.diameter}, levels as pinned, "
+                    f"{res.stats['device']['levels']} levels on the card, {rec.reads()}; "
+                    f"{wall:.2f} s, {res.total / wall:.0f} states/s; launches {counts}; {held}")
+
+
 def phase_simulate():
     import hashlib
 
@@ -982,6 +1182,7 @@ def main() -> int:
     async_isr = ph.run("async-isr", phase_async_isr)
     product = ph.run("product", phase_product)
     ph.run("simulate", phase_simulate)
+    device_pipeline = ph.run("device-pipeline", phase_device_pipeline)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -991,13 +1192,16 @@ def main() -> int:
                "async-isr": async_isr["counts"]["device"],
                "async-isr device-hash": async_isr["counts"]["device-hash"],
                "product TINY^3": product["counts"],
-               "product violation": product["violation_counts"]}
+               "product violation": product["violation_counts"],
+               **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]
         kern["launches_by_path"] = {p: c[kern["name"]] for p, c in by_path.items()}
         kernels.append(kern)
     kernels += k4["kernels"]  # a rung's launches: one ladder run (no rung is on check())
+    kernels[0]["launches_device_pipeline"] = device_pipeline["counts"]["Kip320 device"][
+        "fingerprint"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -18,14 +18,18 @@ where the kernels' plain PyTorch versions run instead.
 
 Layout (module names mirror the JAX package):
     ops/       packing, fingerprints, dedup and the sorted set, the hash
-               set, kernels + build
+               set, the device level's digest and appends (devlevel.py),
+               kernels + build
     models/    tensor encodings and batched action/invariant kernels: the
                Kafka replication family, AsyncIsr, IdSequence, FRL, and
                the partition product (product.py)
     engine/    the BFS checker (bfs.py: the level loop, its run options,
                checkpoints and the sorted, hash and host visited sets;
-               pipeline.py: the per-chunk stages and the candidate order)
+               pipeline.py: the per-chunk stages, the candidate order and
+               the device-resident level pipeline)
                and random simulation (simulate.py, TLC's -simulate)
+    analysis/  the encoding gate and proven field hulls (interval
+               abstract interpretation of the action kernels)
     native/    the host fingerprint set (fpset.cpp, g++ at first use)
     resilience/  the level digest chain, the checkpoint store, the
                per-level heartbeat record
@@ -34,8 +38,8 @@ Layout (module names mirror the JAX package):
                device timing
     cli.py     `python -m kafka_specification_tpu_torch.cli check|simulate CFG`
     verdict.py the kspec-verdict/1 record and exit codes
-    pipeline_registry.py  pipeline names ("fused", "legacy"; "device" is
-               not ported) and $KSPEC_PIPELINE
+    pipeline_registry.py  pipeline names ("fused", "legacy", "device"),
+               their backend support and $KSPEC_PIPELINE
     interop.py JAX/numpy state -> the port's tensors (used by the tests)
 """
 

@@ -34,7 +34,7 @@ import sys
 from pathlib import Path
 
 from .engine.bfs import VISITED_BACKENDS
-from .pipeline_registry import PORTED
+from .pipeline_registry import PIPELINES
 from .resilience.checkpoints import CheckpointCorrupt
 from .resilience.integrity import EXIT_INTEGRITY, IntegrityError
 from .utils.cfg import build_model, parse_cfg
@@ -148,7 +148,7 @@ def _check(args) -> int:
                                            exit_code=EXIT_INTEGRITY)))
         return EXIT_INTEGRITY
     except (RuntimeError, ValueError, CheckpointCorrupt) as e:
-        # no card, an unported $KSPEC_PIPELINE, no g++ for the host set, a
+        # no card, an unknown $KSPEC_PIPELINE, no g++ for the host set, a
         # checkpoint of another config or none that verifies: no result
         rec = error_verdict(f"{type(e).__name__}: {e}")
         if args.json:
@@ -211,10 +211,11 @@ def main(argv=None) -> int:
     )
     pc.add_argument(
         "--pipeline",
-        choices=list(PORTED),
+        choices=list(PIPELINES),
         default=None,
-        help="level pipeline: 'fused' (default; $KSPEC_PIPELINE overrides) or "
-        "'legacy'; both give the same result",
+        help="level pipeline: 'fused' (default; $KSPEC_PIPELINE overrides), "
+        "'legacy', or 'device' (every gated chunk of a level queued on the card, "
+        "one host read a level); all give the same result",
     )
     pc.add_argument(
         "--device",

@@ -58,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis import require_encoding_sound
 from ..interop import from_u32, to_u32
 from ..models.base import Model
 from ..native import FpSet
@@ -67,8 +68,8 @@ from ..pipeline_registry import resolve_pipeline
 from ..resilience import integrity
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.heartbeat import append_jsonl, heartbeat_record
-from .pipeline import (compacts, fp_stage, grow_visited, invariant_stage, next_pow2, run_chunk,
-                       sorted_dedup_stage)
+from .pipeline import (DevicePipeline, compacts, fp_stage, grow_visited, invariant_stage, next_pow2,
+                       run_chunk, sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
@@ -177,6 +178,12 @@ class _SortedVisited:
         winners, self.keys, self.n = sorted_dedup_stage(dedup.order_key(hi, lo), self.keys, self.n)
         return winners
 
+    def merge_level(self, okeys: torch.Tensor) -> None:
+        """One rank merge of a device level's new keys (ascending, disjoint
+        from the set): the set the level's per-chunk merges would give."""
+        rank = dedup.rank_sorted(self.keys, self.n, okeys)[1]
+        self.keys, self.n = dedup.merge_ranked(self.keys, self.n, okeys, rank, self.keys.shape[0])
+
     def save_arrays(self) -> dict:
         hi, lo = dedup.order_key_to_pair(self.keys[: self.n])
         return {"vhi": to_u32(hi), "vlo": to_u32(lo), "vn": self.n}
@@ -251,6 +258,11 @@ class _HostVisited:
         new = self.set.insert(fps_u64(hi, lo))
         return torch.from_numpy(np.flatnonzero(new)).to(hi.device)
 
+    def insert_keys(self, keys: np.ndarray) -> np.ndarray:
+        """One batched insert of fingerprint pair keys (int64 bit
+        patterns, in candidate order) -> indices of the new ones."""
+        return np.flatnonzero(self.set.insert(keys.view(np.uint64)))
+
     def save_arrays(self) -> dict:
         return {"host_fps": self.set.dump()}
 
@@ -323,8 +335,12 @@ def check(
     plus one chunk's headroom (the table for 4x as many), so it never
     grows on a run of roughly known size; visited_capacity_exact: start the
     sorted set at this capacity, no headroom added.
-    pipeline: "fused" or "legacy" (None: $KSPEC_PIPELINE, else "fused");
-    both run the same stages.  compact_shift/compact_gate select the
+    pipeline: "fused", "legacy" or "device" (None: $KSPEC_PIPELINE, else
+    "fused"); "fused" and "legacy" run the same per-chunk stages, "device"
+    queues every gated chunk of a level on the card and reads the host once
+    a level (``pipeline.DevicePipeline``; stats["device"] says how many
+    levels ran so and why, if ever, it ran the per-chunk path instead);
+    all three give the same result.  compact_shift/compact_gate select the
     candidate order of a chunk (``pipeline.compacts``).
     check_deadlock: report a reachable state with no enabled action as a
     violation of the pseudo-invariant "Deadlock".  A model's constraint
@@ -339,6 +355,10 @@ def check(
     (store_trace is forced off): a violation found after a resume reports
     its state with an empty trace.
     """
+    # the encoding gate (KSPEC_ANALYZE=0 disables): an action that can write
+    # outside its declared field ranges would be masked by the packer, so
+    # the model is refused before anything is explored
+    require_encoding_sound(model)
     if visited_backend not in VISITED_BACKENDS:
         raise ValueError(
             f"visited_backend must be one of {', '.join(VISITED_BACKENDS)}, "
@@ -354,6 +374,9 @@ def check(
         store_trace = False
         checkpoint_every = max(1, int(checkpoint_every))
     chain = integrity.LevelDigestChain() if integrity.enabled() else None
+    pipe = (DevicePipeline(model, visited_backend, check_invariants, check_deadlock,
+                           compact_shift, compact_gate)
+            if pipe_name == "device" else None)
     collect_stats = stats_path is not None
     stats_levels = []
     visited = None
@@ -397,6 +420,10 @@ def check(
             stats.update(visited_capacity=visited.capacity, **visited.stats())
         if collect_stats:
             stats["levels"] = stats_levels
+        if pipe is not None:
+            # how many levels ran device-resident, and why (if ever) the
+            # run left the device path for the per-chunk one
+            stats["device"] = {"levels": pipe.levels, "fallback": pipe.fallback}
         return CheckResult(
             model=model.name,
             levels=levels,
@@ -487,7 +514,43 @@ def check(
         lvl_rows, lvl_parent, lvl_act = [], [], []
         lvl_new = 0
         verdict = None  # (frontier index, invariant name)
-        for start in range(0, f_total, chunk):
+        dev_handled = 0
+        plan = pipe.plan_level(f_total, chunk, min_bucket) if pipe is not None else None
+        if plan is not None:
+            # the device-resident span: every gated chunk queued on the
+            # card, one host read; a sub-gate tail chunk follows below at
+            # its serial offset
+            t_step = time.perf_counter()
+            out = pipe.run_level(frontier, plan, visited)
+            t_host = time.perf_counter()
+            step_s += t_host - t_step
+            dev_handled = plan[2]
+            if out.verdict is not None:
+                verdict = out.verdict
+                dev_handled = f_total
+            else:
+                if collect_stats:
+                    act_en += torch.tensor(out.act_en, dtype=torch.int64, device=dev)
+                rows, parent, act = out.rows, out.parent, out.act
+                if visited_backend == "host":
+                    # the deferred probe: one batched insert of the level's
+                    # novel candidates, in candidate order
+                    keep = visited.insert_keys(out.keys)
+                    if chain is not None:
+                        chain.fold(out.keys[keep].view(np.uint64))
+                    idx = torch.from_numpy(keep).to(dev)
+                    rows, parent, act = rows[idx], parent[idx], act[idx]
+                elif rows.shape[0]:
+                    visited.merge_level(out.lkeys)
+                    if chain is not None:
+                        chain.fold_digest(*out.digest)
+                if rows.shape[0]:
+                    lvl_new += rows.shape[0]
+                    lvl_rows.append(rows)
+                    lvl_parent.append(parent)
+                    lvl_act.append(act)
+            host_s += time.perf_counter() - t_host
+        for start in range(dev_handled, f_total, chunk):
             t_step = time.perf_counter()
             piece = frontier[start : start + chunk]
             bucket = next_pow2(max(piece.shape[0], min_bucket))

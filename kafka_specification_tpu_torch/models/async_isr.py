@@ -145,7 +145,8 @@ def controller_shrink_isr(cfg: AsyncIsrConfig):
             "c_isr": isr, "c_ver": ver, "upd_isr": _put(s["upd_isr"], isr, ver),
         })
 
-    return Action("ControllerShrinkIsr", n, kernel)
+    return Action("ControllerShrinkIsr", n, kernel,
+                  writes=frozenset({"c_isr", "c_ver", "upd_isr"}))
 
 
 def controller_handle_request(cfg: AsyncIsrConfig):
@@ -162,7 +163,8 @@ def controller_handle_request(cfg: AsyncIsrConfig):
             "c_isr": subset, "c_ver": ver, "upd_isr": _put(s["upd_isr"], subset, ver),
         })
 
-    return Action("ControllerHandleRequest", n, kernel)
+    return Action("ControllerHandleRequest", n, kernel,
+                  writes=frozenset({"c_isr", "c_ver", "upd_isr"}))
 
 
 def leader_request_shrink_isr(cfg: AsyncIsrConfig):
@@ -175,7 +177,8 @@ def leader_request_shrink_isr(cfg: AsyncIsrConfig):
         enabled = (r != LEADER) & _member(l_isr, r)
         return _out(s, n, enabled, _request(s, col(s, "l_ver"), l_isr & ~_bit(r)))
 
-    return Action("LeaderRequestShrinkIsr", n, kernel)
+    return Action("LeaderRequestShrinkIsr", n, kernel,
+                  writes=frozenset({"req_bits", "l_pend", "l_pver"}))
 
 
 def leader_request_expand_isr(cfg: AsyncIsrConfig):
@@ -188,7 +191,8 @@ def leader_request_expand_isr(cfg: AsyncIsrConfig):
         enabled = ~_member(l_isr, r) & (_at(s["offs"], r) >= _hw(cfg, s).unsqueeze(1))
         return _out(s, n, enabled, _request(s, col(s, "l_ver"), l_isr | _bit(r)))
 
-    return Action("LeaderRequestExpandIsr", n, kernel)
+    return Action("LeaderRequestExpandIsr", n, kernel,
+                  writes=frozenset({"req_bits", "l_pend", "l_pver"}))
 
 
 def leader_write(cfg: AsyncIsrConfig):
@@ -199,7 +203,7 @@ def leader_write(cfg: AsyncIsrConfig):
             "offs": _put(s["offs"], (o + 1).clamp(max=cfg.max_offset), torch.full_like(o, LEADER)),
         })
 
-    return Action("LeaderWrite", 1, kernel)
+    return Action("LeaderWrite", 1, kernel, writes=frozenset({"offs"}))
 
 
 def leader_handle_update(cfg: AsyncIsrConfig):
@@ -217,7 +221,8 @@ def leader_handle_update(cfg: AsyncIsrConfig):
             "l_pver": torch.full_like(u, NIL),
         })
 
-    return Action("LeaderHandleUpdate", n, kernel)
+    return Action("LeaderHandleUpdate", n, kernel,
+                  writes=frozenset({"l_isr", "l_ver", "l_pend", "l_pver"}))
 
 
 def follower_replicate(cfg: AsyncIsrConfig):
@@ -232,7 +237,7 @@ def follower_replicate(cfg: AsyncIsrConfig):
             "offs": _put(s["offs"], (o_r + 1).clamp(max=cfg.max_offset), r),
         })
 
-    return Action("FollowerReplicate", n, kernel)
+    return Action("FollowerReplicate", n, kernel, writes=frozenset({"offs"}))
 
 
 def valid_high_watermark(cfg: AsyncIsrConfig):

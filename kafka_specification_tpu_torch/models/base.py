@@ -30,7 +30,13 @@ INT32_MAX = (1 << 31) - 1
 
 
 class EncodingUnsound(ValueError):
-    """A field table the lane packer cannot encode soundly."""
+    """A field table, or an action's writes, the lane packer cannot encode
+    soundly.  The machine-readable findings (``analysis.Finding``) of the
+    action pass ride on ``.findings``."""
+
+    def __init__(self, message: str, findings=()):
+        super().__init__(message)
+        self.findings = list(findings)
 
 
 def check_spec_fields(fields, context: str = "") -> None:
@@ -53,6 +59,9 @@ class Action:
     name: str
     n_choices: int
     kernel: Callable  # states dict[B] -> (enabled[B, n], next dict[B, n])
+    # the fields the kernel may change (an upper bound), or None when not
+    # declared; the analysis's frame pass proves it writes nothing else
+    writes: Optional[frozenset] = None
 
 
 @dataclass(frozen=True)

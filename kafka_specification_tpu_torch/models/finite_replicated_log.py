@@ -87,9 +87,10 @@ def make_model(n_replicas: int, log_size: int, n_records: int, force_hashed: boo
         spec=spec,
         init_states=lambda: [{"end": [0] * N, "rec": [[NIL] * L for _ in range(N)]}],
         actions=[
-            Action("Append", N * R, append),
-            Action("TruncateTo", N * L, truncate_to),
-            Action("ReplicateTo", N * (N - 1), replicate_to),
+            Action("Append", N * R, append, writes=frozenset({"end", "rec"})),
+            Action("TruncateTo", N * L, truncate_to, writes=frozenset({"end", "rec"})),
+            Action("ReplicateTo", N * (N - 1), replicate_to,
+                   writes=frozenset({"end", "rec"})),
         ],
         invariants=[Invariant("TypeOk", type_ok)],
         decode=decode,

@@ -28,7 +28,7 @@ def make_model(max_id: int) -> Model:
         name=f"IdSequence(MaxId={max_id})",
         spec=spec,
         init_states=lambda: [{"nextId": 0}],
-        actions=[Action("NextId", 1, next_id)],
+        actions=[Action("NextId", 1, next_id, writes=frozenset({"nextId"}))],
         invariants=[Invariant("TypeOk", type_ok)],
         decode=lambda s: int(s["nextId"]),
     )

@@ -30,6 +30,12 @@ NONE = -1  # KafkaReplication.tla:38
 NIL = -1  # KafkaReplication.tla:39
 ABSENT = -2  # epoch slot with no LeaderAndIsr request yet
 
+# each action's write set (``Action.writes``), the JAX package's
+_CTRL_WRITES = frozenset({"nep", "qep", "qldr", "qisr", "req_ldr", "req_isr"})
+_QUORUM_WRITES = frozenset({"qisr", "isr"})
+_BECOME_FOLLOWER_WRITES = frozenset({"rid", "repoch", "end", "ep", "ldr", "isr", "hw"})
+_REPLICATE_WRITES = frozenset({"rid", "repoch", "end", "hw"})
+
 
 @dataclass(frozen=True)
 class Config:
@@ -154,7 +160,7 @@ def _put(x: torch.Tensor, val, *idx) -> torch.Tensor:
         )
         h = ar == i.reshape(*i.shape, *([1] * nd))
         hit = h if hit is None else hit & h
-    if isinstance(val, torch.Tensor):
+    if not isinstance(val, int):  # a tensor (or the analysis's IVal)
         val = val.reshape(*val.shape, *([1] * nd))
     return torch.where(hit, val, x.unsqueeze(1))
 
@@ -273,7 +279,7 @@ def controller_shrink_isr(cfg: Config):
         ok, upd = _ctrl_update_isr(cfg, s, new_leader, new_isr)
         return _out(s, n, enabled & ok, upd)
 
-    return Action("ControllerShrinkIsr", n, kernel)
+    return Action("ControllerShrinkIsr", n, kernel, writes=_CTRL_WRITES)
 
 
 def controller_elect_leader(cfg: Config):
@@ -287,7 +293,7 @@ def controller_elect_leader(cfg: Config):
         ok, upd = _ctrl_update_isr(cfg, s, r, qisr)
         return _out(s, n, enabled & ok, upd)
 
-    return Action("ControllerElectLeader", n, kernel)
+    return Action("ControllerElectLeader", n, kernel, writes=_CTRL_WRITES)
 
 
 def become_leader(cfg: Config):
@@ -305,7 +311,7 @@ def become_leader(cfg: Config):
             "isr": _put(s["isr"], _at(s["req_isr"], e), lc),
         })
 
-    return Action("BecomeLeader", n, kernel)
+    return Action("BecomeLeader", n, kernel, writes=frozenset({"ep", "ldr", "isr"}))
 
 
 def leader_write(cfg: Config):
@@ -332,7 +338,7 @@ def leader_write(cfg: Config):
             "nrid": (nrid + 1).clamp(max=cfg.r),
         })
 
-    return Action("LeaderWrite", n, kernel)
+    return Action("LeaderWrite", n, kernel, writes=frozenset({"rid", "repoch", "end", "nrid"}))
 
 
 def leader_shrink_isr(cfg: Config):
@@ -348,7 +354,7 @@ def leader_shrink_isr(cfg: Config):
         ok, upd = _quorum_update(s, l, isr_l & ~_bit(f))
         return _out(s, n, in_isr & lagging & ok, upd)
 
-    return Action("LeaderShrinkIsr", n, kernel)
+    return Action("LeaderShrinkIsr", n, kernel, writes=_QUORUM_WRITES)
 
 
 def leader_expand_isr(cfg: Config):
@@ -364,7 +370,7 @@ def leader_expand_isr(cfg: Config):
         ok, upd = _quorum_update(s, l, isr_l | _bit(f))
         return _out(s, n, outside & caught & ok, upd)
 
-    return Action("LeaderExpandIsr", n, kernel)
+    return Action("LeaderExpandIsr", n, kernel, writes=_QUORUM_WRITES)
 
 
 def leader_inc_high_watermark(cfg: Config):
@@ -385,7 +391,7 @@ def leader_inc_high_watermark(cfg: Config):
             "hw": _put(s["hw"], (hw + 1).clamp(max=cfg.l), l),
         })
 
-    return Action("LeaderIncHighWatermark", n, kernel)
+    return Action("LeaderIncHighWatermark", n, kernel, writes=frozenset({"hw"}))
 
 
 def become_follower_and_truncate_to(cfg: Config, name: str, trunc_offset_fn):
@@ -414,7 +420,7 @@ def become_follower_and_truncate_to(cfg: Config, name: str, trunc_offset_fn):
             "hw": _put(s["hw"], torch.minimum(toff, _at(s["hw"], r)), r),
         })
 
-    return Action(name, n, kernel)
+    return Action(name, n, kernel, writes=_BECOME_FOLLOWER_WRITES)
 
 
 def follower_replicate(cfg: Config):
@@ -433,7 +439,7 @@ def follower_replicate(cfg: Config):
         )
         return _out(s, n, enabled, _replicate(cfg, s, f, l, off, enabled))
 
-    return Action("FollowerReplicate", n, kernel)
+    return Action("FollowerReplicate", n, kernel, writes=_REPLICATE_WRITES)
 
 
 def _replicate(cfg, s, f, l, off, enabled):

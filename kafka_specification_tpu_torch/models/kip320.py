@@ -67,7 +67,7 @@ def fenced_follower_fetch(cfg: Config):
         )
         return _out(s, n, enabled, kr._replicate(cfg, s, f, l, off, enabled))
 
-    return Action("FencedFollowerFetch", n, kernel)
+    return Action("FencedFollowerFetch", n, kernel, writes=kr._REPLICATE_WRITES)
 
 
 def fenced_leader_inc_high_watermark(cfg: Config):
@@ -85,7 +85,7 @@ def fenced_leader_inc_high_watermark(cfg: Config):
             "hw": _put(s["hw"], (hw + 1).clamp(max=cfg.l), l),
         })
 
-    return Action("FencedLeaderIncHighWatermark", n, kernel)
+    return Action("FencedLeaderIncHighWatermark", n, kernel, writes=frozenset({"hw"}))
 
 
 def fenced_leader_shrink_isr(cfg: Config):
@@ -101,7 +101,7 @@ def fenced_leader_shrink_isr(cfg: Config):
         ok, upd = kr._quorum_update(s, l, isr_l & ~_bit(f))
         return _out(s, n, in_isr & stale & ok, upd)
 
-    return Action("FencedLeaderShrinkIsr", n, kernel)
+    return Action("FencedLeaderShrinkIsr", n, kernel, writes=kr._QUORUM_WRITES)
 
 
 def fenced_leader_expand_isr(cfg: Config):
@@ -127,7 +127,7 @@ def fenced_leader_expand_isr(cfg: Config):
         )
         return _out(s, n, enabled, upd)
 
-    return Action("FencedLeaderExpandIsr", n, kernel)
+    return Action("FencedLeaderExpandIsr", n, kernel, writes=kr._QUORUM_WRITES)
 
 
 def fenced_become_follower_and_truncate(cfg: Config):
@@ -162,7 +162,8 @@ def fenced_become_follower_and_truncate(cfg: Config):
             "hw": _put(s["hw"], torch.minimum(toff, _at(s["hw"], r)), r),
         })
 
-    return Action("FencedBecomeFollowerAndTruncate", n, kernel)
+    return Action("FencedBecomeFollowerAndTruncate", n, kernel,
+                  writes=kr._BECOME_FOLLOWER_WRITES)
 
 
 # --------------------------------------------------------------------------
@@ -213,7 +214,7 @@ def ft_follower_truncate(cfg: Config):
             "hw": _put(s["hw"], torch.minimum(toff, _at(s["hw"], f)), f),
         })
 
-    return Action("FollowerTruncate", n, kernel)
+    return Action("FollowerTruncate", n, kernel, writes=kr._REPLICATE_WRITES)
 
 
 def ft_improved_leader_inc_high_watermark(cfg: Config):
@@ -240,7 +241,7 @@ def ft_improved_leader_inc_high_watermark(cfg: Config):
             "hw": _put(s["hw"], (hw + 1).clamp(max=cfg.l), l),
         })
 
-    return Action("ImprovedLeaderIncHighWatermark", n, kernel)
+    return Action("ImprovedLeaderIncHighWatermark", n, kernel, writes=frozenset({"hw"}))
 
 
 def ft_follower_fetch(cfg: Config):
@@ -258,7 +259,7 @@ def ft_follower_fetch(cfg: Config):
         )
         return _out(s, n, enabled, kr._replicate(cfg, s, f, l, off, enabled))
 
-    return Action("FollowerFetch", n, kernel)
+    return Action("FollowerFetch", n, kernel, writes=kr._REPLICATE_WRITES)
 
 
 def ft_leader_shrink_isr(cfg: Config):
@@ -274,7 +275,7 @@ def ft_leader_shrink_isr(cfg: Config):
         ok, upd = kr._quorum_update(s, l, isr_l & ~_bit(f))
         return _out(s, n, in_isr & lagging & ok, upd)
 
-    return Action("LeaderShrinkIsrBetterFencing", n, kernel)
+    return Action("LeaderShrinkIsrBetterFencing", n, kernel, writes=kr._QUORUM_WRITES)
 
 
 def ft_leader_expand_isr(cfg: Config):
@@ -291,7 +292,7 @@ def ft_leader_expand_isr(cfg: Config):
         ok, upd = kr._quorum_update(s, l, isr_l | _bit(f))
         return _out(s, n, outside & caught & _hw_at_epoch(cfg, s, l, hw) & ok, upd)
 
-    return Action("LeaderExpandIsrBetterFencing", n, kernel)
+    return Action("LeaderExpandIsrBetterFencing", n, kernel, writes=kr._QUORUM_WRITES)
 
 
 def ft_become_follower(cfg: Config):
@@ -311,7 +312,7 @@ def ft_become_follower(cfg: Config):
             "isr": _put(s["isr"], _at(s["req_isr"], e), r),
         })
 
-    return Action("BecomeFollower", n, kernel)
+    return Action("BecomeFollower", n, kernel, writes=frozenset({"ep", "ldr", "isr"}))
 
 
 # --------------------------------------------------------------------------

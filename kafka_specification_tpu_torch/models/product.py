@@ -69,7 +69,8 @@ def product_models(bases, name: str | None = None, meta: dict | None = None) -> 
             out.update({f"p{p}.{key}": v for key, v in nxt.items()})
             return en, out
 
-        return Action(f"p{p}.{a.name}", a.n_choices, kernel)
+        writes = frozenset(f"p{p}.{w}" for w in a.writes) if a.writes is not None else None
+        return Action(f"p{p}.{a.name}", a.n_choices, kernel, writes=writes)
 
     actions = [lift(p, a) for p, b in enumerate(bases) for a in b.actions]
 

@@ -29,9 +29,9 @@ import torch
 SENT = 0xFFFFFFFF
 # the all-ones pair as a packed key
 SENT_KEY = -1
-_TOP_BIT = -(1 << 63)
+TOP_BIT = -(1 << 63)
 # the sentinel pair as an order key: the sorted set's padding
-PAD = SENT_KEY ^ _TOP_BIT
+PAD = SENT_KEY ^ TOP_BIT
 
 
 def pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -48,12 +48,12 @@ def split_key(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def order_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(hi, lo) u32 values -> int64 keys whose signed order is the unsigned
     order of the pairs."""
-    return pair_key(hi, lo) ^ _TOP_BIT
+    return pair_key(hi, lo) ^ TOP_BIT
 
 
 def order_key_to_pair(okey: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse of order_key."""
-    return split_key(okey ^ _TOP_BIT)
+    return split_key(okey ^ TOP_BIT)
 
 
 def sort_pairs(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -104,3 +104,43 @@ def merge_ranked(set_keys, set_n: int, new_keys, new_rank, out_cap: int):
     out[torch.arange(set_n, device=out.device) + below] = old
     out[new_rank + torch.arange(new_n, device=out.device)] = new_keys
     return out, set_n + new_n
+
+
+# --------------------------------------------------------------------------
+# fixed-capacity variants for the device-resident level pipeline: no
+# Python count, no slice by it, no raise; the count is a tensor and
+# entries that do not land go to a dump slot
+# --------------------------------------------------------------------------
+
+
+def rank_full(set_keys: torch.Tensor, q: torch.Tensor):
+    """rank_sorted over a whole fixed-capacity set, ascending keys then its
+    PAD tail -> (found bool, rank int64).  A valid query (below PAD) never
+    matches the tail, so the set's count is not needed."""
+    cap = set_keys.shape[0]
+    rank = torch.searchsorted(set_keys, q, side="left")
+    found = set_keys.gather(0, rank.clamp(max=cap - 1)) == q
+    return found & (q != PAD), rank
+
+
+def merge_full(set_keys: torch.Tensor, set_n: torch.Tensor, new_keys: torch.Tensor,
+               new_rank: torch.Tensor, new_n: torch.Tensor) -> torch.Tensor:
+    """merge_ranked at a fixed capacity with tensor counts: `new_keys`
+    holds `new_n` keys, ascending, disjoint from the set, each with its
+    rank in the set (rank_full), then PAD.  The same two scatters:
+
+        target(new[j]) = rank[j] + j                        (j < new_n)
+        target(set[i]) = i + (# new keys below set[i])      (i < set_n)
+
+    into a buffer one longer than the set, whose last slot takes every
+    entry past the counts.  The caller keeps set_n + new_n <= capacity.
+    -> the merged keys, int64[capacity]."""
+    cap = set_keys.shape[0]
+    dev = set_keys.device
+    out = torch.full((cap + 1,), PAD, dtype=torch.int64, device=dev)
+    i = torch.arange(cap, device=dev)
+    below = torch.searchsorted(new_keys, set_keys, side="left")
+    out.index_copy_(0, torch.where(i < set_n, i + below, cap).clamp(max=cap), set_keys)
+    j = torch.arange(new_keys.shape[0], device=dev)
+    out.index_copy_(0, torch.where(j < new_n, new_rank + j, cap).clamp(max=cap), new_keys)
+    return out[:cap]

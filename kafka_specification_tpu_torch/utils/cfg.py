@@ -136,7 +136,20 @@ def build_model(module: str, cfg: TlcConfig):
     the invariants of ``resolved_invariants``.  CONSTRAINT is accepted for
     AsyncIsr only, whose bound the MaxOffset/MaxVersion constants already
     are (MaxVersion defaults to MaxOffset); a Kafka module's ``Partitions =
-    K > 1`` builds the product of K copies of it."""
+    K > 1`` builds the product of K copies of it.
+
+    The built model passes the encoding gate (``analysis.
+    require_encoding_sound``; KSPEC_ANALYZE=0 disables) before it is
+    returned, as the JAX package's build_model does: an unsound (config,
+    schema) pair raises ``EncodingUnsound`` and ``cli check`` exits 2."""
+    from ..analysis import require_encoding_sound
+
+    built = _build_model(module, cfg)
+    require_encoding_sound(built)
+    return built
+
+
+def _build_model(module: str, cfg: TlcConfig):
     if module not in MODULES:
         raise KeyError(
             f"module {module!r} is not ported to PyTorch yet "

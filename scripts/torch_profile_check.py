@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
         [--runs N] [--root DIR] [--set NAME=VALUE ...]
-        [--visited-backend device|device-hash] [--max-depth N]
+        [--visited-backend device|device-hash] [--pipeline fused|device] [--max-depth N]
         | [--simulate [--walks W] [--depth D] [--seed S]]
 
 Runs check() of the .cfg once to build the kernels and warm up, then `--runs`
@@ -25,7 +25,10 @@ line is the same as JSON.
 check() runs with its defaults (the sorted `device` visited set, the fused
 pipeline, compact_shift 2); --visited-backend device-hash runs the path the
 port had before the sorted set: the hash table, pipeline "legacy",
-compact_shift 0.  --root DIR profiles the package of another checkout (the
+compact_shift 0; --pipeline device runs the device-resident level
+pipeline (with the defaults' sorted set), whose chunks show as the stage
+device_chunk and whose one host read a level as device_read.  --root DIR
+profiles the package of another checkout (the
 parent commit unpacked with `git archive`, say), whose check() takes those
 knobs for --visited-backend device-hash.  --set overrides a constant of the
 .cfg (a comma-separated value is a set of model values: `--set
@@ -61,17 +64,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# stage -> (module, attribute) of the function wrapped in a profiler range
+# stage -> (module, attribute, ...) of the function wrapped in a profiler
+# range: the first attribute the package has (older packages lack some)
 STAGES = {
-    "invariants": ("engine.pipeline", "invariant_stage"),
+    "invariants": ("engine.pipeline", "invariant_flags", "invariant_stage"),
     "expand": ("engine.pipeline", "expand_stage"),
     "squeeze": ("engine.pipeline", "squeeze_stage"),
     "pack": ("ops.packing", "StateSpec.pack"),
     "fingerprint": ("engine.pipeline", "fp_stage"),
+    "fingerprint_masked": ("engine.pipeline", "fp_masked"),
     "dedup_sorted": ("engine.bfs", "sorted_dedup_stage"),
     "dedup_hash": ("engine.bfs", "_HashVisited.insert"),
     "rank": ("ops.dedup", "rank_sorted"),
     "merge": ("ops.dedup", "merge_ranked"),
+    "device_chunk": ("engine.pipeline", "DevicePipeline._chunk"),
+    "device_read": ("engine.pipeline", "DevicePipeline.read_level"),
 }
 
 
@@ -82,14 +89,18 @@ def _wrap_stages(pkg):
     import importlib
 
     wrapped = []
-    for stage, (mod_name, attr) in STAGES.items():
-        try:
-            owner = importlib.import_module(f"{pkg}.{mod_name}")
-            *path, name = attr.split(".")
-            for part in path:
-                owner = getattr(owner, part)
-            fn = getattr(owner, name)
-        except (ImportError, AttributeError):
+    for stage, (mod_name, *attrs) in STAGES.items():
+        for attr in attrs:
+            try:
+                owner = importlib.import_module(f"{pkg}.{mod_name}")
+                *path, name = attr.split(".")
+                for part in path:
+                    owner = getattr(owner, part)
+                fn = getattr(owner, name)
+                break
+            except (ImportError, AttributeError):
+                continue
+        else:
             continue  # an older package without this stage
 
         def ranged(*a, _fn=fn, _label=f"stage:{stage}", **kw):
@@ -112,6 +123,9 @@ def main() -> int:
     ap.add_argument("--visited-backend", choices=["device", "device-hash"], default=None,
                     help="device (default): check() with its defaults; device-hash: the hash "
                          "table, pipeline legacy, compact_shift 0")
+    ap.add_argument("--pipeline", choices=["fused", "device"], default=None,
+                    help="with the default backend: 'device' runs the device-resident "
+                         "level pipeline")
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
                     help="override a .cfg constant (a,b,c: a set of model values)")
     ap.add_argument("--max-depth", type=int, default=None)
@@ -121,8 +135,11 @@ def main() -> int:
     ap.add_argument("--depth", type=int, default=None, help="with --simulate (default 100)")
     ap.add_argument("--seed", type=int, default=None, help="with --simulate (default 0)")
     args = ap.parse_args()
-    if args.simulate and (args.visited_backend is not None or args.max_depth is not None):
-        ap.error("--simulate takes no --visited-backend or --max-depth")
+    if args.simulate and (args.visited_backend is not None or args.max_depth is not None
+                          or args.pipeline is not None):
+        ap.error("--simulate takes no --visited-backend, --pipeline or --max-depth")
+    if args.pipeline == "device" and args.visited_backend == "device-hash":
+        ap.error("--pipeline device runs on the default backend")
     if not args.simulate and (args.walks, args.depth, args.seed) != (None, None, None):
         ap.error("--walks, --depth and --seed need --simulate")
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -152,6 +169,8 @@ def main() -> int:
     else:
         knobs = ({} if args.visited_backend in (None, "device") else
                  dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0))
+        if args.pipeline is not None:
+            knobs["pipeline"] = args.pipeline
 
         def run(model):
             return _check(model, max_depth=args.max_depth, **knobs)

@@ -146,10 +146,10 @@ def test_exit_code_2_on_errors(capsys, tmp_path, monkeypatch):
     assert rc == 2 and "cannot parse" in out.err
     rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--module", "AlterPartition")
     assert rc == 2 and "not ported" in out.err
-    monkeypatch.setenv("KSPEC_PIPELINE", "device")
+    monkeypatch.setenv("KSPEC_PIPELINE", "nope")
     rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--json")
     rec = json.loads(out.out)
-    assert rc == 2 and rec["exit_code"] == 2 and "not ported" in rec["error"]
+    assert rc == 2 and rec["exit_code"] == 2 and "unknown pipeline" in rec["error"]
 
 
 def test_module_entry_point():

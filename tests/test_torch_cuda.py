@@ -406,3 +406,144 @@ def test_k4_rung_runs_on_the_current_stream(card):
     torch.cuda.synchronize()
     x = cuda_ladder.from_i32(fresh)
     assert torch.equal(cuda_ladder.from_i32(out), cuda_ladder.PLAIN["dyn_read"](x))
+
+
+# --------------------------------------------------------------------------
+# the device-resident level pipeline (pipeline="device") on the card: the
+# twins of tests/test_torch_device_pipeline.py, held against the CPU run
+# --------------------------------------------------------------------------
+
+DEVICE_KW = dict(pipeline="device", min_bucket=32, chunk_size=256, compact_gate=32)
+
+
+def _recorded_chains(monkeypatch):
+    from kafka_specification_tpu_torch.resilience import integrity
+
+    made, base = [], integrity.LevelDigestChain
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(integrity, "LevelDigestChain", Recording)
+    return made
+
+
+def _device_both(make, card, monkeypatch, tmp_path, **kw):
+    """check(**DEVICE_KW, **kw) of make() on the card and on the CPU: every
+    level's rows, the violation and trace, the stats lines, stats["device"]
+    and the digest chain equal.  -> the card's result."""
+    import json
+
+    chains = _recorded_chains(monkeypatch)
+    runs = []
+    for dev in (card, "cpu"):
+        levels, path = [], tmp_path / f"stats-{len(runs)}.jsonl"
+        res = check(make(), device=dev, collect_levels=levels, stats_path=str(path),
+                    **{**DEVICE_KW, **kw})
+        lines = [{k: v for k, v in json.loads(line).items() if not k.endswith("ms")
+                  and k not in ("ts", "unix")} for line in path.read_text().splitlines()]
+        runs.append((res, [x.cpu() for x in levels], lines, chains[-1].to_array()))
+    (a, la, sa, ca), (b, lb, sb, cb) = runs
+    assert a.levels == b.levels and len(la) == len(lb)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert (a.violation is None) == (b.violation is None)
+    if b.violation is not None:
+        assert (a.violation.invariant, a.violation.depth, a.violation.trace) == \
+            (b.violation.invariant, b.violation.depth, b.violation.trace)
+    assert sa == sb and np.array_equal(ca, cb)
+    assert a.stats["device"] == b.stats["device"]
+    return a
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_device_pipeline_on_card_equals_cpu(card, backend, monkeypatch, tmp_path):
+    invs = ("TypeOk", "WeakIsr")
+    thw = lambda: variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1), invs)
+    res = _device_both(thw, card, monkeypatch, tmp_path, visited_backend=backend)
+    assert res.violation.depth == 8 and res.stats["device"]["levels"] > 0
+    k1 = cuda_fingerprint.LAUNCHES  # 3r packs to three lanes: hashed, by K1
+    res = _device_both(lambda: kip320.make_model(Config(3, 2, 2, 2)), card, monkeypatch,
+                       tmp_path, visited_backend=backend, max_depth=10)
+    assert cuda_fingerprint.LAUNCHES > k1
+    assert res.stats["device"]["fallback"] is None and res.total == 68_401
+
+
+def test_device_pipeline_edges_on_card(card, monkeypatch, tmp_path):
+    """device-hash degrades; the un-gated tail chunk; a forced width
+    overflow and a forced level-new overflow re-dispatch: each as on the
+    CPU."""
+    from kafka_specification_tpu_torch.ops import devlevel
+    from kafka_specification_tpu_torch.pipeline_registry import backend_fallback_reason
+
+    invs = ("TypeOk", "WeakIsr")
+    thw = lambda: variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1), invs)
+    res = _device_both(thw, card, monkeypatch, tmp_path, visited_backend="device-hash")
+    assert res.stats["device"] == {"levels": 0,
+                                   "fallback": backend_fallback_reason("device", "device-hash")}
+    tail = dict(min_bucket=16, chunk_size=32)
+    assert _device_both(thw, card, monkeypatch, tmp_path, **tail).violation.depth == 8
+    real = pipeline.DevicePipeline.widths
+    monkeypatch.setattr(pipeline.DevicePipeline, "widths", lambda self, B, counts=None: (
+        real(self, B, counts) if counts is not None else (1,) * len(self.model.actions)))
+    _device_both(thw, card, monkeypatch, tmp_path)
+    monkeypatch.setattr(pipeline.DevicePipeline, "widths", real)
+    monkeypatch.setattr(devlevel, "level_new_capacity", lambda T, hw, worst: 8)
+    _device_both(thw, card, monkeypatch, tmp_path, **tail)
+
+
+def test_device_level_helpers_on_card(card):
+    """The digest on the card against digest_fps (bit 63 set on many), and
+    the fixed-capacity rank and merge against their CPU runs."""
+    from kafka_specification_tpu_torch.ops import devlevel
+    from kafka_specification_tpu_torch.resilience import integrity
+
+    rng = np.random.default_rng(11)
+    fps = rng.integers(0, 2**64, size=200_000, dtype=np.uint64)
+    fps[::3] |= np.uint64(1 << 63)
+    keep = rng.random(fps.shape[0]) < 0.6
+    d = devlevel.masked_digest(torch.from_numpy(fps.view(np.int64)).to(card),
+                               torch.from_numpy(keep).to(card))
+    assert devlevel.digest_ints(d) == integrity.digest_fps(fps[keep])
+    pool = np.unique(rng.integers(-(2**62), 2**62, size=300_000))
+    rng.shuffle(pool)
+    old, new = np.sort(pool[:100_000]), np.sort(pool[100_000:150_000])
+    cap = 1 << 18
+    keys = torch.cat([torch.from_numpy(old), torch.full((cap - old.shape[0],), dedup.PAD)])
+    newk = torch.cat([torch.from_numpy(new), torch.full((1000,), dedup.PAD)])
+    rank = dedup.rank_full(keys, newk)[1]
+    for t in (keys, newk, rank):
+        assert t.device.type == "cpu"
+    want = dedup.merge_full(keys, torch.tensor(old.shape[0]), newk, rank, torch.tensor(new.shape[0]))
+    got_rank = dedup.rank_full(keys.to(card), newk.to(card))[1]
+    got = dedup.merge_full(keys.to(card), torch.tensor(old.shape[0], device=card), newk.to(card),
+                           got_rank, torch.tensor(new.shape[0], device=card))
+    assert torch.equal(got_rank.cpu(), rank) and torch.equal(got.cpu(), want)
+
+
+def test_device_level_queues_without_a_sync(card):
+    """A level of Kip320 3r (the frontier at depth 9, one chunk) queued under
+    set_sync_debug_mode("error"), K1 launched inside it."""
+    from kafka_specification_tpu_torch.engine import bfs
+    from kafka_specification_tpu_torch.ops import devlevel
+
+    model = kip320.make_model(Config(3, 2, 2, 2))
+    levels = []
+    check(model, device=card, pipeline="device", max_depth=9, collect_levels=levels)
+    visited = bfs._SortedVisited.fresh(*pipeline.fp_stage(model.spec, torch.cat(levels)), 1 << 16)
+    pipe = pipeline.DevicePipeline(model, "device", True, False, 2, 4096)
+    B, nc, handled = pipe.plan_level(levels[9].shape[0], 32768, 256)
+    widths = pipe.widths(B, np.full(len(model.actions), B * 4.0))
+    LN = devlevel.level_new_bound(nc * sum(widths))
+    visited.reserve(LN + sum(widths))
+    torch.cuda.synchronize()
+    k1 = cuda_fingerprint.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = pipe.queue_level(levels[9], handled, B, nc, widths, LN, visited.keys)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_fingerprint.LAUNCHES == k1 + nc
+    ovf, kind, _, _, on, *_ = pipe.read_level(st)
+    assert not ovf and kind == 0 and on == 28_818

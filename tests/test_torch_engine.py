@@ -119,10 +119,15 @@ def test_max_depth_and_violation_at_init():
 
 
 def test_rejects_unported_backend():
-    """An unknown visited backend and the device-resident pipeline (not
-    ported) raise, naming what there is."""
+    """An unknown visited backend raises, naming what there is; the
+    device-resident pipeline on the device-hash backend runs the per-chunk
+    path, records the JAX package's reason and runs no level on the card."""
+    from kafka_specification_tpu.pipeline_registry import backend_fallback_reason
+
     model = tkip320.make_model(tkr.Config(2, 2, 1, 1))
     with pytest.raises(ValueError, match="one of device, device-hash, host.*'disk'"):
         check(model, device="cpu", visited_backend="disk")
-    with pytest.raises(ValueError, match="not ported.*fused, legacy"):
-        check(model, device="cpu", pipeline="device")
+    r = check(model, device="cpu", pipeline="device", visited_backend="device-hash")
+    assert r.ok and r.total == 277 and r.stats["pipeline"] == "device"
+    assert r.stats["device"] == {
+        "levels": 0, "fallback": backend_fallback_reason("device", "device-hash")}

@@ -32,6 +32,9 @@ def test_import_and_tiny_check_load_no_jax():
         cfg.invariants = ["TypeOk"]
         res = check(build_model("Kip101", cfg), device="cpu")
         assert res.ok and res.total == 341, res
+        res = check(build_model("Kip101", cfg), device="cpu", pipeline="device",
+                    min_bucket=32, chunk_size=256, compact_gate=32)
+        assert res.ok and res.total == 341 and res.stats["device"]["fallback"] is None, res
         from kafka_specification_tpu_torch import cli
         assert cli.main(["check", "configs/IdSequence.cfg", "--device", "cpu", "--json"]) == 0
         # AsyncIsr, the partition product and simulate
@@ -84,12 +87,13 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO / "kafka_specification_tpu_torch")) for f in files}
     assert {"durable_io.py", "native/__init__.py", "resilience/integrity.py",
             "resilience/checkpoints.py", "resilience/heartbeat.py", "models/async_isr.py",
-            "models/product.py", "engine/simulate.py"} <= names
+            "models/product.py", "engine/simulate.py", "analysis/__init__.py",
+            "analysis/interval.py", "analysis/encoding.py", "ops/devlevel.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
         "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
-        "torch_slice_walls.py")]
+        "torch_slice_walls.py", "torch_gate_cost.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)

@@ -122,7 +122,6 @@ def test_pipeline_names(monkeypatch):
     monkeypatch.setenv("KSPEC_PIPELINE", "legacy")
     assert resolve_pipeline() == "legacy"
     monkeypatch.setenv("KSPEC_PIPELINE", "device")
-    with pytest.raises(ValueError, match="not ported"):
-        resolve_pipeline()
+    assert resolve_pipeline() == "device"
     with pytest.raises(ValueError, match="unknown pipeline"):
         resolve_pipeline("nope")
