@@ -100,9 +100,27 @@ print no result:
          when a level is re-dispatched); then one warm Kip320 level (the
          frontier at depth 12) queued under
          torch.cuda.set_sync_debug_mode("error"): no host sync inside it
+  disk-tier  the disk tier (mem_budget), the resource governor and fault
+         injection: Kip320 3r E3 (MaxLeaderEpoch 3, 9,985,570 states,
+         diameter 31) uncut, in RAM on `host`, then on the tier at a 16M
+         budget (runs of 1,048,576 fingerprints) on `fused` and on
+         pipeline="device": equal levels and digest chains, at least 9
+         spills and 1 merge, disk + hot = every state; K1's launches on
+         the tier one a level fewer than in RAM (a spilled frontier is not
+         re-fingerprinted); each run's wall, peak device memory and spill
+         bytes; the trace model on the tier at 64K with a checkpoint,
+         crash@level:4 and resumed: the in-RAM host trace and the JAX
+         package's host pin; Kip320 3r at 1M with a merge every 2 runs,
+         crash@merge:1 and resumed: 737,794 states and the JAX chain; `cli
+         check configs/Kip320.cfg --mem-budget 1M --checkpoint D --fault
+         enospc@spill:3 --json` exit 75 with its record, `cli
+         verify-checkpoint D --json` ok, the same check without the fault
+         exit 0 with 737,794 states, and a --disk-budget of half that run's
+         directory exit 75
 
 Each path run through one check() (main, default, host, first-try-strong,
-async-isr on both backends, both products, each device-pipeline run) then
+async-isr on both backends, both products, each device-pipeline run, the
+three E3 runs of disk-tier) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -126,7 +144,10 @@ Checkpoints and stats files go to build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -171,6 +192,26 @@ THW_DEFAULT_STATE = [
     [[0, -1, -1, []], [1, 1, 1, [1, 2]], [0, 1, 1, [1, 2]]],
     1, 2, [[0, 1, [0, 1, 2]], [1, 1, [1, 2]]], [1, 1, [1, 2]],
 ]
+# the same model, the JAX package's check() with visited_backend="host" on
+# the CPU (its reference for the disk tier's trace): the host set commits a
+# chunk's new states in candidate order, as the hash table does, so the trace
+# is the device-hash pin's
+THW_HOST_ACTIONS = [
+    "<init>", "ControllerElectLeader", "ControllerShrinkIsr", "BecomeLeader",
+    "LeaderWrite", "BecomeFollowerTruncateToHighWatermark", "FollowerReplicate",
+    "LeaderIncHighWatermark", "BecomeFollowerTruncateToHighWatermark",
+]
+THW_HOST_STATE = [
+    [[[0, 1]], [], []],
+    [[1, 1, 0, [0, 2]], [0, -1, -1, []], [0, 1, 0, [0, 2]]],
+    1, 2, [[0, 0, [0, 1, 2]], [1, 0, [0, 2]]], [1, 0, [0, 2]],
+]
+# Kip320 3r E3 (configs/Kip320.cfg with MaxLeaderEpoch 3): RESULTS.md; on
+# the disk tier at a 16M budget, runs of 1,048,576 fingerprints (16 B each)
+E3_CONSTANTS = {"MaxLeaderEpoch": 3}
+E3_TOTAL = 9_985_570
+E3_DIAMETER = 31
+E3_BUDGET = "16M"
 # JAX package, `cli check configs/Kip320FirstTry.cfg --json --cpu`, with
 # seconds, states_per_sec and run_id left out
 FIRST_TRY_VERDICT = {
@@ -689,11 +730,17 @@ def _hold_path_shapes(shapes, total):
     return note
 
 
+def _largest():
+    """The wrappers' largest launches since _reset_counts."""
+    from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset
+
+    return {"fingerprint": cuda_fingerprint.LARGEST, "hash_probe_insert": cuda_hashset.LARGEST}
+
+
 def _timed_check(model, path_kernels, **knobs):
     """check() on the card with the launch counts from 0, then the path's
     kernels held at its largest launch: (result, wall, counts, note)."""
     from kafka_specification_tpu_torch import check
-    from kafka_specification_tpu_torch.ops import cuda_fingerprint, cuda_hashset
 
     _reset_counts()
     t0 = time.perf_counter()
@@ -701,8 +748,49 @@ def _timed_check(model, path_kernels, **knobs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts(path_kernels)
-    shapes = {"fingerprint": cuda_fingerprint.LARGEST, "hash_probe_insert": cuda_hashset.LARGEST}
-    return res, wall, counts, _hold_path_shapes(shapes, res.total)
+    return res, wall, counts, _hold_path_shapes(_largest(), res.total)
+
+
+def _crashed_check(model, fault, path_kernels, **knobs):
+    """check() on the card under the fault plan `fault`, which must stop it
+    with InjectedCrash, the launch counts from 0; then the path's kernels
+    held at its largest launch: (counts, note)."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.resilience.faults import InjectedCrash
+
+    _reset_counts()
+    os.environ["KSPEC_FAULT"] = fault
+    try:
+        check(model, device=DEV, **knobs)
+        raise AssertionError(f"{fault} did not fire")
+    except InjectedCrash:
+        pass
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    counts = _read_counts(path_kernels)
+    return counts, _hold_path_shapes(_largest(), 0)
+
+
+def _cli_check_counted(args, want_rc):
+    """`cli check args` in this process, so that its launches are counted
+    (from 0), then K1 held at its largest launch: (the JSON record, wall,
+    counts, note)."""
+    from kafka_specification_tpu_torch import cli
+
+    _reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["check", *args])
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)  # --fault exports it into the process
+    wall = time.perf_counter() - t0
+    if rc != want_rc:
+        raise AssertionError(f"cli check {args}: exit {rc}, expected {want_rc}")
+    counts = _read_counts(("fingerprint",))
+    rec = json.loads(out.getvalue().splitlines()[-1])
+    return rec, wall, counts, _hold_path_shapes(_largest(), 0)
 
 
 def _kip320(knobs, path_kernels):
@@ -1155,6 +1243,177 @@ def phase_simulate():
                     f"seed 0: exit 0, {line.split(', ', 1)[1]} process {wall2:.1f} s"}
 
 
+def _dir_bytes(path) -> int:
+    from kafka_specification_tpu_torch.resilience.resources import dir_usage_bytes
+
+    return dir_usage_bytes([str(path)])
+
+
+def _e3_run(name, **knobs):
+    """Kip320 3r E3 through check() on the card with `knobs`, one checkpoint
+    after its last level (the whole run's chain).  -> (result, wall, K1
+    launches, held note, peak device bytes, chain, bytes of its spill
+    directory)."""
+    from kafka_specification_tpu_torch import build_model, load_config
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    cfg = load_config("configs/Kip320.cfg")
+    cfg.constants.update(E3_CONSTANTS)
+    ckpt = WORK / f"disk-tier-{name}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    res, wall, counts, held = _timed_check(build_model("Kip320", cfg), ("fingerprint",),
+                                           checkpoint_dir=str(ckpt),
+                                           checkpoint_every=E3_DIAMETER + 1, **knobs)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if (res.ok, res.total, res.diameter) != (True, E3_TOTAL, E3_DIAMETER):
+        raise AssertionError(f"E3 {name}: ok={res.ok} total={res.total} diameter={res.diameter}")
+    chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+    spill = _dir_bytes(ckpt / "spill")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res, wall, counts, held, peak, chain, spill
+
+
+def phase_disk_tier():
+    """The disk tier (mem_budget), the resource governor's exit 75, fault
+    injection and cli verify-checkpoint on the card: (a) Kip320 3r E3 in RAM
+    on `host` and on the tier at 16M (fused, then pipeline="device"); (b) the
+    trace model on the tier, crashed at level 4 and resumed; (c) Kip320 3r at
+    1M, a merge every 2 runs, crashed in its first merge and resumed; (d) the
+    CLI's exit 75 (an injected full disk, then a disk budget), verify-checkpoint,
+    and the resume to exit 0.  Every check() run, crashed or not, and every
+    cli check is counted from 0 and holds K1 at its own largest launch."""
+    from kafka_specification_tpu_torch import build_model, check, load_config
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.models import variants
+    from kafka_specification_tpu_torch.models.kafka_replication import Config
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    parts, counts = [], {}
+    # (a) E3, uncut: in RAM, then on the tier, fused and device
+    ram = _e3_run("ram", visited_backend="host")
+    disk = _e3_run("fused", mem_budget=E3_BUDGET)
+    dev = _e3_run("device", mem_budget=E3_BUDGET, pipeline="device")
+    for name, run in (("fused", disk), ("device", dev)):
+        if run[0].levels != ram[0].levels or not np.array_equal(run[5], ram[5]):
+            raise AssertionError(f"E3 on the tier ({name}): levels or chain differ from the "
+                                 f"in-RAM host run's")
+        sp = run[0].stats["spill"]
+        if sp["disk"] + sp["hot"] != E3_TOTAL or run[0].stats["visited_backend"] != "host":
+            raise AssertionError(f"E3 on the tier ({name}): backend "
+                                 f"{run[0].stats['visited_backend']}, spill stats {sp}")
+    # the per-chunk path spills as soon as the hot set passes the budget; the
+    # device path's once-a-level insert spills between slices of 262,144,
+    # so its runs are larger and fewer
+    sp = disk[0].stats["spill"]
+    if sp["spills"] < 9 or sp["merges"] < 1:
+        raise AssertionError(f"E3 on the tier (fused): {sp['spills']} spills, "
+                             f"{sp['merges']} merges")
+    counts["E3 host in RAM"], counts["E3 tier fused"], counts["E3 tier device"] = (
+        ram[2], disk[2], dev[2])
+    # the tier re-fingerprints no spilled frontier (its segments carry CRCs):
+    # one K1 launch a level fewer than the in-RAM run's frontier checks
+    if ram[2]["fingerprint"] - disk[2]["fingerprint"] != len(ram[0].levels):
+        raise AssertionError(f"K1 launches: in RAM {ram[2]['fingerprint']}, on the tier "
+                             f"{disk[2]['fingerprint']}, expected {len(ram[0].levels)} fewer")
+    if dev[0].stats["device"]["fallback"] is not None or not dev[0].stats["device"]["levels"]:
+        raise AssertionError(f"E3 device on the tier: stats['device'] {dev[0].stats['device']}")
+    for name, run in (("in RAM (host)", ram), ("tier fused", disk), ("tier device", dev)):
+        sp = run[0].stats.get("spill")
+        tier = (f", {sp['spills']} spills, {sp['merges']} merges, disk {sp['disk']} + hot "
+                f"{sp['hot']}, {sp['runs']} runs, spill directory {run[6]} bytes"
+                if sp else "")
+        parts.append(f"E3 {name}: {run[0].total} states, diameter {run[0].diameter}, "
+                     f"{run[1]:.2f} s wall (one checkpoint), {run[0].total / run[1]:.0f} states/s, "
+                     f"peak device memory {run[4]} bytes{tier}; launches {run[2]}; {run[3]}")
+    parts.append("levels and chain equal across the three")
+    # (b) the trace model on the tier, crashed at level 4 and resumed; the
+    # crashed run and the resume each counted from 0 and held at its own
+    # largest launch
+    thw = lambda: variants.make_model(  # noqa: E731
+        "KafkaTruncateToHighWatermark", Config(3, 2, 2, 2), invariants=("StrongIsr",))
+    ref = check(thw(), device=DEV, visited_backend="host")
+    ck = WORK / "disk-tier-trace"
+    shutil.rmtree(ck, ignore_errors=True)
+    tier = dict(mem_budget="64K", checkpoint_dir=str(ck))
+    counts["trace on the tier, crash@level:4"], held_crash = _crashed_check(
+        thw(), "crash@level:4", ("fingerprint",), **tier)
+    res, _, counts["trace on the tier, resumed"], held = _timed_check(thw(), ("fingerprint",),
+                                                                     **tier)
+    v = res.violation
+    if v is None or (v.invariant, v.depth) != ("StrongIsr", 8) or res.levels != THW_LEVELS:
+        raise AssertionError(f"trace model on the tier: {v and (v.invariant, v.depth)}, "
+                             f"{res.levels}")
+    if not v.trace or canon(v.trace) != canon(ref.violation.trace):
+        raise AssertionError("the resumed trace differs from the in-RAM host trace")
+    if [a for a, _ in v.trace] != THW_HOST_ACTIONS or canon(v.state) != THW_HOST_STATE:
+        raise AssertionError(f"the resumed trace differs from the JAX package's host trace: "
+                             f"{[a for a, _ in v.trace]}")
+    parts.append(f"trace model at 64K: crash@level:4 (launches "
+                 f"{counts['trace on the tier, crash@level:4']}; {held_crash}), resumed "
+                 f"(launches {counts['trace on the tier, resumed']}; {held}), StrongIsr at "
+                 f"depth 8 with the in-RAM host trace and the JAX host pin ({len(v.trace)} "
+                 f"steps), {res.stats['spill']['spills']} spills")
+    # (c) Kip320 3r at 1M, a merge every 2 runs: crashed in its first merge
+    kip = lambda: build_model("Kip320", load_config("configs/Kip320.cfg"))  # noqa: E731
+    ck = WORK / "disk-tier-merge"
+    shutil.rmtree(ck, ignore_errors=True)
+    tier = dict(mem_budget="1M", checkpoint_dir=str(ck))
+    os.environ["KSPEC_SPILL_RUNS_PER_MERGE"] = "2"
+    try:
+        counts["Kip320 1M crash@merge:1"], held_crash = _crashed_check(
+            kip(), "crash@merge:1", ("fingerprint",), **tier)
+        res, _, counts["Kip320 1M resumed"], held = _timed_check(kip(), ("fingerprint",), **tier)
+    finally:
+        os.environ.pop("KSPEC_SPILL_RUNS_PER_MERGE", None)
+    chain = verify_file(str(ck / CHECKPOINT_BASENAME))["digest_chain"]
+    if (res.ok, res.total, res.levels) != (True, 737_794, KIP320_LEVELS):
+        raise AssertionError(f"Kip320 at 1M after crash@merge:1: {res.total}, {res.levels}")
+    if not np.array_equal(chain, np.array(KIP320_CHAIN, dtype=np.uint64)):
+        raise AssertionError("Kip320 at 1M after crash@merge:1: the chain differs from the "
+                             "JAX package's")
+    parts.append(f"Kip320 3r at 1M: crash@merge:1 (launches "
+                 f"{counts['Kip320 1M crash@merge:1']}; {held_crash}), resumed (launches "
+                 f"{counts['Kip320 1M resumed']}; {held}) to 737794 states with the JAX chain, "
+                 f"{res.stats['spill']['spills']} spills, {res.stats['spill']['merges']} merges")
+    # (d) the CLI: each check in this process, counted and held as above;
+    # verify-checkpoint (no card) in a subprocess
+    d = WORK / "disk-tier-cli"
+    shutil.rmtree(d, ignore_errors=True)
+    args = ["configs/Kip320.cfg", "--mem-budget", "1M", "--checkpoint", str(d), "--json"]
+    rec, w75, counts["cli enospc@spill:3"], held75 = _cli_check_counted(
+        [*args, "--fault", "enospc@spill:3"], 75)
+    if rec["exit_code"] != 75 or not rec["error"].startswith("RESOURCE_EXHAUSTED[enospc]"):
+        raise AssertionError(f"enospc@spill:3: record {rec}")
+    out, _ = _run_cli("verify-checkpoint", [str(d), "--json"], 0)
+    if json.loads(out)["ok"] is not True:
+        raise AssertionError(f"verify-checkpoint: {out[-500:]}")
+    rec0, w0, counts["cli resumed"], held0 = _cli_check_counted(args, 0)
+    if rec0["distinct_states"] != 737_794 or rec0["exit_code"] != 0:
+        raise AssertionError(f"the resumed cli check: {rec0}")
+    used = _dir_bytes(d)
+    d2 = WORK / "disk-tier-cli-budget"
+    shutil.rmtree(d2, ignore_errors=True)
+    rec2, wb, counts["cli --disk-budget"], heldb = _cli_check_counted(
+        ["configs/Kip320.cfg", "--mem-budget", "1M", "--checkpoint", str(d2), "--disk-budget",
+         str(used // 2), "--json"], 75)
+    if rec2["exit_code"] != 75 or not rec2["error"].startswith("RESOURCE_EXHAUSTED[disk]"):
+        raise AssertionError(f"--disk-budget {used // 2}: record {rec2}")
+    out, _ = _run_cli("verify-checkpoint", [str(d2), "--json"], 0)
+    if json.loads(out)["ok"] is not True:
+        raise AssertionError(f"verify-checkpoint after --disk-budget: {out[-500:]}")
+    parts.append(f"cli: enospc@spill:3 exit 75 ({w75:.1f} s; launches "
+                 f"{counts['cli enospc@spill:3']}; {held75}), verify-checkpoint ok, resumed to "
+                 f"737794 states exit 0 ({w0:.1f} s; launches {counts['cli resumed']}; {held0}; "
+                 f"its directory {used} bytes), --disk-budget {used // 2} exit 75 "
+                 f"({rec2['error']}; {wb:.1f} s; launches {counts['cli --disk-budget']}; "
+                 f"{heldb}), verify-checkpoint ok")
+    for p in (d, d2, WORK / "disk-tier-trace", WORK / "disk-tier-merge"):
+        shutil.rmtree(p, ignore_errors=True)
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1183,6 +1442,7 @@ def main() -> int:
     product = ph.run("product", phase_product)
     ph.run("simulate", phase_simulate)
     device_pipeline = ph.run("device-pipeline", phase_device_pipeline)
+    disk_tier = ph.run("disk-tier", phase_disk_tier)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -1193,7 +1453,8 @@ def main() -> int:
                "async-isr device-hash": async_isr["counts"]["device-hash"],
                "product TINY^3": product["counts"],
                "product violation": product["violation_counts"],
-               **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()}}
+               **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()},
+               **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

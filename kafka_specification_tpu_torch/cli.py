@@ -1,4 +1,5 @@
-"""Command line of the PyTorch port: check or simulate a TLC .cfg.
+"""Command line of the PyTorch port: check or simulate a TLC .cfg, or
+verify a checkpoint directory.
 
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --cpu --json
@@ -7,6 +8,9 @@
     python -m kafka_specification_tpu_torch.cli check configs/AsyncIsr.cfg --cpu
     python -m kafka_specification_tpu_torch.cli simulate configs/Kip320Stretch.cfg \
         --module Kip320 --walks 10 --depth 50 --seed 0
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg \
+        --mem-budget 16M --checkpoint ckpt/ --disk-budget 2G
+    python -m kafka_specification_tpu_torch.cli verify-checkpoint ckpt/ --json
 
 ``check`` takes the options of the JAX package's ``cli check`` that the
 ported engine serves, with the same names and defaults, and prints what it
@@ -15,9 +19,18 @@ violation the invariant and a numbered counterexample trace, or the
 violating state when no trace was kept), or with ``--json`` the
 ``kspec-verdict/1`` record (``verdict.py``).  The module defaults to the
 .cfg file's stem; CHECK_DEADLOCK comes from the .cfg.  The check runs on
-the card unless ``--cpu`` (or ``--device cpu``) is given.  Exit codes: 0
-no violation, 1 a violation, 2 an error, 76 a failed integrity check (the
-level digest chain).
+the card unless ``--cpu`` (or ``--device cpu``) is given.  ``--mem-budget``,
+``--spill-dir`` and ``--store`` turn on the disk tier, ``--disk-budget``
+arms the resource governor, and ``--fault`` sets ``$KSPEC_FAULT``.  Exit
+codes: 0 no violation, 1 a violation, 2 an error, 75 a resource ran out
+(RESOURCE_EXHAUSTED: a final checkpoint was saved, the same command resumes
+once space is freed), 76 a failed integrity check (the level digest chain,
+a spill file's checksum).
+
+``verify-checkpoint DIR`` checks a checkpoint directory offline (every
+generation's checksums and digest chain, and the spill files its disk-tier
+manifests reference): exit 0 iff every checkpoint chain has a resumable
+generation, with the JAX package's report (``--json``) or its text.
 
 ``simulate`` is TLC's ``-simulate`` (``engine/simulate.py``): ``--walks``
 random walks of at most ``--depth`` steps from ``--seed``, the same walks
@@ -30,13 +43,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
 from .engine.bfs import VISITED_BACKENDS
 from .pipeline_registry import PIPELINES
 from .resilience.checkpoints import CheckpointCorrupt
+from .resilience.faults import FaultPlan, InjectedFault
 from .resilience.integrity import EXIT_INTEGRITY, IntegrityError
+from .resilience.resources import EXIT_RESOURCE_EXHAUSTED, ResourceExhausted
 from .utils.cfg import build_model, parse_cfg
 from .verdict import EXIT_ERROR, error_verdict, verdict_exit_code, verdict_from_result
 
@@ -114,6 +130,13 @@ def _check(args) -> int:
     if args.checkpoint_every < 1 or args.checkpoint_keep < 1:
         print("error: --checkpoint-every and --checkpoint-keep must be >= 1", file=sys.stderr)
         return EXIT_ERROR
+    if args.fault:
+        try:
+            FaultPlan(args.fault)  # the grammar, before anything runs
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        os.environ["KSPEC_FAULT"] = args.fault
     built = _build(args)
     if built is None:
         return EXIT_ERROR
@@ -136,6 +159,10 @@ def _check(args) -> int:
             stats_path=args.stats,
             visited_backend=args.visited_backend,
             pipeline=args.pipeline,
+            mem_budget=args.mem_budget,
+            spill_dir=args.spill_dir,
+            store=args.store,
+            disk_budget=args.disk_budget,
             device="cpu" if args.cpu else args.device,
             **kw,
         )
@@ -147,6 +174,23 @@ def _check(args) -> int:
             print(json.dumps(error_verdict(f"INTEGRITY_VIOLATION[{e.site}]: {e.detail}",
                                            exit_code=EXIT_INTEGRITY)))
         return EXIT_INTEGRITY
+    except ResourceExhausted as e:
+        # a governed stop, not a crash: the engine saved what it could and
+        # left every promoted generation verifiable
+        print(f"RESOURCE EXHAUSTED: {e}", file=sys.stderr)
+        if args.json:
+            print(json.dumps(error_verdict(f"RESOURCE_EXHAUSTED[{e.reason}]: {e.detail}",
+                                           exit_code=EXIT_RESOURCE_EXHAUSTED)))
+        if args.checkpoint:
+            print(f"  checkpoint intact at {args.checkpoint} — verify with `... "
+                  f"verify-checkpoint {args.checkpoint}`, free space (or raise "
+                  f"--disk-budget), then re-run the same command to resume", file=sys.stderr)
+        else:
+            print("  no --checkpoint was configured: a re-run starts over (add --checkpoint "
+                  "to make resource exits resumable)", file=sys.stderr)
+        return EXIT_RESOURCE_EXHAUSTED
+    except InjectedFault:
+        raise  # an injected crash is a crash, not an error record
     except (RuntimeError, ValueError, CheckpointCorrupt) as e:
         # no card, an unknown $KSPEC_PIPELINE, no g++ for the host set, a
         # checkpoint of another config or none that verifies: no result
@@ -162,6 +206,39 @@ def _check(args) -> int:
     else:
         _print_result(res, model.meta)
     return verdict_exit_code(rec)
+
+
+def _print_verify_checkpoint(rep: dict) -> None:
+    print(f"Checkpoint directory: {rep['dir']}")
+    if rep.get("error"):
+        print(f"  ERROR: {rep['error']}")
+    if not rep["stores"]:
+        print("  no checkpoint files found")
+    for store in rep["stores"]:
+        print(f"  {store['basename']}: {'OK' if store['ok'] else 'NOT RESUMABLE'}")
+        for g in store["generations"]:
+            bits = [f"gen {g['gen']}", f"depth {g.get('depth')}"]
+            if g.get("digest_chain") and g["digest_chain"] != "absent":
+                bits.append(f"chain {g['digest_chain']}")
+            if "spill" in g:
+                bits.append(f"spill {g['spill']['files_checked']} files "
+                            + ("resolved" if g["spill"]["ok"] else "BROKEN"))
+            status = "ok" if g["ok"] else "FAILED"
+            print(f"    {status:>6}  " + "  ".join(bits))
+            for e in g["errors"]:
+                print(f"            - {e}")
+    print(f"Verdict: {'resumable' if rep['ok'] else 'NOT resumable'}")
+
+
+def _verify_checkpoint(args) -> int:
+    from .resilience.checkpoints import verify_checkpoint_dir
+
+    rep = verify_checkpoint_dir(args.ckpt_dir, spill_dir=args.spill_dir)
+    if args.json:
+        print(json.dumps(rep, default=str))
+    else:
+        _print_verify_checkpoint(rep)
+    return 0 if rep["ok"] else 1
 
 
 def main(argv=None) -> int:
@@ -207,7 +284,49 @@ def main(argv=None) -> int:
         default="device",
         help="fingerprint set: 'device' = sorted pair set in device memory, "
         "'device-hash' = open-addressing hash table in device memory, "
-        "'host' = the native C++ FpSet (spill mode for huge state spaces)",
+        "'host' = the native C++ FpSet in host memory (past host memory: "
+        "--mem-budget, the disk tier)",
+    )
+    pc.add_argument(
+        "--mem-budget",
+        metavar="BYTES",
+        help="host fingerprint-set byte budget before spilling to the "
+        "disk tier (suffixes K/M/G, e.g. 4G).  Setting this activates "
+        "--store=auto's disk tier: sorted bloom-gated runs + spilled "
+        "frontier + on-disk parent log under --spill-dir",
+    )
+    pc.add_argument(
+        "--spill-dir",
+        metavar="DIR",
+        help="directory for the disk tier's runs/frontier/parent log "
+        "(default: <--checkpoint>/spill, else a temp dir)",
+    )
+    pc.add_argument(
+        "--store",
+        choices=["auto", "ram", "disk"],
+        default="auto",
+        help="state-storage tier: 'ram' = in-memory only, 'disk' = tiered "
+        "out-of-core store (implies the host fingerprint backend), 'auto' "
+        "= disk exactly when --mem-budget is set (default)",
+    )
+    pc.add_argument(
+        "--disk-budget",
+        metavar="BYTES",
+        help="byte budget for the spill + checkpoint directories "
+        "(suffixes K/M/G).  Crossing the soft fraction triggers "
+        "reclamation (eager merges, generation pruning); a hard breach "
+        "checkpoints and exits with the typed RESOURCE_EXHAUSTED status "
+        f"(exit code {EXIT_RESOURCE_EXHAUSTED}), resumable after space "
+        "is freed.  KSPEC_DISK_BUDGET is the env twin; KSPEC_RSS_BUDGET / "
+        "KSPEC_LEVEL_DEADLINE arm the RSS and per-level-deadline watchdogs",
+    )
+    pc.add_argument(
+        "--fault",
+        metavar="PLAN",
+        help="deterministic fault injection plan (sets KSPEC_FAULT; e.g. "
+        "'crash@level:7', 'corrupt_ckpt', 'flip@frontier:3', 'enospc@spill:2'; "
+        "the grammar is in resilience/faults.py, and a site this engine does "
+        "not wire is refused)",
     )
     pc.add_argument(
         "--pipeline",
@@ -224,6 +343,20 @@ def main(argv=None) -> int:
         "the plain versions of the kernels)",
     )
     pc.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
+    pvc = sub.add_parser(
+        "verify-checkpoint",
+        help="offline integrity check of a checkpoint directory: per-array "
+        "CRC manifests of every generation, the digest chain, and "
+        "storage-manifest resolvability (disk-tier run files).  Touches no "
+        "card.  Exit 0 iff every checkpoint chain has a resumable generation",
+    )
+    pvc.add_argument("ckpt_dir")
+    pvc.add_argument(
+        "--spill-dir",
+        help="disk-tier directory the storage manifests resolve against "
+        "(default: <ckpt_dir>/spill, the engine's default placement)",
+    )
+    pvc.add_argument("--json", action="store_true", help="machine-readable report")
     ps = sub.add_parser("simulate", help="random-walk checking (TLC -simulate equivalent)")
     ps.add_argument("cfg")
     ps.add_argument("--module", help="TLA+ module (default: cfg file stem)")
@@ -236,6 +369,8 @@ def main(argv=None) -> int:
                     help="torch device (default: the card, 'cuda'; 'cpu' runs the plain kernels)")
     ps.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
     args = p.parse_args(argv)
+    if args.cmd == "verify-checkpoint":
+        return _verify_checkpoint(args)
     return _simulate(args) if args.cmd == "simulate" else _check(args)
 
 

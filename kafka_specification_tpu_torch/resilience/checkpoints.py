@@ -21,9 +21,16 @@ Identity mismatches (a checkpoint of another model, backend or invariant
 set) are not corruption and raise ValueError at once: falling back past a
 deliberate config change would resume the wrong search.
 
+Fault injection (``resilience/faults.py``): ``crash@ckpt:N`` and
+``enospc@ckpt:N`` fire between the tmp write and the promote, and
+``corrupt_ckpt`` corrupts a generation right after its promote.
+``verify_checkpoint_dir`` is the offline verifier behind ``cli
+verify-checkpoint``.
+
 Not ported: the asynchronous writer (``save_async``; the JAX package's
-``--overlap off`` is this serial path), fault-injection hooks, per-shard
-part files and the offline verifier.
+``--overlap off`` is this serial path) and the sharded engine's per-shard
+part files and per-shard spill manifests (the verifier reads single-device
+directories, the only ones the port writes).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Optional
 import numpy as np
 
 from .. import durable_io as _dio
+from .faults import corrupt_file
 
 MANIFEST_KEY = "__manifest__"
 
@@ -89,11 +97,12 @@ def verify_file(path: str) -> dict:
 
 class CheckpointStore:
     def __init__(self, directory: str, basename: str, ident: str, keep: int = 3,
-                 validators: tuple = ()):
+                 validators: tuple = (), fault_plan=None):
         """`validators`: callables ``arrays -> list[str]`` run on each
         generation during load after its checksums pass; a non-empty
         return marks the generation corrupt, and `load()` falls back to an
-        older one as it does for a checksum failure."""
+        older one as it does for a checksum failure.  `fault_plan`: the
+        run's ``FaultPlan`` (its ckpt sites fire in `save`)."""
         if not basename.endswith(".npz"):
             raise ValueError(f"basename must end in .npz, got {basename!r}")
         self.directory = directory
@@ -101,6 +110,7 @@ class CheckpointStore:
         self.ident = ident
         self.keep = max(1, int(keep))
         self.validators = tuple(validators)
+        self.fault_plan = fault_plan
         os.makedirs(directory, exist_ok=True)
         # startup janitor: a save killed mid-write leaves `<name>.tmp.npz`
         # behind, which no generation names
@@ -129,6 +139,12 @@ class CheckpointStore:
         try:
             # uncompressed: live fingerprints are high-entropy
             np.savez(tmp, **{MANIFEST_KEY: json.dumps(build_manifest(arrays))}, **arrays)
+            if self.fault_plan is not None:
+                # torn-write rehearsal points: tmp written, nothing
+                # promoted (crash@ckpt:N and its full-disk twin
+                # enospc@ckpt:N)
+                self.fault_plan.crash("ckpt", depth)
+                self.fault_plan.enospc("ckpt", depth)
             # shift existing generations up, newest first, so each
             # replace's target is the already-vacated slot; generation
             # keep-1 falls off
@@ -145,6 +161,8 @@ class CheckpointStore:
             except OSError:
                 pass
             raise
+        if self.fault_plan is not None and self.fault_plan.should_corrupt(depth):
+            corrupt_file(path)
         return path
 
     def prune(self, keep_gens: int = 1) -> list:
@@ -210,3 +228,113 @@ class CheckpointStore:
                 )
             return main, g
         raise CheckpointCorrupt("no checkpoint generation verified:\n  " + "\n  ".join(errors))
+
+
+# --- offline verification (`cli verify-checkpoint`) -----------------------
+
+_CKPT_RE = re.compile(r"^(?P<stem>.+?)(?:\.(?P<gen>\d+))?\.npz$")
+
+
+def _scan_checkpoint_files(directory: str) -> dict:
+    """-> {stem: {gen: path}}: the checkpoint chains in `directory`."""
+    stores: dict = {}
+    for name in sorted(os.listdir(directory)):
+        path = os.path.join(directory, name)
+        if not os.path.isfile(path) or ".tmp.npz" in name:
+            continue
+        m = _CKPT_RE.match(name)
+        if m is not None:
+            stores.setdefault(m.group("stem"), {})[int(m.group("gen") or 0)] = path
+    return stores
+
+
+def _resolve_spill(arrays: dict, spill_dir: str) -> dict:
+    """Resolve a checkpoint's recorded storage manifest against the disk:
+    every referenced run file / frontier segment must exist with the size
+    its manifest entry implies — the checkpoint only *references* the
+    disk tier, so a resumable generation is one whose references all
+    still land."""
+    from ..storage.runs import _HEADER as _RUN_HEADER
+
+    problems = []
+    checked = 0
+    man = json.loads(str(arrays["spill_manifest"]))
+    for meta in (man.get("fpset") or {}).get("runs", ()):
+        checked += 1
+        p = os.path.join(spill_dir, "fps", meta["name"])
+        if not os.path.isfile(p):
+            problems.append(f"missing run file {p}")
+            continue
+        want = _RUN_HEADER + 8 * int(meta["count"])
+        size = os.path.getsize(p)
+        if size != want:
+            problems.append(f"{p}: size {size} != expected {want}")
+    for seg in (man.get("frontier") or {}).get("segments", ()):
+        checked += 1
+        p = os.path.join(spill_dir, "frontier", seg["name"])
+        if not os.path.isfile(p):
+            problems.append(f"missing frontier segment {p}")
+    return {"ok": not problems, "files_checked": checked, "problems": problems}
+
+
+def verify_checkpoint_dir(directory: str, spill_dir=None) -> dict:
+    """Offline integrity report for a checkpoint directory, the front end
+    of `cli verify-checkpoint`; it touches no card, so it runs on a box
+    whose accelerator is unusable.  The report is the JAX package's, key
+    for key, for a single-device directory (a sharded engine's part files
+    are not read: the port writes none, and its report lists no parts).
+
+    Checks, per checkpoint chain found in `directory`:
+
+    - per-array CRC32 manifests of every generation (the same
+      `verify_file` the resume path trusts, without resuming anything);
+    - the level digest chain, where the generation carries one;
+    - storage-manifest resolvability: a recorded `spill_manifest`'s run
+      files / frontier segments must exist on disk at their manifest
+      sizes (default spill dir: `<directory>/spill`, the engines'
+      default placement; `--spill-dir` overrides).
+
+    -> {"ok": bool, "dir": ..., "stores": [...]}: ok iff at least one
+    chain exists and every chain has a fully-resumable generation.
+    """
+    from .integrity import checkpoint_chain_errors
+
+    directory = os.path.normpath(directory)
+    spill_dir = spill_dir or os.path.join(directory, "spill")
+    report: dict = {"dir": directory, "stores": [], "ok": False}
+    if not os.path.isdir(directory):
+        report["error"] = "not a directory"
+        return report
+    for stem, mains in sorted(_scan_checkpoint_files(directory).items()):
+        store_rep = {"basename": f"{stem}.npz", "generations": [], "ok": False}
+        for gen in sorted(mains):
+            path = mains[gen]
+            gen_rep: dict = {"gen": gen, "path": path, "ok": False, "errors": []}
+            store_rep["generations"].append(gen_rep)
+            try:
+                arrays = verify_file(path)
+            except CheckpointCorrupt as e:
+                gen_rep["errors"].append(str(e))
+                continue
+            depth = int(arrays["depth"]) if "depth" in arrays else None
+            gen_rep["depth"] = depth
+            if "ident" in arrays:
+                gen_rep["ident"] = str(arrays["ident"])
+            # the level digest chain, the layer ABOVE the per-array CRCs: a
+            # generation corrupted before its write has consistent checksums
+            # over corrupt data, and only the chain flags it
+            if "digest_chain" in arrays:
+                chain_errs = checkpoint_chain_errors(arrays)
+                gen_rep["digest_chain"] = "ok" if not chain_errs else "FAILED"
+                gen_rep["errors"].extend(chain_errs)
+            else:
+                gen_rep["digest_chain"] = "absent"
+            gen_rep["parts"] = {}
+            if "spill_manifest" in arrays:
+                gen_rep["spill"] = _resolve_spill(arrays, spill_dir)
+                gen_rep["errors"].extend(gen_rep["spill"]["problems"])
+            gen_rep["ok"] = not gen_rep["errors"]
+        store_rep["ok"] = any(g["ok"] for g in store_rep["generations"])
+        report["stores"].append(store_rep)
+    report["ok"] = bool(report["stores"]) and all(s["ok"] for s in report["stores"])
+    return report

@@ -20,6 +20,10 @@ accept each other's checkpoints:
 - :func:`checkpoint_chain_errors` is the checkpoint validator: chain
   linkage, per-level counts against ``levels``, and the cumulative digest
   of the stored visited set.
+- :func:`spill_run_errors` CRC-verifies the spill runs a disk-tier
+  checkpoint references, :func:`readback_chain` re-reads a freshly
+  promoted checkpoint's chain (what catches ``flip@ckpt``), and
+  :func:`flip_bit` is the injected bit flip of the ``flip@`` faults.
 - :class:`IntegrityError` is the typed terminal (``cli check`` exit 76).
 
 ``KSPEC_INTEGRITY=0`` turns the chain off.  Sampled shadow re-execution
@@ -46,7 +50,7 @@ class IntegrityError(RuntimeError):
     (not its progress) can no longer be trusted."""
 
     def __init__(self, site: str, detail: str = "", depth=None):
-        self.site = site  # frontier | fpset | ckpt | chain
+        self.site = site  # frontier | fpset | ckpt | chain | storage
         self.detail = detail
         self.depth = depth
         super().__init__(
@@ -336,7 +340,11 @@ def chain_array_errors(arr, levels=None) -> list:
 
 def visited_fps(arrays: dict):
     """The full visited-set uint64 multiset stored in a single-device
-    checkpoint, or None when the generation carries none."""
+    checkpoint, or None when the generation carries none (a disk-tier
+    generation's hot dump is a budget-bounded subset: its runs carry
+    their own CRCs)."""
+    if "spill_manifest" in arrays:
+        return None
     if "host_fps" in arrays:
         return np.asarray(arrays["host_fps"], _U64)
     if "hash_hi" in arrays:
@@ -382,3 +390,47 @@ def checkpoint_chain_errors(arrays: dict) -> list:
                 f"xor={wx:#x}) — CRC-consistent content corruption"
             )
     return errors
+
+
+def spill_run_errors(directory: str, metas) -> list:
+    """CRC-verify every spill run a checkpoint generation REFERENCES: the
+    disk tier's load validator (a generation whose referenced run rotted
+    on disk falls back to an older one).  -> error strings."""
+    from ..storage.runs import RunCorrupt, SortedRun
+
+    errs = []
+    for meta in metas:
+        try:
+            SortedRun(directory, meta, verify=True)
+        except RunCorrupt as e:
+            errs.append(f"referenced spill run corrupt: {e}")
+    return errs
+
+
+def readback_chain(path: str, depth=None) -> None:
+    """Cheap post-save verification of a freshly promoted checkpoint's
+    chain members only (digest_chain / levels / total — the big arrays
+    were self-checked BEFORE the write).  A CRC-consistent corruption
+    inside the writer (flip@ckpt rehearses it: the manifest checksums
+    corrupt content faithfully) is caught here, typed, before the run
+    goes on trusting a poisoned newest generation."""
+    with np.load(path, allow_pickle=False) as z:
+        small = {k: z[k] for k in ("digest_chain", "levels", "total", "depth") if k in z.files}
+    errs = checkpoint_chain_errors(small)
+    if errs:
+        raise IntegrityError(
+            "ckpt",
+            f"post-save chain read-back of {path} failed: " + "; ".join(errs),
+            depth=depth,
+        )
+
+
+def flip_bit(arr: np.ndarray) -> None:
+    """In-place single-bit corruption of a (writable) numpy buffer — the
+    injected bit flip of the flip@ faults.  Flips one bit in the middle
+    byte so interval gates and shape checks still pass (the corruption
+    must be detectable only by content checks)."""
+    if arr.size == 0:
+        return
+    flat = arr.reshape(-1).view(np.uint8)
+    flat[flat.shape[0] // 2] ^= 0x10

@@ -14,8 +14,8 @@ scripting against it can switch packages without changing its parser:
 Exit codes:
   0   exhaustive pass, no violation
   1   invariant violated (the verdict is the product, not an error)
-  75  RESOURCE_EXHAUSTED: the run ran out of a budget (the JAX package's
-      resource governor; the port has none yet, so it never gives it)
+  75  RESOURCE_EXHAUSTED: the run ran out of disk, memory or time
+      (``resilience/resources.py``); its checkpoint resumes
   2   error (bad config, unknown module, engine failure)
   76  INTEGRITY_VIOLATION: the level digest chain caught corrupt state
       (``resilience/integrity.py``)

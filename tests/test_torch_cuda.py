@@ -276,6 +276,42 @@ def test_checkpoint_round_trip_on_card(card, backend, tmp_path):
             assert cuda_hashset.LAUNCHES > k2
 
 
+@pytest.mark.parametrize("pipeline", ["fused", "device"])
+def test_disk_tier_on_card_equals_cpu(card, pipeline, monkeypatch, tmp_path):
+    """The disk tier with the frontier on the card: Kip320 3r L2 R1 E1
+    (6,787 states, 3 lanes: hashed fingerprints) through forced spills and
+    merges, cut at depth 9 with a checkpoint and resumed on the card; the
+    levels, the spill counts, the spill files byte for byte and the chain
+    equal a CPU run's, and K1 ran on the card."""
+    import os
+
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    monkeypatch.setenv("KSPEC_SPILL_SEG_ROWS", "97")
+    monkeypatch.setenv("KSPEC_SPILL_RUNS_PER_MERGE", "2")
+    model = lambda: kip320.make_model(Config(3, 2, 1, 1))  # noqa: E731
+    kw = dict(mem_budget="8K", pipeline=pipeline, min_bucket=32, chunk_size=256, compact_gate=32)
+    runs = {}
+    for dev in (card, "cpu"):
+        d = tmp_path / str(dev)
+        k1 = cuda_fingerprint.LAUNCHES
+        check(model(), device=dev, checkpoint_dir=str(d), max_depth=9, **kw)
+        res = check(model(), device=dev, checkpoint_dir=str(d), **kw)
+        if dev == card:
+            assert cuda_fingerprint.LAUNCHES > k1
+        files = {}
+        for root, _dirs, names in os.walk(d / "spill"):
+            for name in names:
+                files[os.path.relpath(os.path.join(root, name), d)] = open(
+                    os.path.join(root, name), "rb").read()
+        runs[str(dev)] = (res, files, verify_file(str(d / CHECKPOINT_BASENAME))["digest_chain"])
+    (r_card, f_card, c_card), (r_cpu, f_cpu, c_cpu) = runs[str(card)], runs["cpu"]
+    assert r_card.ok and r_card.total == 6787 and r_card.levels == r_cpu.levels
+    assert r_card.stats["spill"] == r_cpu.stats["spill"] and r_card.stats["spill"]["merges"] > 0
+    assert f_card == f_cpu and np.array_equal(c_card, c_cpu)
+
+
 def test_fp_stage_launches_k1_never_plain(card, monkeypatch):
     spec = kip320.make_model(Config(3, 2, 2, 2)).spec
     rows = torch.from_numpy(

@@ -22,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "kafka_specification_tpu")
 def test_import_and_tiny_check_load_no_jax():
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys
         import kafka_specification_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
@@ -49,11 +49,23 @@ def test_import_and_tiny_check_load_no_jax():
             assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
                              "--visited-backend", "host", "--checkpoint", tmp + "/ck",
                              "--stats", tmp + "/stats.jsonl"]) == 0
+            # the disk tier, the governor's exit 75, the offline verifier
+            assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
+                             "--mem-budget", "64", "--checkpoint", tmp + "/disk",
+                             "--fault", "enospc@spill:1"]) == 75
+            os.environ.pop("KSPEC_FAULT")  # --fault exported it, as JAX's CLI does
+            assert cli.main(["verify-checkpoint", tmp + "/disk", "--json"]) == 0
+            assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
+                             "--mem-budget", "64", "--checkpoint", tmp + "/disk"]) == 0
         for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
                      "utils.pretty", "models.id_sequence", "models.finite_replicated_log",
                      "durable_io", "native", "resilience.integrity",
                      "resilience.checkpoints", "resilience.heartbeat",
-                     "models.async_isr", "models.product", "engine.simulate"):
+                     "models.async_isr", "models.product", "engine.simulate",
+                     "storage", "storage.atomic", "storage.bloom", "storage.runs",
+                     "storage.frontier", "storage.parent_log", "storage.tiered",
+                     "storage.store", "resilience.faults",
+                     "resilience.resources"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -88,7 +100,11 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert {"durable_io.py", "native/__init__.py", "resilience/integrity.py",
             "resilience/checkpoints.py", "resilience/heartbeat.py", "models/async_isr.py",
             "models/product.py", "engine/simulate.py", "analysis/__init__.py",
-            "analysis/interval.py", "analysis/encoding.py", "ops/devlevel.py"} <= names
+            "analysis/interval.py", "analysis/encoding.py", "ops/devlevel.py",
+            "storage/__init__.py", "storage/atomic.py", "storage/bloom.py", "storage/runs.py",
+            "storage/frontier.py", "storage/parent_log.py", "storage/tiered.py",
+            "storage/store.py",
+            "resilience/faults.py", "resilience/resources.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
