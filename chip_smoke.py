@@ -117,10 +117,27 @@ print no result:
          verify-checkpoint D --json` ok, the same check without the fault
          exit 0 with 737,794 states, and a --disk-budget of half that run's
          directory exit 75
+  obs    the run context (obs/): `cli check configs/Kip320.cfg --run-dir D
+         --stats D/stats.jsonl --json` in this process: the record's run_id
+         is the manifest's and every stats line's, the stats lines'
+         clock-free fields equal the JAX package's CPU run (pinned below),
+         one level B/E pair a level, kspec_states_distinct 737794 in
+         metrics.prom; `cli report D` and `--json`: complete; the same
+         check under `--profile P`: as many device events of K1's
+         fingerprint_kernel in the Chrome trace as the wrapper counted;
+         `--visited-backend device-hash --run-dir`: 737,794 states, K2
+         launched, the gauges present; crash@level:4 with a checkpoint into
+         a run directory (manifest at running, the report's stall verdict
+         past the timeout), then resumed into it (the run id kept, lineage
+         open/reopen/finish, 737,794 states); E3 in RAM on `host` under a
+         run context (its timed metrics snapshots); Kip320 3r check() with
+         without run=, and with only a stats file, in turns (P S C C S P,
+         10 runs a side), the walls' medians and quartiles beside the
+         card's name and power limit
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
-three E3 runs of disk-tier) then
+three E3 runs of disk-tier, each check of obs) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -139,7 +156,8 @@ runs, each counted from 0 just before that path and read just after.
 Then three lines: the kernels as JSON, the card's name and power limit as
 nvidia-smi gives them, and the device as JSON.  Exits 1 with no result
 when CUDA is not available or the port's package is not beside it.
-Checkpoints and stats files go to build/chip_smoke/ in the checkout.
+Checkpoints, stats files and the run directories of every `cli check`
+(KSPEC_RUNS_ROOT, unless set) go to build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
@@ -250,6 +268,63 @@ KIP320_MAX_STATES_STATS = [
      [1773, 4314, 5352, 3972, 7536, 10884, 5592, 23196, 10026]),
     (11, 28818, 103389, 40629, 62760, 109030,
      [2076, 5391, 6225, 6426, 10464, 12867, 10476, 33408, 16056]),
+]
+# JAX package, check() of configs/Kip320.cfg on the CPU with stats_path:
+# per stats line (depth, frontier, enabled_candidates, new, duplicates,
+# total, action_enablement in the order of KIP320_ACTIONS)
+KIP320_STATS = [
+    (1, 1, 6, 6, 0, 7,
+     [3, 3, 0, 0, 0, 0, 0, 0, 0]),
+    (2, 6, 30, 30, 0, 37,
+     [12, 15, 3, 0, 0, 0, 0, 0, 0]),
+    (3, 30, 153, 138, 15, 175,
+     [42, 63, 33, 0, 6, 3, 0, 6, 0]),
+    (4, 138, 573, 366, 207, 541,
+     [72, 117, 204, 0, 42, 48, 0, 90, 0]),
+    (5, 366, 2100, 1170, 930, 1711,
+     [222, 387, 294, 18, 156, 369, 0, 648, 6]),
+    (6, 1170, 5889, 2715, 3174, 4426,
+     [429, 786, 924, 144, 432, 1251, 33, 1800, 90]),
+    (7, 2715, 13164, 5673, 7491, 10099,
+     [729, 1401, 1701, 414, 1068, 2967, 198, 4014, 672]),
+    (8, 5673, 26193, 10836, 15357, 20935,
+     [1101, 2259, 2781, 984, 2400, 5529, 837, 8142, 2160]),
+    (9, 10836, 46182, 18648, 27534, 39583,
+     [1476, 3294, 4065, 2064, 4590, 8328, 2433, 14562, 5370]),
+    (10, 18648, 72645, 28818, 43827, 68401,
+     [1773, 4314, 5352, 3972, 7536, 10884, 5592, 23196, 10026]),
+    (11, 28818, 103389, 40629, 62760, 109030,
+     [2076, 5391, 6225, 6426, 10464, 12867, 10476, 33408, 16056]),
+    (12, 40629, 135726, 53691, 82035, 162721,
+     [2526, 6633, 7008, 9600, 12798, 14049, 16380, 43440, 23292]),
+    (13, 53691, 166455, 66432, 100023, 229153,
+     [3000, 7749, 8022, 13128, 14760, 14565, 22089, 52464, 30678]),
+    (14, 66432, 192123, 77400, 114723, 306553,
+     [3429, 8508, 8712, 17598, 16278, 13989, 26721, 60516, 36372]),
+    (15, 77400, 209256, 84072, 125184, 390625,
+     [3396, 8163, 9531, 21624, 18096, 12633, 29319, 67248, 39246]),
+    (16, 84072, 214368, 85404, 128964, 476029,
+     [3099, 7131, 8880, 23976, 20088, 10299, 30171, 71832, 38892]),
+    (17, 85404, 205221, 78909, 126312, 554938,
+     [2088, 4983, 8007, 25764, 21156, 7806, 28953, 71442, 35022]),
+    (18, 78909, 179136, 66447, 112689, 621385,
+     [1266, 2988, 5376, 25428, 19878, 5409, 25521, 64824, 28446]),
+    (19, 66447, 141561, 49422, 92139, 670807,
+     [576, 1338, 3294, 22824, 16008, 2787, 20346, 52764, 21624]),
+    (20, 49422, 99258, 32916, 66342, 703723,
+     [228, 480, 1524, 18282, 10656, 1008, 15354, 37290, 14436]),
+    (21, 32916, 61227, 19542, 41685, 723265,
+     [48, 126, 618, 13056, 6360, 162, 9363, 22956, 8538]),
+    (22, 19542, 33444, 9939, 23505, 733204,
+     [6, 18, 156, 9240, 3036, 12, 5190, 12174, 3612]),
+    (23, 9939, 14940, 3660, 11280, 736864,
+     [0, 0, 18, 5406, 954, 0, 2286, 4938, 1338]),
+    (24, 3660, 5118, 834, 4284, 737698,
+     [0, 0, 0, 2598, 276, 0, 678, 1332, 234]),
+    (25, 834, 924, 96, 828, 737794,
+     [0, 0, 0, 558, 12, 0, 132, 210, 12]),
+    (26, 96, 72, 0, 72, 737794,
+     [0, 0, 0, 48, 0, 0, 18, 6, 0]),
 ]
 STATS_FIELDS = ("depth", "frontier", "enabled_candidates", "new", "duplicates", "total")
 # JAX package, check() of configs/Kip320.cfg with checkpoint_dir on the CPU:
@@ -771,10 +846,10 @@ def _crashed_check(model, fault, path_kernels, **knobs):
     return counts, _hold_path_shapes(_largest(), 0)
 
 
-def _cli_check_counted(args, want_rc):
+def _cli_check_counted(args, want_rc, path_kernels=("fingerprint",)):
     """`cli check args` in this process, so that its launches are counted
-    (from 0), then K1 held at its largest launch: (the JSON record, wall,
-    counts, note)."""
+    (from 0), then the path's kernels held at their largest launch: (the
+    JSON record, wall, counts, note)."""
     from kafka_specification_tpu_torch import cli
 
     _reset_counts()
@@ -788,9 +863,9 @@ def _cli_check_counted(args, want_rc):
     wall = time.perf_counter() - t0
     if rc != want_rc:
         raise AssertionError(f"cli check {args}: exit {rc}, expected {want_rc}")
-    counts = _read_counts(("fingerprint",))
+    counts = _read_counts(path_kernels)
     rec = json.loads(out.getvalue().splitlines()[-1])
-    return rec, wall, counts, _hold_path_shapes(_largest(), 0)
+    return rec, wall, counts, _hold_path_shapes(_largest(), rec["distinct_states"] or 0)
 
 
 def _kip320(knobs, path_kernels):
@@ -921,6 +996,13 @@ def phase_first_try_strong():
 def stats_fields(rec):
     """The fields of a per-level stats record that do not depend on timing."""
     return {k: rec[k] for k in ("kind", *STATS_FIELDS, "action_enablement")}
+
+
+def kip320_stats():
+    """KIP320_STATS as the records' deterministic fields."""
+    return [{"kind": "level", **dict(zip(STATS_FIELDS, row[:6])),
+             "action_enablement": dict(zip(KIP320_ACTIONS, row[6]))}
+            for row in KIP320_STATS]
 
 
 def max_states_stats():
@@ -1414,6 +1496,201 @@ def phase_disk_tier():
     return {"line": "; ".join(parts), "counts": counts}
 
 
+def _jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh.read().splitlines()]
+
+
+def _quartiles(xs):
+    q = np.percentile(np.asarray(xs), [25, 50, 75])
+    return f"median {q[1]:.4f} s (quartiles {q[0]:.4f}-{q[2]:.4f})"
+
+
+def _obs_report(d):
+    """`cli report D` and `cli report D --json` in this process: (text,
+    record)."""
+    from kafka_specification_tpu_torch import cli
+
+    outs = []
+    for extra in ([], ["--json"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["report", str(d), *extra])
+        if rc != 0:
+            raise AssertionError(f"cli report {d} {extra}: exit {rc}")
+        outs.append(buf.getvalue())
+    return outs[0], json.loads(outs[1])
+
+
+def phase_obs():
+    """The run context on the card (obs/): (a) Kip320 3r through `cli check
+    --run-dir D --stats D/stats.jsonl --json`, counted: the record's run_id
+    is the manifest's and every stats line's, the stats lines' clock-free
+    fields equal the JAX package's CPU run (pinned), one level B/E pair a
+    level, kspec_states_distinct 737794 in metrics.prom; (b) `cli report D`
+    and `--json`: complete; (c) the same run under `--profile P`: the
+    Chrome trace holds exactly as many device events of K1's CUDA function
+    as the wrapper counted; (d) `--visited-backend device-hash` under a run
+    directory: K2 counted and held, the gauges present; (e) crash@level:4
+    with a checkpoint into a run directory, the report's stall verdict,
+    then the same command without the fault resumed into the same
+    directory (the run id kept, the lineage open/reopen/finish); (f) E3 in
+    RAM on `host` under a run context, so that the 5 s metrics snapshots
+    fire; (g) Kip320 3r check() with and without run=, and with only a
+    stats file, in turns."""
+    from kafka_specification_tpu_torch import build_model, check, cli, load_config
+    from kafka_specification_tpu_torch.obs import RunContext, metrics, tracer
+    from kafka_specification_tpu_torch.obs.report import render_report, report_data
+    from kafka_specification_tpu_torch.resilience.faults import InjectedCrash
+    from kafka_specification_tpu_torch.utils.timing import card_line
+
+    base = WORK / "obs"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    parts, counts = [], {}
+    # (a) the run directory of a cli check
+    d = base / "a"
+    rec, wall, counts["cli --run-dir"], held = _cli_check_counted(
+        ["configs/Kip320.cfg", "--run-dir", str(d), "--stats", str(d / "stats.jsonl"),
+         "--json"], 0)
+    rid = rec["run_id"]
+    with open(d / "manifest.json") as fh:
+        man = json.load(fh)
+    lines = _jsonl(d / "stats.jsonl")
+    if rec["distinct_states"] != 737_794 or man["run_id"] != rid or man["status"] != "complete":
+        raise AssertionError(f"cli --run-dir: record {rec}, manifest {man['run_id']} "
+                             f"{man['status']}")
+    if any(line.get("run_id") != rid for line in lines):
+        raise AssertionError("a stats line lacks the record's run_id")
+    if [stats_fields(line) for line in lines] != kip320_stats():
+        raise AssertionError("the stats lines differ from the JAX package's")
+    levels = [(r["depth"], r["ph"]) for r in _jsonl(d / "spans.jsonl")
+              if r["kind"] == "span" and r["span"] == "level"]
+    if sorted(levels) != sorted((depth, ph) for depth in range(1, 27) for ph in "BE"):
+        raise AssertionError(f"level spans: {levels}")
+    prom = (d / "metrics.prom").read_text()
+    if f'kspec_states_distinct{{run_id="{rid}"}} 737794' not in prom.splitlines():
+        raise AssertionError("metrics.prom lacks kspec_states_distinct 737794")
+    files = sorted(os.listdir(d))
+    parts.append(f"(a) Kip320 3r cli --run-dir: run {rid}, {wall:.2f} s, files {files}, "
+                 f"{len(lines)} stats lines = the JAX pin, 26 level B/E pairs; launches "
+                 f"{counts['cli --run-dir']}; {held}")
+    # (b) cli report
+    text, data = _obs_report(d)
+    if (data["verdict"]["status"] != "complete" or f"Run {rid}  [COMPLETE]" not in text
+            or "Per-level throughput (26 levels recorded):" not in text):
+        raise AssertionError(f"cli report: {text[:300]}")
+    parts.append(f"(b) cli report: complete, {len(text.splitlines())} lines; --json verdict "
+                 f"{data['verdict']['status']}")
+    # (c) the profiler sees K1
+    prof = base / "prof"
+    rec_c, wall_c, counts["cli --profile"], held_c = _cli_check_counted(
+        ["configs/Kip320.cfg", "--run-dir", str(base / "c"), "--profile", str(prof), "--json"],
+        0)
+    trace = prof / f"{rec_c['run_id']}.pt.trace.json"
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "fingerprint_kernel" in e.get("name", "")]
+    if len(k1_events) != counts["cli --profile"]["fingerprint"]:
+        raise AssertionError(f"the profile holds {len(k1_events)} events of fingerprint_kernel, "
+                             f"the wrapper counted {counts['cli --profile']['fingerprint']} "
+                             f"({len(kernels)} kernel events in all)")
+    k1_us = sum(e.get("dur", 0) for e in k1_events)
+    parts.append(f"(c) --profile: {trace.stat().st_size} bytes of trace, {len(kernels)} kernel "
+                 f"events, {len(k1_events)} of fingerprint_kernel = its counted launches "
+                 f"({k1_us:.1f} us in all); {wall_c:.2f} s under the profiler; {held_c}")
+    shutil.rmtree(prof, ignore_errors=True)
+    # (d) device-hash under a run directory
+    dd = base / "d"
+    rec_d, wall_d, counts["cli device-hash --run-dir"], held_d = _cli_check_counted(
+        ["configs/Kip320.cfg", "--visited-backend", "device-hash", "--run-dir", str(dd),
+         "--json"], 0, ("fingerprint", "hash_probe_insert"))
+    prom_d = (dd / "metrics.prom").read_text()
+    want = ("kspec_states_distinct", "kspec_successor_launches_level",
+            "kspec_integrity_checks_total", "kspec_levels_total", "kspec_duplicate_ratio")
+    missing = [g for g in want if f"\n{g}{{" not in "\n" + prom_d]
+    if rec_d["distinct_states"] != 737_794 or missing:
+        raise AssertionError(f"device-hash run dir: {rec_d['distinct_states']} states, "
+                             f"missing {missing}")
+    parts.append(f"(d) device-hash --run-dir: 737794 states, {wall_d:.2f} s, gauges {want} "
+                 f"present; launches {counts['cli device-hash --run-dir']}; {held_d}")
+    # (e) a crash, the stall verdict, and the resume into the same directory
+    de, ck = base / "e", base / "e-ck"
+    args = ["configs/Kip320.cfg", "--checkpoint", str(ck), "--run-dir", str(de), "--json"]
+    _reset_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["check", *args, "--fault", "crash@level:4"])
+        raise AssertionError("crash@level:4 did not fire")
+    except InjectedCrash:
+        pass
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    counts["cli crash@level:4"] = _read_counts(("fingerprint",))
+    held_e = _hold_path_shapes(_largest(), 0)
+    with open(de / "manifest.json") as fh:
+        crashed = json.load(fh)
+    later = time.time() + 10_000
+    stall = report_data(str(de), now=later)["verdict"]["status"]
+    live = report_data(str(de))["verdict"]["status"]
+    text_e = render_report(str(de), now=later)
+    if (crashed["status"] != "running" or stall != "stalled" or live != "live"
+            or "Stall verdict: stalled" not in text_e):
+        raise AssertionError(f"crashed run: manifest {crashed['status']}, verdicts {stall} "
+                             f"(later) / {live} (now)")
+    # the crash skipped the observer's teardown, as the JAX engine's does
+    tracer.set_tracer(None)
+    metrics.set_registry(None)
+    rec_e, wall_e, counts["cli resumed into the run dir"], held_r = _cli_check_counted(args, 0)
+    with open(de / "manifest.json") as fh:
+        resumed = json.load(fh)
+    lineage = [e["event"] for e in resumed["lineage"]]
+    if (not crashed["run_id"] or {rec_e["run_id"], resumed["run_id"]} != {crashed["run_id"]}
+            or lineage != ["open", "reopen", "finish"] or rec_e["distinct_states"] != 737_794):
+        raise AssertionError(f"resume: run ids {crashed['run_id']} / {rec_e['run_id']}, "
+                             f"lineage {lineage}, {rec_e['distinct_states']} states")
+    parts.append(f"(e) crash@level:4 (launches {counts['cli crash@level:4']}; {held_e}): "
+                 f"manifest running, report {live} now, {stall} past the stall timeout; "
+                 f"resumed into the same run {rec_e['run_id']} ({wall_e:.2f} s, lineage "
+                 f"{lineage}, 737794 states; launches "
+                 f"{counts['cli resumed into the run dir']}; {held_r})")
+    # (f) E3 in RAM on host under a run context: the timed snapshots fire
+    cfg = load_config("configs/Kip320.cfg")
+    cfg.constants.update(E3_CONSTANTS)
+    run = RunContext(str(base / "f"))
+    res, wall_f, counts["E3 host run="], held_f = _timed_check(
+        build_model("Kip320", cfg), ("fingerprint",), visited_backend="host", run=run)
+    snaps = len(_jsonl(run.metrics_jsonl))
+    if res.total != E3_TOTAL or snaps < 2:
+        raise AssertionError(f"E3 under a run context: {res.total} states, {snaps} snapshots")
+    parts.append(f"(f) E3 host run=: {res.total} states, {wall_f:.2f} s, metrics.jsonl "
+                 f"{snaps} lines; launches {counts['E3 host run=']}; {held_f}")
+    # (g) the run context's cost, in turns: without (P), with (C), and with
+    # only a stats file (S: the stats collection a run context turns on,
+    # without the run directory)
+    model = build_model("Kip320", load_config("configs/Kip320.cfg"))
+    walls = {"P": [], "S": [], "C": []}
+    (base / "g").mkdir()
+    for i in range(5):
+        for side in "PSCCSP":
+            tag = base / "g" / f"{i}{side}{len(walls[side])}"
+            kw = ({"run": RunContext(str(tag))} if side == "C"
+                  else {"stats_path": str(tag) + ".jsonl"} if side == "S" else {})
+            t0 = time.perf_counter()
+            r = check(model, device=DEV, **kw)
+            torch.cuda.synchronize()
+            walls[side].append(time.perf_counter() - t0)
+            if r.total != 737_794:
+                raise AssertionError(f"run-context cost run: {r.total} states")
+    parts.append(f"(g) Kip320 3r check(), P S C C S P x5 on {card_line()}: without run= "
+                 f"{_quartiles(walls['P'])}, stats_path only {_quartiles(walls['S'])}, with "
+                 f"run= {_quartiles(walls['C'])}; walls "
+                 + " ".join(f"{k} {[round(w, 4) for w in v]}" for k, v in walls.items()))
+    shutil.rmtree(base, ignore_errors=True)
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1424,6 +1701,9 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not here ({e})", file=sys.stderr)
         return 1
     card = card_line()
+    # the in-process and subprocess `cli check` runs open their run
+    # directories here, not under the checkout's runs/
+    os.environ.setdefault("KSPEC_RUNS_ROOT", str(WORK / "runs"))
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     ph = Phases()
     ph.run("build", phase_build)
@@ -1443,6 +1723,7 @@ def main() -> int:
     ph.run("simulate", phase_simulate)
     device_pipeline = ph.run("device-pipeline", phase_device_pipeline)
     disk_tier = ph.run("disk-tier", phase_disk_tier)
+    obs = ph.run("obs", phase_obs)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -1454,7 +1735,8 @@ def main() -> int:
                "product TINY^3": product["counts"],
                "product violation": product["violation_counts"],
                **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()},
-               **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()}}
+               **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()},
+               **{f"obs {p}": c for p, c in obs["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

@@ -1,5 +1,5 @@
-"""Command line of the PyTorch port: check or simulate a TLC .cfg, or
-verify a checkpoint directory.
+"""Command line of the PyTorch port: check or simulate a TLC .cfg, render
+a run directory, list the fault grammar, or verify a checkpoint directory.
 
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --cpu --json
@@ -11,6 +11,9 @@ verify a checkpoint directory.
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg \
         --mem-budget 16M --checkpoint ckpt/ --disk-budget 2G
     python -m kafka_specification_tpu_torch.cli verify-checkpoint ckpt/ --json
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --run-dir runs/k320
+    python -m kafka_specification_tpu_torch.cli report runs/k320
+    python -m kafka_specification_tpu_torch.cli faults --list
 
 ``check`` takes the options of the JAX package's ``cli check`` that the
 ported engine serves, with the same names and defaults, and prints what it
@@ -21,11 +24,28 @@ violating state when no trace was kept), or with ``--json`` the
 .cfg file's stem; CHECK_DEADLOCK comes from the .cfg.  The check runs on
 the card unless ``--cpu`` (or ``--device cpu``) is given.  ``--mem-budget``,
 ``--spill-dir`` and ``--store`` turn on the disk tier, ``--disk-budget``
-arms the resource governor, and ``--fault`` sets ``$KSPEC_FAULT``.  Exit
-codes: 0 no violation, 1 a violation, 2 an error, 75 a resource ran out
+arms the resource governor, and ``--fault`` sets ``$KSPEC_FAULT`` (and
+leaves it set, as the JAX package's CLI does).  Exit codes: 0 no
+violation, 1 a violation, 2 an error, 75 a resource ran out
 (RESOURCE_EXHAUSTED: a final checkpoint was saved, the same command resumes
 once space is freed), 76 a failed integrity check (the level digest chain,
 a spill file's checksum).
+
+Every ``check`` opens a run directory (``obs/``; ``--run-dir``, default
+``runs/<run_id>/`` under ``$KSPEC_RUNS_ROOT`` or the current directory;
+an existing one is reopened under its run_id), says where on stderr, and
+stamps the run_id into every record it writes: the verdict, the error
+records and the stats lines.  A disk tier with neither ``--spill-dir``
+nor ``--checkpoint`` spills under ``<run>/spill``, removed after a
+completed run.  ``--profile DIR`` wraps the run in ``torch.profiler`` (CPU
+activity, and CUDA activity on the card) and writes its Chrome trace to
+``DIR/<run_id>.pt.trace.json``.  An error the port reports as an exit-2
+record also finishes the manifest with status "error".
+
+``report [RUN_DIR]`` renders a run directory (the JAX package's text, or
+its record with ``--json``); with no directory it lists the runs under
+``--root``, and ``--latest`` renders the newest.  ``faults --list`` prints
+the fault grammar (``resilience/faults.py``).
 
 ``verify-checkpoint DIR`` checks a checkpoint directory offline (every
 generation's checksums and digest chain, and the spill files its disk-tier
@@ -44,15 +64,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 from pathlib import Path
 
 from .engine.bfs import VISITED_BACKENDS
+from .obs import RunContext
+from .obs.report import list_runs, render_report, render_run_index, report_data
+from .obs.tracer import start_profiler, stop_profiler
 from .pipeline_registry import PIPELINES
 from .resilience.checkpoints import CheckpointCorrupt
-from .resilience.faults import FaultPlan, InjectedFault
+from .resilience.faults import FaultPlan, InjectedFault, list_faults
 from .resilience.integrity import EXIT_INTEGRITY, IntegrityError
-from .resilience.resources import EXIT_RESOURCE_EXHAUSTED, ResourceExhausted
+from .resilience.resources import EXIT_RESOURCE_EXHAUSTED, ResourceExhausted, parse_bytes
+from .storage import parse_mem_budget
 from .utils.cfg import build_model, parse_cfg
 from .verdict import EXIT_ERROR, error_verdict, verdict_exit_code, verdict_from_result
 
@@ -82,21 +107,35 @@ def _progress(depth, new_n, total):
     print(f"  level {depth}: {new_n} new, {total} total", file=sys.stderr)
 
 
-def _build(args):
-    """(parsed .cfg, model), or None after printing why not."""
+def _parse(args):
+    """The parsed .cfg, or None after printing why not."""
     try:
-        tlc_cfg = parse_cfg(args.cfg)
+        return parse_cfg(args.cfg)
     except (OSError, ValueError) as e:
         print(f"error: cannot parse {args.cfg}: {e}", file=sys.stderr)
         return None
-    module = args.module or Path(args.cfg).stem
+
+
+def _model(args, tlc_cfg):
+    """The model of the .cfg's module, or None after printing why not."""
     try:
-        return tlc_cfg, build_model(module, tlc_cfg)
+        return build_model(_module(args), tlc_cfg)
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
     return None
+
+
+def _module(args) -> str:
+    return args.module or Path(args.cfg).stem
+
+
+def _build(args):
+    """(parsed .cfg, model), or None after printing why not."""
+    tlc_cfg = _parse(args)
+    model = None if tlc_cfg is None else _model(args, tlc_cfg)
+    return None if model is None else (tlc_cfg, model)
 
 
 def _simulate(args) -> int:
@@ -127,8 +166,21 @@ def _simulate(args) -> int:
 
 
 def _check(args) -> int:
+    tlc_cfg = _parse(args)
+    if tlc_cfg is None:
+        return EXIT_ERROR
     if args.checkpoint_every < 1 or args.checkpoint_keep < 1:
         print("error: --checkpoint-every and --checkpoint-keep must be >= 1", file=sys.stderr)
+        return EXIT_ERROR
+    # both byte budgets before the model is built, as the JAX package's CLI
+    # does: a malformed one prints nothing on stdout, even under --json
+    try:
+        if args.mem_budget is not None:
+            args.mem_budget = parse_mem_budget(args.mem_budget)
+        if args.disk_budget is not None:
+            args.disk_budget = parse_bytes(args.disk_budget)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
         return EXIT_ERROR
     if args.fault:
         try:
@@ -137,13 +189,29 @@ def _check(args) -> int:
             print(f"error: {e}", file=sys.stderr)
             return EXIT_ERROR
         os.environ["KSPEC_FAULT"] = args.fault
-    built = _build(args)
-    if built is None:
+    model = _model(args, tlc_cfg)
+    if model is None:
         return EXIT_ERROR
-    tlc_cfg, model = built
     from .engine.bfs import check
 
+    # every check gets a run directory: manifest, stats, spans and metrics
+    # under one run_id (`cli report` renders it, live or post-mortem)
+    run_ctx = RunContext(args.run_dir)
+    run_ctx.record_config(module=_module(args), cfg=args.cfg, sharded=False,
+                          checkpoint=args.checkpoint, stats=args.stats)
+    spill_defaulted = False
+    if args.mem_budget is not None and args.spill_dir is None and args.checkpoint is None:
+        # an un-homed disk tier spills under the run directory, so a
+        # crashed run's spill sits next to its stats and spans; a
+        # completed run removes it
+        args.spill_dir = run_ctx.spill_dir
+        spill_defaulted = True
+    print(f"[obs] run dir: {run_ctx.dir} (run {run_ctx.run_id})", file=sys.stderr)
     kw = {} if args.chunk_size is None else {"chunk_size": args.chunk_size}
+    prof = None
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        prof = start_profiler()
     try:
         res = check(
             model,
@@ -163,6 +231,7 @@ def _check(args) -> int:
             spill_dir=args.spill_dir,
             store=args.store,
             disk_budget=args.disk_budget,
+            run=run_ctx,
             device="cpu" if args.cpu else args.device,
             **kw,
         )
@@ -172,7 +241,16 @@ def _check(args) -> int:
         print(f"INTEGRITY VIOLATION: {e}", file=sys.stderr)
         if args.json:
             print(json.dumps(error_verdict(f"INTEGRITY_VIOLATION[{e.site}]: {e.detail}",
-                                           exit_code=EXIT_INTEGRITY)))
+                                           run_id=run_ctx.run_id, exit_code=EXIT_INTEGRITY)))
+        if args.checkpoint:
+            print(f"  re-running resumes from the newest chain-verified generation in "
+                  f"{args.checkpoint} (verify offline with `... verify-checkpoint "
+                  f"{args.checkpoint}`).  Recurring violations on one host suggest failing "
+                  f"hardware", file=sys.stderr)
+        else:
+            print("  no --checkpoint was configured: a re-run starts over (add --checkpoint "
+                  "so integrity exits resume from the newest chain-verified generation)",
+                  file=sys.stderr)
         return EXIT_INTEGRITY
     except ResourceExhausted as e:
         # a governed stop, not a crash: the engine saved what it could and
@@ -180,6 +258,7 @@ def _check(args) -> int:
         print(f"RESOURCE EXHAUSTED: {e}", file=sys.stderr)
         if args.json:
             print(json.dumps(error_verdict(f"RESOURCE_EXHAUSTED[{e.reason}]: {e.detail}",
+                                           run_id=run_ctx.run_id,
                                            exit_code=EXIT_RESOURCE_EXHAUSTED)))
         if args.checkpoint:
             print(f"  checkpoint intact at {args.checkpoint} — verify with `... "
@@ -194,13 +273,22 @@ def _check(args) -> int:
     except (RuntimeError, ValueError, CheckpointCorrupt) as e:
         # no card, an unknown $KSPEC_PIPELINE, no g++ for the host set, a
         # checkpoint of another config or none that verifies: no result
-        rec = error_verdict(f"{type(e).__name__}: {e}")
+        rec = error_verdict(f"{type(e).__name__}: {e}", run_id=run_ctx.run_id)
+        run_ctx.finish("error", error=rec["error"])
+        run_ctx.deactivate()
         if args.json:
             print(json.dumps(rec))
         else:
             print(f"error: {e}", file=sys.stderr)
         return verdict_exit_code(rec)
-    rec = verdict_from_result(res)
+    finally:
+        if prof is not None:
+            stop_profiler(prof, os.path.join(args.profile, f"{run_ctx.run_id}.pt.trace.json"))
+    if spill_defaulted:
+        # a completed run: the spilled fingerprints are dead weight (the
+        # spill accounting lives on in the metrics and spans)
+        shutil.rmtree(run_ctx.spill_dir, ignore_errors=True)
+    rec = verdict_from_result(res, run_id=run_ctx.run_id)
     if args.json:
         print(json.dumps(rec))
     else:
@@ -241,12 +329,62 @@ def _verify_checkpoint(args) -> int:
     return 0 if rep["ok"] else 1
 
 
+def _report(args) -> int:
+    """`cli report`: one run directory, or the index of a runs root."""
+    run_dir = args.run_dir
+    if run_dir is None:
+        root = args.root or os.environ.get("KSPEC_RUNS_ROOT", "runs")
+        if args.latest:
+            runs = list_runs(root, limit=1)
+            if not runs:
+                print(f"no runs under {root}", file=sys.stderr)
+                return 1
+            run_dir = runs[0]["dir"]
+        else:
+            runs = list_runs(root)
+            if args.json:
+                print(json.dumps(runs, default=str))
+            else:
+                print(render_run_index(root, runs))
+            return 0
+    if args.json:
+        print(json.dumps(report_data(run_dir), default=str))
+    else:
+        print(render_report(run_dir))
+    return 0
+
+
+def _faults(args) -> int:
+    """`cli faults --list`: the fault grammar, from the registry the
+    parser validates against."""
+    entries = list_faults()
+    if args.json:
+        print(json.dumps(entries))
+        return 0
+    print("Injectable faults (KSPEC_FAULT / --fault; comma-separate "
+          "to compose; every fault takes a `shard<d>:` scope after "
+          "the '@'):")
+    for e in entries:
+        print(f"  {e['grammar']}")
+        print(f"      {e['description']}")
+    print("Examples: crash@level:7   enospc@spill:2   "
+          "flip@shard1:exchange:3   corrupt_ckpt@ckpt:4")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kafka_specification_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pc = sub.add_parser("check", help="run the PyTorch engine on a TLC .cfg")
     pc.add_argument("cfg")
     pc.add_argument("--module", help="TLA+ module (default: cfg file stem)")
+    pc.add_argument(
+        "--run-dir",
+        help="run directory for this invocation's manifest + stats + spans "
+        "+ metrics (default: runs/<run_id>/ under $KSPEC_RUNS_ROOT or the "
+        "cwd; reopening an existing run dir resumes its run_id).  Render it "
+        "later with `cli report`",
+    )
     pc.add_argument("--max-depth", type=int)
     pc.add_argument("--max-states", type=int)
     pc.add_argument("--no-trace", action="store_true", help="skip trace storage")
@@ -329,6 +467,12 @@ def main(argv=None) -> int:
         "not wire is refused)",
     )
     pc.add_argument(
+        "--profile",
+        metavar="DIR",
+        help="wrap the run in a torch.profiler trace (CPU, and CUDA on the "
+        "card), written to DIR/<run_id>.pt.trace.json (Chrome trace format)",
+    )
+    pc.add_argument(
         "--pipeline",
         choices=list(PIPELINES),
         default=None,
@@ -357,6 +501,29 @@ def main(argv=None) -> int:
         "(default: <ckpt_dir>/spill, the engine's default placement)",
     )
     pvc.add_argument("--json", action="store_true", help="machine-readable report")
+    pr = sub.add_parser(
+        "report",
+        help="render a run directory (manifest + stats + spans + metrics) "
+        "into a human summary: per-level throughput, action enablement, "
+        "spill accounting, event timeline, ETA, stall verdict.  Works on "
+        "live and crashed-mid-run directories; touches no card.  With no "
+        "run dir: index the recent runs under --root",
+    )
+    pr.add_argument("run_dir", nargs="?",
+                    help="run directory to render (omit to list recent runs)")
+    pr.add_argument("--latest", action="store_true",
+                    help="render the newest run under --root instead of listing")
+    pr.add_argument("--root", help="runs root for the no-argument index / --latest "
+                    "(default: $KSPEC_RUNS_ROOT or ./runs)")
+    pr.add_argument("--json", action="store_true", help="machine-readable report")
+    pf = sub.add_parser(
+        "faults",
+        help="enumerate every injectable fault site (the KSPEC_FAULT / --fault "
+        "grammar) from the registry the parser validates against",
+    )
+    pf.add_argument("--list", action="store_true", dest="list_faults",
+                    help="list the fault registry (the default action)")
+    pf.add_argument("--json", action="store_true")
     ps = sub.add_parser("simulate", help="random-walk checking (TLC -simulate equivalent)")
     ps.add_argument("cfg")
     ps.add_argument("--module", help="TLA+ module (default: cfg file stem)")
@@ -371,6 +538,10 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.cmd == "verify-checkpoint":
         return _verify_checkpoint(args)
+    if args.cmd == "report":
+        return _report(args)
+    if args.cmd == "faults":
+        return _faults(args)
     return _simulate(args) if args.cmd == "simulate" else _check(args)
 
 

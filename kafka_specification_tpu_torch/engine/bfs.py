@@ -77,6 +77,8 @@ from ..analysis import require_encoding_sound
 from ..interop import from_u32, to_u32
 from ..models.base import Model
 from ..native import FpSet
+from ..obs import metrics as _met
+from ..obs.observer import RunObserver
 from ..ops import dedup, hashset
 from ..ops.cuda_hashset import probe_insert
 from ..pipeline_registry import resolve_pipeline
@@ -89,7 +91,6 @@ from ..storage import DEFAULT_MEM_BUDGET, DiskTierStore, parse_mem_budget, resol
 from ..storage.frontier import FrontierReader, SegmentCorrupt
 from ..storage.parent_log import ParentLogCorrupt
 from ..storage.runs import RunCorrupt
-from ..resilience.heartbeat import append_jsonl, heartbeat_record
 from .pipeline import (DevicePipeline, compacts, fp_stage, grow_visited, invariant_stage, next_pow2,
                        run_chunk, sorted_dedup_stage)
 
@@ -362,7 +363,9 @@ class _RamFrontier:
     def verify(self, chain, depth: int, spec) -> None:
         # the frontier about to be expanded must digest to the entry sealed
         # when its level was found (or loaded from a checkpoint)
-        chain.verify_level(depth, fps_u64(*fp_stage(spec, self.t)))
+        integrity.count_check()
+        if chain.anchored and depth < len(chain.entries):
+            chain.verify_level(depth, fps_u64(*fp_stage(spec, self.t)))
 
     def save_arrays(self) -> dict:
         return {"frontier": to_u32(self.t)}
@@ -512,6 +515,7 @@ def check(
     spill_dir: Optional[str] = None,
     store: str = "auto",
     disk_budget=None,
+    run=None,
     governor: Optional[ResourceGovernor] = None,
     device=None,
 ) -> CheckResult:
@@ -577,6 +581,19 @@ def check(
     flush); a hard breach, or ENOSPC from any writer, saves a final
     checkpoint and raises ResourceExhausted (``cli check`` exit 75), whose
     checkpoint passes ``verify_checkpoint_dir`` and resumes bit for bit.
+    run: an ``obs.RunContext`` (the port's ``obs/``): the run's stats,
+    spans and metrics go to its directory under its run_id, each level
+    record carries the run_id, and the manifest is finished with the
+    result (or, on the typed exits 75 and 76, their status).  With
+    run=None the tracer and registry of the thread are cleared and a bare
+    `stats_path` gets the stream with no run_id.  A crash (an injected
+    one, or any exception but the typed exits) leaves the manifest at
+    "running" with the level's begin marker unmatched, and the run's
+    tracer and registry still set, as in the JAX package.
+    The gauge ``kspec_successor_launches_level`` counts the chunk step
+    dispatches of the level (one per per-chunk step, the chunks of each
+    dispatch of a device-resident level), where the JAX package counts
+    XLA programs.
     governor: a ResourceGovernor to use in place of the env-derived one.
 
     $KSPEC_FAULT (``resilience/faults.py``) arms fault injection; a plan
@@ -605,6 +622,9 @@ def check(
         )
     pipe_name = resolve_pipeline(pipeline)
     dev = resolve_device(device)
+    # run_id-stamped stats/spans/metrics when a run context is given; the
+    # bare stats_path stream otherwise
+    obs_ = RunObserver(run, stats_path, engine="bfs")
     spec = model.spec
     K = spec.num_lanes
     C = model.total_fanout
@@ -619,7 +639,7 @@ def check(
     pipe = (DevicePipeline(model, visited_backend, check_invariants, check_deadlock,
                            compact_shift, compact_gate)
             if pipe_name == "device" else None)
-    collect_stats = stats_path is not None
+    collect_stats = obs_.collect
     stats_levels = []
     visited = None
 
@@ -699,7 +719,7 @@ def check(
         if governor is not None:
             stats["governor"] = governor.stats()
         drop_ephemeral_spill()
-        return CheckResult(
+        res = CheckResult(
             model=model.name,
             levels=levels,
             total=total,
@@ -709,6 +729,9 @@ def check(
             states_per_sec=total / max(dt, 1e-9),
             stats=stats,
         )
+        obs_.finish(res)
+        obs_.close()
+        return res
 
     # invariants on the init states: a violation here has its one-state trace
     if check_invariants:
@@ -716,6 +739,15 @@ def check(
         if bad is not None:
             s = decode_state(init_packed[bad[1]])
             return finish(Violation(bad[0], 0, s, [("<init>", s)]))
+    obs_.config(
+        model=model.name,
+        visited_backend=visited_backend,
+        store="disk" if use_disk else "ram",
+        mem_budget=mem_budget,
+        chunk_size=chunk_size,
+        checkpoint_dir=checkpoint_dir,
+        platform="gpu" if dev.type == "cuda" else dev.type,
+    )
 
     def spill_ref_errors(arrays: dict) -> list:
         """The disk tier's load validator: every spill run and frontier
@@ -808,6 +840,7 @@ def check(
                 dump = integrity.visited_fps(extra)
             # the dump must digest to the chain's running total before it is
             # written: corruption found here never enters a checkpoint
+            integrity.count_check()
             chain.verify_visited(dump, depth=depth)
         path = ckpt_store.save(depth, dict(**frontier.save_arrays(), vcap=visited.capacity,
                                            levels=levels_arr, total=total, **extra, **stamp))
@@ -855,17 +888,21 @@ def check(
             if chain is not None:
                 if fault.flip("frontier", depth, ckpt_depth=ckpt_depth):
                     frontier.flip()
-                if chain.anchored and depth < len(chain.entries):
-                    frontier.verify(chain, depth, spec)
+                frontier.verify(chain, depth, spec)
             if max_depth is not None and depth >= max_depth:
                 break
             if max_states is not None and total >= max_states:
                 break
             f_total = frontier.rows
             t_level = time.perf_counter()
+            # begin marker (ph=B): a crash mid-level leaves it unmatched,
+            # which is what `cli report` uses to pin where the run died
+            obs_.level_begin(depth + 1, f_total)
             governor.level_begin(depth + 1)  # arm the per-level deadline
             sink.begin(depth + 1)
             step_s = host_s = 0.0
+            lvl_launches = 0  # chunk step dispatches (the launches gauge)
+            lvl_probe_ms = 0.0  # the device level's one batched host probe
             act_en = torch.zeros(len(model.actions), dtype=torch.int64, device=dev) \
                 if collect_stats else None
             lvl_new = 0
@@ -878,7 +915,7 @@ def check(
                 refusal = frontier.stage_refusal()
                 if refusal is not None:
                     # the per-chunk path from here on, streaming chunks from disk
-                    pipe.fallback = refusal
+                    pipe.mark_fallback(refusal, depth)
                     plan = None
                 else:
                     source = _RamFrontier(frontier.read_all())
@@ -891,6 +928,17 @@ def check(
                 t_host = time.perf_counter()
                 step_s += t_host - t_step
                 dev_handled = plan[2]
+                launches = plan[1] * out.reads
+                lvl_launches += launches
+                # the level blocks on its one read, so its whole wall is
+                # device wait; the span comes before the verdict, as in the
+                # JAX package
+                obs_.chunk_span(
+                    "step", t_host - t_step, depth=depth, start=0, rows=plan[2],
+                    bucket=plan[0], launches=launches, chunks=plan[1],
+                    pipeline="device", dispatch_ms=0.0,
+                    wait_ms=round((t_host - t_step) * 1e3, 2), queued_ms=0.0,
+                )
                 if out.verdict is not None:
                     verdict = out.verdict
                     dev_handled = f_total
@@ -898,21 +946,34 @@ def check(
                     if collect_stats:
                         act_en += torch.tensor(out.act_en, dtype=torch.int64, device=dev)
                     rows, parent, act = out.rows, out.parent, out.act
+                    nn = rows.shape[0]
                     if visited_backend == "host":
                         # the deferred probe: one batched insert of the
                         # level's novel candidates, in candidate order
+                        t_probe = time.perf_counter()
                         keep = visited.insert_keys(out.keys)
                         if chain is not None:
                             chain.fold(out.keys[keep].view(np.uint64))
                         idx = torch.from_numpy(keep).to(dev)
                         rows, parent, act = rows[idx], parent[idx], act[idx]
-                    elif rows.shape[0]:
+                        probe_s = time.perf_counter() - t_probe
+                        lvl_probe_ms += probe_s * 1e3
+                        obs_.chunk_span(
+                            "host-probe", probe_s, depth=depth, rows=nn,
+                            new=int(keep.shape[0]), backend=visited_backend,
+                            batched="level",
+                        )
+                    elif nn:
                         visited.merge_level(out.lkeys)
                         if chain is not None:
                             chain.fold_digest(*out.digest)
                     if rows.shape[0]:
                         lvl_new += rows.shape[0]
                         sink.append(rows, parent, act)
+                    obs_.chunk_span(
+                        "host-assembly", time.perf_counter() - t_host, depth=depth,
+                        start=0, new=nn, backend=visited_backend,
+                    )
                 host_s += time.perf_counter() - t_host
             for start, piece in source.chunks(chunk, dev_handled):
                 governor.poll(depth)  # the deadline watchdog
@@ -926,14 +987,30 @@ def check(
                 if out.verdict is not None:
                     verdict = (start + out.verdict[0], out.verdict[1])
                     break
+                lvl_launches += 1
+                obs_.chunk_span(
+                    "step", t_host - t_step, depth=depth, start=start, rows=piece.shape[0],
+                    bucket=bucket, launches=1, dispatch_ms=round((t_host - t_step) * 1e3, 2),
+                    wait_ms=0.0, queued_ms=0.0,
+                )
                 if collect_stats:
                     act_en += out.act_en
-                if out.rows.shape[0]:
+                # the span's `new`, as the JAX package counts it: the rows
+                # handed to the host set or table, the new states of the
+                # sorted set
+                nn = out.rows.shape[0]
+                if nn:
                     win = visited.insert(out.hi, out.lo)
                     if chain is not None:
                         chain.fold(fps_u64(out.hi[win], out.lo[win]))
                     sink.append(out.rows[win], out.parent[win] + start, out.act[win])
                     lvl_new += win.shape[0]
+                    if visited_backend == "device":
+                        nn = win.shape[0]
+                obs_.chunk_span(
+                    "host-assembly", time.perf_counter() - t_host, depth=depth, start=start,
+                    new=nn, backend=visited_backend,
+                )
                 host_s += time.perf_counter() - t_host
 
             if verdict is not None:
@@ -955,8 +1032,10 @@ def check(
             if collect_stats:
                 en = act_en.tolist()
                 enabled = sum(en)
-                rec = heartbeat_record(
-                    "level",
+                # heartbeat-enveloped (kind/ts/unix); with a run context the
+                # observer also stamps run_id, closes the level span and
+                # folds the metrics registry
+                rec = obs_.level(
                     depth=depth,
                     frontier=f_total,
                     enabled_candidates=enabled,
@@ -968,8 +1047,11 @@ def check(
                     host_ms=round(host_s * 1e3, 1),
                     action_enablement={a.name: c for a, c in zip(model.actions, en)},
                 )
-                append_jsonl(stats_path, rec)
                 stats_levels.append(rec)
+                _met.set_gauge("kspec_successor_launches_level", lvl_launches)
+                if lvl_probe_ms:
+                    # the device level's one batched host probe, in ms
+                    _met.set_gauge("kspec_host_probe_ms", round(lvl_probe_ms, 2))
             if collect_levels is not None and lvl_new:
                 collect_levels.append(next_frontier.read_all())
             if progress:
@@ -994,14 +1076,43 @@ def check(
         # ENOSPC from a writer: every writer cleaned up its tmp, so the
         # promoted state is intact
         exhausted = ResourceExhausted("enospc", str(e), depth=depth)
-    if integrity_fail is not None or exhausted is not None:
-        sink.abort()
     if integrity_fail is not None:
         # the newest durable generation predates the corruption: nothing
-        # more is saved
+        # more is saved.  The manifest records the typed terminal (`cli
+        # report`'s integrity beat); the terminal path's own writes are
+        # best-effort
+        try:
+            integrity.record_violation(integrity_fail)
+            sink.abort()
+            obs_.abort(
+                "integrity-violation",
+                site=integrity_fail.site,
+                depth=integrity_fail.depth,
+                detail=integrity_fail.detail[:300],
+                distinct_states=total,
+            )
+            obs_.close()
+        except OSError:
+            pass
         drop_ephemeral_spill()
         raise integrity_fail
     if exhausted is not None:
+        # the manifest records why (`cli report`'s RESOURCE_EXHAUSTED
+        # beat); a second ENOSPC on the same full disk must not turn the
+        # typed exit into a crash
+        try:
+            sink.abort()
+            obs_.abort(
+                "resource-exhausted",
+                reason=exhausted.reason,
+                depth=exhausted.depth,
+                detail=exhausted.detail,
+                distinct_states=total,
+                **governor.stats(),
+            )
+            obs_.close()
+        except OSError:
+            pass
         raise exhausted
 
     if violation is None and check_invariants and frontier.rows:

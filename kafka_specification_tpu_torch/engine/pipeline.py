@@ -449,6 +449,15 @@ class DevicePipeline:
     def _gate(self, bucket: int) -> bool:
         return compacts(bucket, self.compact_shift, self.compact_gate)
 
+    def mark_fallback(self, reason: str, depth: int) -> None:
+        """Leave the device path for the per-chunk one for the rest of the
+        run, with the JAX package's `pipeline-fallback` event."""
+        self.fallback = reason
+        from ..obs import tracer as _obs
+
+        _obs.event("pipeline-fallback", depth=depth, pipeline="device",
+                   to="fused", error=reason)
+
     def plan_level(self, f_total: int, chunk: int, min_bucket: int):
         """-> (bucket, chunks, rows handled) when the level program serves
         (a prefix of) this level, else None: the JAX package's plan.  Full

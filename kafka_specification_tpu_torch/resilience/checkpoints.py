@@ -131,28 +131,35 @@ class CheckpointStore:
     def save(self, depth: int, arrays: dict) -> str:
         """Checksummed write + rotate + atomic promote; returns the path.
         `depth` and the identity are stamped into the file."""
+        # lazy import: obs <-> resilience must stay acyclic at module level
+        from ..obs import metrics as _met
+        from ..obs import tracer as _obs
+
         arrays = dict(arrays)
         arrays["ident"] = self.ident
         arrays["depth"] = depth
         path = self.path(0)
         tmp = path + ".tmp.npz"
         try:
-            # uncompressed: live fingerprints are high-entropy
-            np.savez(tmp, **{MANIFEST_KEY: json.dumps(build_manifest(arrays))}, **arrays)
-            if self.fault_plan is not None:
-                # torn-write rehearsal points: tmp written, nothing
-                # promoted (crash@ckpt:N and its full-disk twin
-                # enospc@ckpt:N)
-                self.fault_plan.crash("ckpt", depth)
-                self.fault_plan.enospc("ckpt", depth)
-            # shift existing generations up, newest first, so each
-            # replace's target is the already-vacated slot; generation
-            # keep-1 falls off
-            for g in range(self.keep - 1, 0, -1):
-                src = self.path(g - 1)
-                if os.path.exists(src):
-                    _dio.replace(src, self.path(g))
-            _dio.replace(tmp, path)
+            # the JAX package's span attributes: the single-device file
+            # is its part ""
+            with _obs.span("checkpoint-write", depth=depth, part=""):
+                # uncompressed: live fingerprints are high-entropy
+                np.savez(tmp, **{MANIFEST_KEY: json.dumps(build_manifest(arrays))}, **arrays)
+                if self.fault_plan is not None:
+                    # torn-write rehearsal points: tmp written, nothing
+                    # promoted (crash@ckpt:N and its full-disk twin
+                    # enospc@ckpt:N)
+                    self.fault_plan.crash("ckpt", depth)
+                    self.fault_plan.enospc("ckpt", depth)
+                # shift existing generations up, newest first, so each
+                # replace's target is the already-vacated slot; generation
+                # keep-1 falls off
+                for g in range(self.keep - 1, 0, -1):
+                    src = self.path(g - 1)
+                    if os.path.exists(src):
+                        _dio.replace(src, self.path(g))
+                _dio.replace(tmp, path)
         except BaseException:
             # a failed save must not leave its tmp behind; the promoted
             # generations are untouched
@@ -161,6 +168,7 @@ class CheckpointStore:
             except OSError:
                 pass
             raise
+        _met.inc("kspec_checkpoint_writes_total")
         if self.fault_plan is not None and self.fault_plan.should_corrupt(depth):
             corrupt_file(path)
         return path
@@ -201,13 +209,16 @@ class CheckpointStore:
         None when no checkpoint exists; CheckpointCorrupt when files exist
         but none verifies; ValueError on an identity mismatch (never falls
         back past it)."""
+        from ..obs import tracer as _obs  # lazy: cycle hygiene
+
         gens = self.generations()
         if not gens:
             return None
         errors = []
         for g in gens:
             try:
-                main = verify_file(self.path(g))
+                with _obs.span("checkpoint-verify", generation=g):
+                    main = verify_file(self.path(g))
             except CheckpointCorrupt as e:
                 errors.append(str(e))
                 continue
@@ -226,6 +237,8 @@ class CheckpointStore:
                     + "\n  ".join(errors),
                     file=sys.stderr,
                 )
+                # run-correlated fallback record for `cli report`'s timeline
+                _obs.event("checkpoint-fallback", generation=g, depth=depth, errors=len(errors))
             return main, g
         raise CheckpointCorrupt("no checkpoint generation verified:\n  " + "\n  ".join(errors))
 

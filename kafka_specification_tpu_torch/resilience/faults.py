@@ -63,25 +63,89 @@ class InjectedCrash(InjectedFault):
     """An injected hard crash (the process is expected to die)."""
 
 
-#: kind -> valid sites (None = a bare fault) and grammar form, as in the
-#: JAX package's registry
+#: the JAX package's registry, entry for entry: the parser validates
+#: against it and `cli faults --list` renders it.
+#: kind -> (valid sites (None = a bare fault), grammar form, description)
 FAULT_REGISTRY = (
     ("crash", ("level", "ckpt", "merge", "daemon"),
-     "crash@level|ckpt|merge:N | crash@daemon<i>:N"),
-    ("corrupt_ckpt", ("ckpt",), "corrupt_ckpt[@ckpt:N]"),
-    ("compile_oom", None, "compile_oom"),
-    ("transient_device_err", None, "transient_device_err:N"),
+     "crash@level|ckpt|merge:N | crash@daemon<i>:N",
+     "raise InjectedCrash at the level-N boundary / mid-checkpoint-write "
+     "(tmp written, pre-promote) / mid-way through the Nth disk-run merge; "
+     "the daemon<i> form kills serving-daemon instance i while it handles "
+     "its Nth job (claims stay leased; a sibling's janitor requeues them "
+     "and the verdict still publishes exactly once — service/fleet.py).  "
+     "Daemon-scoped faults fire once per SERVICE DIR (durable "
+     "fired-marker), so a fleet-restarted daemon converges instead of "
+     "crash-looping — the crash@level checkpoint-deferral rule's twin"),
+    ("corrupt_ckpt", ("ckpt",), "corrupt_ckpt[@ckpt:N]",
+     "corrupt the newest checkpoint right after its write (checksum-"
+     "fallback rehearsal); bytes flipped AFTER the CRC manifest, so the "
+     "zip/manifest checks catch it on load"),
+    ("compile_oom", None, "compile_oom",
+     "the next escalated chunk step raises an LLVM-OOM-shaped error once "
+     "(degrades fused/adaptive paths to the uniform fallback)"),
+    ("transient_device_err", None, "transient_device_err:N",
+     "the next N chunk/exchange steps raise a transient-classified "
+     "backend error (bounded-backoff retry rehearsal)"),
     ("enospc", ("spill", "ckpt", "merge", "plog", "cache"),
-     "enospc@spill|ckpt|merge|plog|cache:N"),
-    ("stall", ("level", "daemon"), "stall@level:N | stall@daemon<i>"),
+     "enospc@spill|ckpt|merge|plog|cache:N",
+     "OSError(ENOSPC) at the writer's pre-promote point (typed "
+     "RESOURCE_EXHAUSTED exit 75; state stays verifiable).  The cache "
+     "site is the Nth state-space-cache publish of this process "
+     "(service/state_cache.py): publication aborts cleanly with a "
+     "cache-fallback event, the job's verdict is untouched"),
+    ("stall", ("level", "daemon"), "stall@level:N | stall@daemon<i>",
+     "the per-level deadline watchdog reports level N stalled (typed "
+     "exit 75); the daemon<i> form wedges serving-daemon instance i "
+     "after its next claim sweep — heartbeat and lease renewal freeze, "
+     "so the fleet supervisor stall-kills it and a sibling's janitor "
+     "takes its leased claims over at lease expiry"),
     ("flip", ("frontier", "fpset", "exchange", "spill", "ckpt", "cache"),
-     "flip@frontier|fpset|exchange|spill|ckpt|cache:N"),
-    ("kill", ("host",), "kill@host<i>:N"),
-    ("partition", ("host",), "partition@host<i>[:N]"),
-    ("skew", ("host",), "skew@host<i>:SECS"),
+     "flip@frontier|fpset|exchange|spill|ckpt|cache:N",
+     "silent bit-flip at the named state surface (typed "
+     "INTEGRITY_VIOLATION exit 76; detected by the digest-chain / "
+     "framing / read-side-CRC layer — resilience.integrity).  The cache "
+     "site flips bytes in the Nth published state-space-cache artifact "
+     "of this process AFTER its promote: the next lookup's chain/CRC "
+     "verification rejects it with a cache-fallback event and the check "
+     "degrades to a cold run — never a wrong verdict"),
+    ("kill", ("host",), "kill@host<i>:N",
+     "kill host i's serving daemon while it handles its Nth job, before "
+     "any verdict is derived (the whole-host-death rehearsal of the "
+     "routed fleet — service/router.py detects the stale heartbeats and "
+     "re-routes the host's pending jobs; its leased claims come back via "
+     "the janitor takeover protocol at lease expiry).  Fires once per "
+     "SERVICE DIR (durable fired-marker), so a restarted host converges; "
+     "hosts are scoped by KSPEC_HOST_INSTANCE, so one composed plan "
+     "string drives a whole multi-host drill"),
+    ("partition", ("host",), "partition@host<i>[:N]",
+     "host i loses the shared state-space-cache namespace for its next N "
+     "jobs (default 1): every lookup in the window degrades to a typed "
+     "cache-fallback cold run (reason 'partition') and every publish is "
+     "DEFERRED, then re-published when the partition heals — verdicts "
+     "are untouched and the federation never serves a torn read.  "
+     "Durable once per service dir, like kill@host"),
+    ("skew", ("host",), "skew@host<i>:SECS",
+     "shift host i's wall clock by SECS (float, may be negative) in "
+     "every timestamp it writes into cross-host-visible metadata — "
+     "claim-lease stamps and heartbeat records — rehearsing a fleet "
+     "member with a drifted clock.  The KSPEC_CLOCK_SKEW allowance in "
+     "lease expiry (service/queue.py) and router heartbeat freshness "
+     "(service/router.py) is what keeps a skewed-but-live host's claims "
+     "from being stolen; persistent for the process lifetime"),
 )
 
-_SITES_BY_KIND = {k: sites for k, sites, _g in FAULT_REGISTRY}
+_SITES_BY_KIND = {k: sites for k, sites, _g, _d in FAULT_REGISTRY}
+
+
+def list_faults() -> list:
+    """[{kind, grammar, description, scopeable}] for `cli faults --list`
+    (every fault composes with a `shard<d>:` scope)."""
+    return [
+        {"kind": k, "grammar": g, "sites": list(sites or ()),
+         "description": d, "scopeable": True}
+        for k, sites, g, d in FAULT_REGISTRY
+    ]
 
 #: the (kind, site) pairs the port's single-device check() wires
 WIRED = frozenset({
@@ -191,11 +255,13 @@ def _parse_token(tok: str) -> _Spec:
                 return _Spec(name, point, level, 1, shard)
             raise ValueError(
                 f"fault {tok!r}: unknown site {point!r} for {name!r} "
-                f"(valid sites: {', '.join(_SITES_BY_KIND[name])})"
+                f"(valid sites: {', '.join(_SITES_BY_KIND[name])}; "
+                f"run `cli faults --list` for the full grammar)"
             )
         raise ValueError(
             f"unknown fault {tok!r} (known kinds: "
-            f"{', '.join(k for k, *_ in FAULT_REGISTRY)})"
+            f"{', '.join(k for k, *_ in FAULT_REGISTRY)}; run "
+            f"`cli faults --list` for the full grammar)"
         )
     name, _, count = tok.partition(":")
     if name == "corrupt_ckpt":
@@ -208,7 +274,10 @@ def _parse_token(tok: str) -> _Spec:
         return _Spec("transient_device_err", None, None, int(count) if count else 1)
     raise ValueError(
         f"unknown fault {tok!r} (grammar: "
-        + ", ".join(g for _k, _s, g in FAULT_REGISTRY) + ")"
+        + ", ".join(g for _k, _s, g, _d in FAULT_REGISTRY)
+        + "; each '@'-scopeable as crash@shard<d>:level:N / "
+        "corrupt_ckpt@shard<d> / transient_device_err@shard<d>:N; run "
+        "`cli faults --list` for descriptions)"
     )
 
 

@@ -24,7 +24,9 @@ accept each other's checkpoints:
   checkpoint references, :func:`readback_chain` re-reads a freshly
   promoted checkpoint's chain (what catches ``flip@ckpt``), and
   :func:`flip_bit` is the injected bit flip of the ``flip@`` faults.
-- :class:`IntegrityError` is the typed terminal (``cli check`` exit 76).
+- :class:`IntegrityError` is the typed terminal (``cli check`` exit 76);
+  :func:`record_violation` stamps it into the run's spans and metrics, and
+  :func:`count_check` counts each check made (``obs/``).
 
 ``KSPEC_INTEGRITY=0`` turns the chain off.  Sampled shadow re-execution
 (``--integrity-shadow``) is not ported.  Numpy only.
@@ -416,6 +418,7 @@ def readback_chain(path: str, depth=None) -> None:
     goes on trusting a poisoned newest generation."""
     with np.load(path, allow_pickle=False) as z:
         small = {k: z[k] for k in ("digest_chain", "levels", "total", "depth") if k in z.files}
+    count_check()
     errs = checkpoint_chain_errors(small)
     if errs:
         raise IntegrityError(
@@ -423,6 +426,21 @@ def readback_chain(path: str, depth=None) -> None:
             f"post-save chain read-back of {path} failed: " + "; ".join(errs),
             depth=depth,
         )
+
+
+def record_violation(err: "IntegrityError") -> None:
+    """The record-a-violation protocol (an obs event and a counter) of the
+    engine's terminal handler."""
+    from ..obs import metrics as _met  # lazy: cycle hygiene
+    from ..obs import tracer as _obs
+
+    _obs.event(
+        "integrity-violation",
+        site=err.site,
+        depth=err.depth,
+        detail=str(err)[:300],
+    )
+    _met.inc("kspec_integrity_violations_total")
 
 
 def flip_bit(arr: np.ndarray) -> None:
@@ -434,3 +452,10 @@ def flip_bit(arr: np.ndarray) -> None:
         return
     flat = arr.reshape(-1).view(np.uint8)
     flat[flat.shape[0] // 2] ^= 0x10
+
+
+def count_check(n: int = 1) -> None:
+    """Bump the integrity-check counter (the obs beat's numerator)."""
+    from ..obs import metrics as _met
+
+    _met.inc("kspec_integrity_checks_total", n)

@@ -204,6 +204,10 @@ class ResourceGovernor:
             return
         dt = time.monotonic() - self._level_t0
         if dt > self.level_deadline:
+            self._event(
+                "resource-exhausted", resource="deadline", depth=depth,
+                level=self._level_depth, seconds=round(dt, 1),
+            )
             raise ResourceExhausted(
                 "deadline",
                 f"level {self._level_depth} running {dt:.1f}s "
@@ -212,6 +216,8 @@ class ResourceGovernor:
             )
 
     def level_end(self, depth: int, reclaim=None, save_hook=None) -> None:
+        from ..obs import metrics as _met  # lazy: cycle hygiene
+
         if self.fault_plan is not None and self.fault_plan.stalled(depth):
             self._hard(
                 "stall",
@@ -219,8 +225,11 @@ class ResourceGovernor:
                 depth,
                 save_hook,
             )
+        rss = rss_bytes()
+        if rss is not None:
+            _met.set_gauge("kspec_rss_bytes", rss)
         if self.rss_budget:
-            rss = rss_bytes()
+            _met.set_gauge("kspec_rss_budget_bytes", self.rss_budget)
             if rss is not None and rss > self.rss_budget:
                 # reclamation cannot shrink a live process's heap — go
                 # straight to the typed exit (the resumed run re-plans)
@@ -231,16 +240,27 @@ class ResourceGovernor:
                     save_hook,
                 )
             elif rss is not None and rss > self.soft_frac * self.rss_budget:
-                self.pressure_events += 1
+                self._pressure("rss", rss, self.rss_budget, depth)
         if not self.disk_budget:
             return
         used = dir_usage_bytes(self.watch_dirs)
+        _met.set_gauge("kspec_disk_used_bytes", used)
+        _met.set_gauge("kspec_disk_budget_bytes", self.disk_budget)
         if used > self.soft_frac * self.disk_budget:
-            self.pressure_events += 1
+            self._pressure("disk", used, self.disk_budget, depth)
             if reclaim is not None:
+                before = used
                 reclaim()
                 self.reclaims += 1
                 used = dir_usage_bytes(self.watch_dirs)
+                _met.set_gauge("kspec_disk_used_bytes", used)
+                _met.inc("kspec_reclaims_total")
+                self._event(
+                    "reclaim",
+                    depth=depth,
+                    freed_bytes=max(0, before - used),
+                    used_bytes=used,
+                )
         if used > self.disk_budget:
             self._hard(
                 "disk",
@@ -251,7 +271,26 @@ class ResourceGovernor:
             )
 
     # --- internals -------------------------------------------------------
+    def _event(self, kind: str, **fields) -> None:
+        from ..obs import tracer as _obs
+
+        _obs.event(kind, **fields)
+
+    def _pressure(self, resource: str, used: int, budget: int, depth) -> None:
+        self.pressure_events += 1
+        self._event(
+            "resource-pressure",
+            resource=resource,
+            used=int(used),
+            budget=int(budget),
+            depth=depth,
+        )
+
     def _hard(self, reason: str, detail: str, depth, save_hook) -> None:
+        self._event(
+            "resource-exhausted", resource=reason, depth=depth,
+            detail=detail[:200],
+        )
         if save_hook is not None:
             try:
                 save_hook()  # checkpoint-then-clean-exit

@@ -344,6 +344,10 @@ class TieredFpSet:
         fps = np.sort(self.hot.dump())
         if fps.shape[0] == 0:
             return
+        # lazy import: obs <-> storage must stay acyclic at module level
+        from ..obs import metrics as _met
+        from ..obs import tracer as _obs
+
         path = self._run_path()
         hook = None
         if self.fault_plan is not None:
@@ -357,7 +361,9 @@ class TieredFpSet:
                 # exit leaves a verifiable state
                 self.fault_plan.enospc("spill", ordinal)
 
-        meta = write_run(path, fps, bloom_path=path + ".bloom", before_replace=hook)
+        with _obs.span("spill-run-write", rows=int(fps.shape[0])):
+            meta = write_run(path, fps, bloom_path=path + ".bloom", before_replace=hook)
+        _met.inc("kspec_spill_runs_total")
         if self.fault_plan is not None and self.fault_plan.flip(
             "spill", self.spills + 1
         ):
@@ -381,6 +387,9 @@ class TieredFpSet:
         some retained checkpoint manifest fully resolves."""
         if len(self.runs) < 2:
             return
+        from ..obs import metrics as _met
+        from ..obs import tracer as _obs
+
         self.merges += 1
         path = self._run_path()
         hook = None
@@ -391,7 +400,13 @@ class TieredFpSet:
                 self.fault_plan.crash("merge", ordinal)
                 self.fault_plan.enospc("merge", ordinal)
 
-        meta = merge_runs(self.runs, path, crash_hook=hook)
+        with _obs.span(
+            "spill-merge",
+            runs=len(self.runs),
+            rows=int(sum(r.count for r in self.runs)),
+        ):
+            meta = merge_runs(self.runs, path, crash_hook=hook)
+        _met.inc("kspec_spill_merges_total")
         for r in self.runs:  # retire the merged-away runs' gate counters
             self._retired_probes["probes"] += r.probes
             self._retired_probes["bloom_maybe"] += r.bloom_maybe

@@ -151,10 +151,7 @@ def build_model(module: str, cfg: TlcConfig):
 
 def _build_model(module: str, cfg: TlcConfig):
     if module not in MODULES:
-        raise KeyError(
-            f"module {module!r} is not ported to PyTorch yet "
-            f"(ported: {', '.join(MODULES)})"
-        )
+        raise KeyError(f"unknown module {module!r}")
     if cfg.constraints and module != "AsyncIsr":
         raise ValueError(
             f"CONSTRAINT {cfg.constraints} is not supported for module "

@@ -1,7 +1,10 @@
 """PyTorch port's `cli check`: its --json record equals the JAX package's
-kspec-verdict/1 record of the same .cfg (timing fields and run_id aside),
-its text trace equals the JAX package's render_trace, and its exit codes
-are 0 (no violation), 1 (a violation) and 2 (an error).  The run options
+kspec-verdict/1 record of the same .cfg (timing fields aside; the run_id
+has JAX's format and is the run directory's), its text trace equals the
+JAX package's render_trace, and its exit codes are 0 (no violation), 1 (a
+violation) and 2 (an error), with JAX's stderr for a malformed byte
+budget, an unknown module and an unknown fault; `cli faults --list`
+prints JAX's grammar.  The run options
 take JAX's names: --cpu, --max-states, --no-trace, --progress, --stats and
 --checkpoint/--checkpoint-every/--checkpoint-keep, each held to the JAX
 package's record, stats lines and checkpoint files.  AsyncIsr.cfg and the
@@ -10,6 +13,7 @@ Stretch product check; `cli simulate` prints JAX's lines and exit codes."""
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -74,6 +78,12 @@ def stats_lines(path):
         return [{k: json.loads(line)[k] for k in DETERMINISTIC} for line in fh]
 
 
+@pytest.fixture(autouse=True)
+def _runs_root(tmp_path, monkeypatch):
+    """Each check's run directory lands under this test's tmp_path."""
+    monkeypatch.setenv("KSPEC_RUNS_ROOT", str(tmp_path / "runs"))
+
+
 def run_cli(capsys, *argv):
     rc = cli.main(["check", *map(str, argv), "--device", "cpu"])
     return rc, capsys.readouterr()
@@ -107,7 +117,12 @@ def test_json_record_equals_jax(capsys, name):
     _, jres = jax_run(path, name)
     assert rc == 0 and rec["exit_code"] == 0
     assert drop_timing(rec) == drop_timing(jax_verdict(jres))
-    assert rec["run_id"] is None
+    # the run id has JAX's format and names the run directory the check opened
+    assert re.fullmatch(r"\d{8}T\d{6}-%d-[0-9a-f]{4}" % os.getpid(), rec["run_id"])
+    with open(os.path.join(os.environ["KSPEC_RUNS_ROOT"], rec["run_id"], "manifest.json")) as fh:
+        assert json.load(fh)["run_id"] == rec["run_id"]
+    assert out.err == (f"[obs] run dir: {os.environ['KSPEC_RUNS_ROOT']}/{rec['run_id']} "
+                       f"(run {rec['run_id']})\n")
 
 
 def test_violating_cfg_json_and_text_equal_jax(capsys, violating):
@@ -145,20 +160,21 @@ def test_exit_code_2_on_errors(capsys, tmp_path, monkeypatch):
     rc, out = run_cli(capsys, bad)
     assert rc == 2 and "cannot parse" in out.err
     rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--module", "AlterPartition")
-    assert rc == 2 and "not ported" in out.err
+    assert rc == 2 and out.err == "error: unknown module 'AlterPartition'\n"
     monkeypatch.setenv("KSPEC_PIPELINE", "nope")
     rc, out = run_cli(capsys, REPO / "configs" / "IdSequence.cfg", "--json")
     rec = json.loads(out.out)
     assert rc == 2 and rec["exit_code"] == 2 and "unknown pipeline" in rec["error"]
 
 
-def test_module_entry_point():
+def test_module_entry_point(tmp_path):
     """`python -m kafka_specification_tpu_torch.cli check` in a fresh
     process prints the record and exits with its code."""
     out = subprocess.run(
         [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check",
          "configs/IdSequence.cfg", "--device", "cpu", "--json"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "KSPEC_RUNS_ROOT": str(tmp_path / "runs")},
     )
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout)
@@ -195,7 +211,10 @@ def test_max_states_stats_and_progress_equal_jax(capsys, tmp_path, kip320_2r):
                       "--stats", tmp_path / "port.jsonl")
     assert rc == 0 and drop_timing(json.loads(out.out)) == drop_timing(jax_verdict(jres))
     assert stats_lines(tmp_path / "port.jsonl") == stats_lines(tmp_path / "jax.jsonl")
-    assert out.err.splitlines() == [f"  level {d}: {n} new, {t} total" for d, n, t in calls]
+    # the run directory's line, as JAX's CLI prints it, then the progress lines
+    err = out.err.splitlines()
+    assert err[0].startswith("[obs] run dir: ")
+    assert err[1:] == [f"  level {d}: {n} new, {t} total" for d, n, t in calls]
 
 
 def test_no_trace_equals_jax(capsys, violating):
@@ -323,4 +342,64 @@ def test_simulate_clean_line_and_errors(capsys, kip320_2r):
             f"Simulation: 12 walks x depth 15, {jres.total} states visited, no violations (")
         assert out.endswith(" states/sec).\n") and len(out.splitlines()) == 1
     rc = cli.main(["simulate", str(kip320_2r), "--cpu", "--module", "Nope"])
-    assert rc == 2 and "not ported" in capsys.readouterr().err
+    assert rc == 2 and capsys.readouterr().err == "error: unknown module 'Nope'\n"
+
+
+def jax_cli(capsys, *argv):
+    from kafka_specification_tpu.utils.cli import main as jmain
+
+    try:
+        rc = jmain(list(map(str, argv)))
+    except SystemExit as e:  # its model-building refusals exit this way
+        rc = e.code
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    return rc, capsys.readouterr()
+
+
+@pytest.mark.parametrize("flag", ["--mem-budget", "--disk-budget"])
+def test_malformed_byte_budget_equals_jax(capsys, flag):
+    """A malformed budget is refused before the model is built: exit 2,
+    JAX's stderr, and nothing on stdout even under --json."""
+    path = REPO / "configs" / "IdSequence.cfg"
+    rc, out = run_cli(capsys, path, "--json", flag, "12Q")
+    jrc, jout = jax_cli(capsys, "check", path, "--cpu", "--hand", "--json", flag, "12Q")
+    assert rc == jrc == 2
+    assert out.out == jout.out == ""
+    assert out.err == jout.err and out.err.startswith("error: bad ")
+    assert not os.path.exists(os.environ["KSPEC_RUNS_ROOT"])  # no run was opened
+
+
+@pytest.mark.parametrize("plan", ["bogus@x:1", "crash@lvl:3", "bogus"])
+def test_unknown_fault_equals_jax(capsys, plan):
+    """The refusal points at `cli faults --list`, as JAX's does."""
+    path = REPO / "configs" / "IdSequence.cfg"
+    rc, out = run_cli(capsys, path, "--json", "--fault", plan)
+    jrc, jout = jax_cli(capsys, "check", path, "--cpu", "--hand", "--json", "--fault", plan)
+    assert rc == jrc == 2 and out.out == jout.out == ""
+    assert out.err == jout.err and "`cli faults --list`" in out.err
+    assert "KSPEC_FAULT" not in os.environ
+
+
+def test_unknown_module_equals_jax(capsys):
+    path = REPO / "configs" / "Kip320Stretch.cfg"
+    rc, out = run_cli(capsys, path, "--json")
+    jrc, jout = jax_cli(capsys, "check", path, "--cpu", "--hand", "--json")
+    assert rc == jrc == 2 and out.out == jout.out == ""
+    assert out.err == jout.err == "error: unknown module 'Kip320Stretch'\n"
+
+
+def test_faults_list_equals_jax(capsys):
+    """`cli faults --list` prints JAX's grammar, entry for entry (JAX's
+    listing then goes on to its crash-consistency scenarios, which the
+    port does not have yet); --json lists the same registry entries."""
+    assert cli.main(["faults", "--list"]) == 0
+    out = capsys.readouterr().out
+    jrc, jout = jax_cli(capsys, "faults", "--list")
+    assert jrc == 0
+    head = jout.out.split("\n\nCrashcheck scenarios", 1)[0]
+    assert out == head + "\n" and out.count("\n      ") == 10  # ten kinds
+    assert cli.main(["faults", "--json"]) == 0
+    entries = json.loads(capsys.readouterr().out)
+    jrc, jout = jax_cli(capsys, "faults", "--json")
+    assert entries == [e for e in json.loads(jout.out) if e["kind"] != "crashcheck-scenario"]

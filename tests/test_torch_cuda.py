@@ -583,3 +583,84 @@ def test_device_level_queues_without_a_sync(card):
     assert cuda_fingerprint.LAUNCHES == k1 + nc
     ovf, kind, _, _, on, *_ = pipe.read_level(st)
     assert not ovf and kind == 0 and on == 28_818
+
+
+def _run_dir_content(run):
+    """The clock-free content of a run directory: file names, manifest
+    config and result, stats lines, spans per level and metrics."""
+    import json
+    import os
+    import re
+
+    def records(path):
+        with open(path) as fh:
+            return [json.loads(line) for line in fh.read().splitlines()]
+
+    clock = ("ts", "unix", "t0", "ms", "span_id", "parent_id", "run_id", "level_ms", "step_ms",
+             "host_ms", "dispatch_ms", "wait_ms", "queued_ms", "seconds", "states_per_sec")
+    with open(run.manifest_path) as fh:
+        man = json.load(fh)
+    prom = {}
+    with open(run.metrics_prom) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                prom[re.sub(r',?run_id="[^"]*"', "", key)] = value.strip()
+    timed = ("kspec_rss_bytes", "kspec_states_per_sec", "kspec_level_ms", "kspec_step_ms_total",
+             "kspec_host_ms_total")
+    return {
+        "files": sorted(os.listdir(run.dir)),
+        "config": {k: v for k, v in man["config"].items() if k != "platform"},
+        "status": man["status"],
+        "result": {k: v for k, v in man["result"].items() if k not in clock},
+        "stats": [{k: v for k, v in r.items() if k not in clock} for r in records(run.stats_path)],
+        "spans": [{k: v for k, v in r.items() if k not in clock} for r in records(run.spans_path)],
+        "metrics": {k: v for k, v in prom.items() if not k.startswith(timed)},
+    }
+
+
+@pytest.mark.parametrize("pipeline", ["fused", "device"])
+def test_run_dir_on_card_equals_cpu(card, pipeline, tmp_path):
+    """check(run=) on the card writes the run directory a CPU run writes,
+    clock-free field for clock-free field (the platform aside), and K1 ran."""
+    from kafka_specification_tpu_torch.obs import RunContext, metrics, tracer
+
+    kw = dict(pipeline=pipeline, min_bucket=32, chunk_size=256, compact_gate=32)
+    got = {}
+    for dev in (card, "cpu"):
+        run = RunContext(str(tmp_path / str(dev)))
+        k1 = cuda_fingerprint.LAUNCHES
+        res = check(kip320.make_model(Config(3, 2, 1, 1)), device=dev, run=run, **kw)
+        assert res.ok and res.total == 6787
+        assert tracer.current_tracer() is None and metrics.current_registry() is None
+        if dev == card:
+            assert cuda_fingerprint.LAUNCHES > k1
+        got[str(dev)] = (_run_dir_content(run), run)
+    assert got[str(card)][0] == got["cpu"][0]
+    import json
+
+    with open(got[str(card)][1].manifest_path) as fh:
+        assert json.load(fh)["config"]["platform"] == "gpu"
+
+
+def test_profiler_window_sees_k1(card, tmp_path):
+    """A torch.profiler window of obs/tracer.py around a check on the card
+    records one device event of K1's kernel for each counted launch."""
+    import json
+
+    from kafka_specification_tpu_torch.obs.tracer import start_profiler, stop_profiler
+
+    prof = start_profiler()
+    k1 = cuda_fingerprint.LAUNCHES
+    try:
+        res = check(kip320.make_model(Config(3, 2, 1, 1)), device=card)
+        torch.cuda.synchronize()
+    finally:
+        stop_profiler(prof, str(tmp_path / "trace.json"))
+    launches = cuda_fingerprint.LAUNCHES - k1
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    k1_events = [e for e in events
+                 if e.get("cat") == "kernel" and "fingerprint_kernel" in e.get("name", "")]
+    assert res.total == 6787 and launches > 0 and len(k1_events) == launches
+    assert not torch.autograd.profiler._is_profiler_enabled

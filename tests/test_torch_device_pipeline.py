@@ -40,6 +40,13 @@ from kafka_specification_tpu_torch.models import variants as tvariants
 from kafka_specification_tpu_torch.ops import dedup, devlevel
 from kafka_specification_tpu_torch.resilience import integrity as tinteg
 
+
+@pytest.fixture(autouse=True)
+def _runs_root(tmp_path, monkeypatch):
+    """Each CLI check's run directory lands under this test's tmp_path."""
+    monkeypatch.setenv("KSPEC_RUNS_ROOT", str(tmp_path / "runs"))
+
+
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(min_bucket=32, chunk_size=256, compact_gate=32)
 TAIL_KW = dict(min_bucket=16, chunk_size=32, compact_gate=32)

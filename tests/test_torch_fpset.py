@@ -14,6 +14,13 @@ from kafka_specification_tpu.native import FpSet as JFpSet
 from kafka_specification_tpu_torch import check, cli, native
 from kafka_specification_tpu_torch.models import id_sequence as tids
 
+
+@pytest.fixture(autouse=True)
+def _runs_root(tmp_path, monkeypatch):
+    """Each CLI check's run directory lands under this test's tmp_path."""
+    monkeypatch.setenv("KSPEC_RUNS_ROOT", str(tmp_path / "runs"))
+
+
 REPO = Path(__file__).resolve().parents[1]
 EDGES = np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 2, 2**64 - 1], dtype=np.uint64)
 

@@ -2,6 +2,7 @@
 entry points run on the card unless the caller asks for the CPU."""
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -19,7 +20,7 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "kafka_specification_tpu")
 
 
-def test_import_and_tiny_check_load_no_jax():
+def test_import_and_tiny_check_load_no_jax(tmp_path):
     code = textwrap.dedent(
         """
         import importlib, os, pkgutil, sys
@@ -57,6 +58,14 @@ def test_import_and_tiny_check_load_no_jax():
             assert cli.main(["verify-checkpoint", tmp + "/disk", "--json"]) == 0
             assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
                              "--mem-budget", "64", "--checkpoint", tmp + "/disk"]) == 0
+            # the run context: a run directory, its report, the fault grammar
+            assert cli.main(["check", "configs/IdSequence.cfg", "--cpu", "--json",
+                             "--run-dir", tmp + "/run"]) == 0
+            assert sorted(os.listdir(tmp + "/run")) == [
+                "manifest.json", "metrics.jsonl", "metrics.prom", "spans.jsonl",
+                "stats.jsonl"]
+            assert cli.main(["report", tmp + "/run"]) == 0
+            assert cli.main(["faults", "--list"]) == 0
         for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
                      "utils.pretty", "models.id_sequence", "models.finite_replicated_log",
                      "durable_io", "native", "resilience.integrity",
@@ -65,7 +74,8 @@ def test_import_and_tiny_check_load_no_jax():
                      "storage", "storage.atomic", "storage.bloom", "storage.runs",
                      "storage.frontier", "storage.parent_log", "storage.tiered",
                      "storage.store", "resilience.faults",
-                     "resilience.resources"):
+                     "resilience.resources", "obs", "obs.atomicio", "obs.tracer",
+                     "obs.metrics", "obs.runctx", "obs.observer", "obs.report"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -75,9 +85,12 @@ def test_import_and_tiny_check_load_no_jax():
         print("clean")
         """
     )
+    # every run directory of the checks without --run-dir lands under tmp_path
+    env = {**os.environ, "KSPEC_RUNS_ROOT": str(tmp_path / "runs")}
+    env.pop("KSPEC_FAULT", None)
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-        timeout=300,
+        timeout=300, env=env,
     )
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
@@ -104,7 +117,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "storage/__init__.py", "storage/atomic.py", "storage/bloom.py", "storage/runs.py",
             "storage/frontier.py", "storage/parent_log.py", "storage/tiered.py",
             "storage/store.py",
-            "resilience/faults.py", "resilience/resources.py"} <= names
+            "resilience/faults.py", "resilience/resources.py", "obs/__init__.py",
+            "obs/atomicio.py", "obs/tracer.py", "obs/metrics.py", "obs/runctx.py",
+            "obs/observer.py", "obs/report.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (

@@ -48,6 +48,12 @@ def _tiny_spill_shapes(monkeypatch):
     monkeypatch.delenv("KSPEC_FAULT", raising=False)
 
 
+@pytest.fixture(autouse=True)
+def _runs_root(tmp_path, monkeypatch):
+    """Each CLI check's run directory lands under this test's tmp_path."""
+    monkeypatch.setenv("KSPEC_RUNS_ROOT", str(tmp_path / "runs"))
+
+
 def tthw():
     return tvariants.make_model(THW, Config(2, 2, 1, 1), ("TypeOk", "WeakIsr"))
 
