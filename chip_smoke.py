@@ -134,10 +134,23 @@ print no result:
          without run=, and with only a stats file, in turns (P S C C S P,
          10 runs a side), the walls' medians and quartiles beside the
          card's name and power limit
+  overlap  the overlap layer (overlap.py, check(overlap=)), each path run
+         with the layer on and then off, each counted from 0: Kip320 3r with
+         no knobs, on `host`, and with a checkpoint every level; E3 on the
+         tier at 16M on `fused` and on pipeline="device" (one checkpoint
+         after the last level): the same levels and digest chain on both
+         sides (the JAX package's pinned chain for Kip320), K1's launches
+         and largest launch equal on both sides, K1 held bit for bit at that
+         launch, staged_chunks_peak 2 with the layer on where a level has
+         more than one chunk and at most 1 off, and each side's wall, the
+         checkpoint writer's and merge worker's jobs and the levels' mean
+         overlap_efficiency (every earlier phase runs with the layer on,
+         the default)
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
-three E3 runs of disk-tier, each check of obs) then
+three E3 runs of disk-tier, each check of obs, each side of each overlap
+path) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -1691,6 +1704,93 @@ def phase_obs():
     return {"line": "; ".join(parts), "counts": counts}
 
 
+def _overlap_side(name, model_fn, on, chain_every, **knobs):
+    """One overlap path, one side: check() on the card with the layer `on`,
+    counted from 0, with a stats file and a checkpoint every `chain_every`
+    levels (the last one holds the run's chain).  -> (result, wall, counts,
+    held note, largest launches, chain)."""
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    side = "on" if on else "off"
+    ckpt = WORK / f"overlap-{name}-{side}"
+    stats = WORK / f"overlap-{name}-{side}.jsonl"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    stats.unlink(missing_ok=True)
+    res, wall, counts, held = _timed_check(model_fn(), ("fingerprint",), overlap=on,
+                                           checkpoint_dir=str(ckpt),
+                                           checkpoint_every=chain_every,
+                                           stats_path=str(stats), **knobs)
+    largest = _largest()["fingerprint"]
+    chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    stats.unlink(missing_ok=True)
+    return res, wall, counts, held, largest, chain
+
+
+def phase_overlap():
+    """The overlap layer on the card: each path with the layer on, then
+    off, each side counted from 0 and held at its own largest launch; the
+    same levels and chain, K1's launches and largest launch equal on both
+    sides, the staged-chunk bound."""
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    def kip():
+        return build_model("Kip320", load_config("configs/Kip320.cfg"))
+
+    def e3():
+        cfg = load_config("configs/Kip320.cfg")
+        cfg.constants.update(E3_CONSTANTS)
+        return build_model("Kip320", cfg)
+
+    kip_chain = np.array(KIP320_CHAIN, dtype=np.uint64)
+    # (name, model, checkpoint cadence, knobs, the pinned chain or None)
+    paths = [
+        ("Kip320 default", kip, 26, {}, kip_chain),
+        ("Kip320 host", kip, 26, dict(visited_backend="host"), kip_chain),
+        ("Kip320 checkpoint every level", kip, 1, {}, kip_chain),
+        ("E3 tier fused", e3, E3_DIAMETER + 1, dict(mem_budget=E3_BUDGET), None),
+        ("E3 tier device", e3, E3_DIAMETER + 1, dict(mem_budget=E3_BUDGET, pipeline="device"),
+         None),
+    ]
+    parts, counts = [], {}
+    for name, model_fn, every, knobs, pinned in paths:
+        sides = {on: _overlap_side(name, model_fn, on, every, **knobs) for on in (True, False)}
+        (r_on, w_on, c_on, h_on, l_on, ch_on), (r_off, w_off, c_off, h_off, l_off, ch_off) = (
+            sides[True], sides[False])
+        if r_on.levels != r_off.levels or not r_on.ok or not np.array_equal(ch_on, ch_off):
+            raise AssertionError(f"overlap {name}: on {r_on.levels} / off {r_off.levels}, or "
+                                 f"the chains differ")
+        if pinned is not None and (r_on.levels != KIP320_LEVELS
+                                   or not np.array_equal(ch_on, pinned)):
+            raise AssertionError(f"overlap {name}: the levels or the chain differ from the "
+                                 f"JAX package's")
+        if c_on != c_off or l_on != l_off:
+            raise AssertionError(f"overlap {name}: K1 launches on {c_on} {l_on}, off {c_off} "
+                                 f"{l_off}")
+        ov_on, ov_off = r_on.stats["overlap"], r_off.stats["overlap"]
+        multi = any(n > (1 << 15) for n in r_on.levels)  # a level of several chunks
+        if (not ov_on["enabled"] or ov_off["enabled"] or ov_off["staged_chunks_peak"] > 1
+                or ov_on["staged_chunks_peak"] > 2
+                or (multi and "pipeline" not in knobs and ov_on["staged_chunks_peak"] != 2)):
+            raise AssertionError(f"overlap {name}: stats on {ov_on}, off {ov_off}")
+        effs = [lv["overlap_efficiency"] for lv in r_on.stats["levels"]]
+        counts[f"{name} on"], counts[f"{name} off"] = c_on, c_off
+        jobs = {w: ov_on[w]["jobs"] for w in ("io_worker", "ckpt_worker") if w in ov_on}
+        parts.append(f"{name}: {r_on.total} states, levels and chain equal on/off"
+                     + (" and to the JAX pin" if pinned is not None else "")
+                     + f"; wall on {w_on:.2f} s / off {w_off:.2f} s; K1 {c_on['fingerprint']} "
+                     f"launches both sides, largest {l_on}; staged peak on "
+                     f"{ov_on['staged_chunks_peak']} / off {ov_off['staged_chunks_peak']}; jobs "
+                     f"{jobs}; mean overlap_efficiency {np.mean(effs):.3f}; sync ckpt on "
+                     f"{ov_on['sync_ckpt_io_s']} s / off {ov_off['sync_ckpt_io_s']} s"
+                     + (f"; spills {r_on.stats['spill']['spills']}/{r_off.stats['spill']['spills']}"
+                        f", merges {r_on.stats['spill']['merges']}/"
+                        f"{r_off.stats['spill']['merges']}" if "spill" in r_on.stats else "")
+                     + f"; on: {h_on}")
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1724,6 +1824,7 @@ def main() -> int:
     device_pipeline = ph.run("device-pipeline", phase_device_pipeline)
     disk_tier = ph.run("disk-tier", phase_disk_tier)
     obs = ph.run("obs", phase_obs)
+    overlap = ph.run("overlap", phase_overlap)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -1736,7 +1837,8 @@ def main() -> int:
                "product violation": product["violation_counts"],
                **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()},
                **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()},
-               **{f"obs {p}": c for p, c in obs["counts"].items()}}
+               **{f"obs {p}": c for p, c in obs["counts"].items()},
+               **{f"overlap {p}": c for p, c in overlap["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

@@ -232,6 +232,7 @@ def _check(args) -> int:
             store=args.store,
             disk_budget=args.disk_budget,
             run=run_ctx,
+            overlap=args.overlap,
             device="cpu" if args.cpu else args.device,
             **kw,
         )
@@ -479,6 +480,17 @@ def main(argv=None) -> int:
         help="level pipeline: 'fused' (default; $KSPEC_PIPELINE overrides), "
         "'legacy', or 'device' (every gated chunk of a level queued on the card, "
         "one host read a level); all give the same result",
+    )
+    pc.add_argument(
+        "--overlap",
+        choices=["on", "off"],
+        default=None,
+        help="async level-pipelined execution ($KSPEC_OVERLAP is the env twin; "
+        "default on): the two-slot staged chunk pipeline (a chunk's host commit "
+        "runs while the next chunk's kernels finish), background spill-run "
+        "merges, and checkpoint writes on a writer thread.  'off' is the serial "
+        "path (the bit-identity oracle): counts, traces and digest chains are "
+        "identical either way",
     )
     pc.add_argument(
         "--device",

@@ -58,6 +58,18 @@ resource governor (``resilience/resources.py``) watches disk, memory and
 time at every level boundary, and ``$KSPEC_FAULT`` (``resilience/
 faults.py``) injects crashes, full disks, stalls and bit flips at the same
 sites as the JAX engine.
+
+The overlap layer (``overlap.py``; ``check(overlap=)``, ``$KSPEC_OVERLAP``,
+default on, as in the JAX package) changes when work runs, never what it
+computes: the per-chunk loop stages two chunks (chunk k+1 dispatched
+before chunk k is committed; ``pipeline.run_chunk``), the disk tier's
+merges run on the ``kspec-io`` worker and checkpoint writes on
+``kspec-ckpt``.  Everything runs on one CUDA stream, and no worker thread
+makes a CUDA call.  The sorted ``device`` set's dedup stays in the commit:
+chunk k+1's dedup is queued after chunk k's merge, in stream order, so it
+sees it, and the set grows on its size after that merge, as in the JAX
+engine (whose dispatch holds the dedup).  The device-hash table grows
+before a chunk's dispatch, as the JAX engine's does.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from ..obs import metrics as _met
 from ..obs.observer import RunObserver
 from ..ops import dedup, hashset
 from ..ops.cuda_hashset import probe_insert
+from ..overlap import AsyncWorker, close_workers, overlap_enabled, worker_counters
 from ..pipeline_registry import resolve_pipeline
 from ..resilience import integrity
 from ..resilience.checkpoints import CheckpointStore
@@ -91,8 +104,8 @@ from ..storage import DEFAULT_MEM_BUDGET, DiskTierStore, parse_mem_budget, resol
 from ..storage.frontier import FrontierReader, SegmentCorrupt
 from ..storage.parent_log import ParentLogCorrupt
 from ..storage.runs import RunCorrupt
-from .pipeline import (DevicePipeline, compacts, fp_stage, grow_visited, invariant_stage, next_pow2,
-                       run_chunk, sorted_dedup_stage)
+from .pipeline import (DevicePipeline, HostSlots, compacts, fp_stage, grow_visited, invariant_stage,
+                       next_pow2, run_chunk, sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
@@ -171,6 +184,8 @@ def fps_u64(hi: torch.Tensor, lo: torch.Tensor) -> np.ndarray:
 class _SortedVisited:
     """The ``device`` backend: sorted order keys, padded to a power of two."""
 
+    host_keys = False  # a chunk's insert takes its fingerprints on the card
+
     def __init__(self, okeys: torch.Tensor, cap: int):
         """okeys: the set's order keys, ascending."""
         self.n = okeys.shape[0]
@@ -219,6 +234,7 @@ class _HashVisited:
     """The ``device-hash`` backend: the open-addressing table (kernel K2)."""
 
     capacity = _NO_SORTED_CAP
+    host_keys = False
 
     def __init__(self, hi, lo, min_cap: int):
         self.table = hashset.table_from_pairs(hi, lo, min_cap=min_cap)
@@ -263,6 +279,7 @@ class _HostVisited:
     """The ``host`` backend: the native fingerprint set (``native/``)."""
 
     capacity = _NO_SORTED_CAP
+    host_keys = True  # a chunk's insert takes its fingerprints on the host
 
     def __init__(self, fps: np.ndarray, initial_capacity: int = 1 << 16):
         self.set = FpSet(initial_capacity)  # builds fpset.cpp at first use; raises without g++
@@ -276,15 +293,15 @@ class _HostVisited:
     def reserve(self, width: int):
         pass  # the set grows itself
 
-    def insert(self, hi, lo) -> torch.Tensor:
-        """-> candidate indices of the new states, in candidate order."""
-        new = self.set.insert(fps_u64(hi, lo))
-        return torch.from_numpy(np.flatnonzero(new)).to(hi.device)
+    def insert(self, keys: np.ndarray) -> np.ndarray:
+        """A chunk's fingerprint pair keys (int64 bit patterns, in candidate
+        order, on the host) -> indices of the new ones, in candidate
+        order."""
+        return np.flatnonzero(self.set.insert(keys.view(np.uint64)))
 
     def insert_keys(self, keys: np.ndarray) -> np.ndarray:
-        """One batched insert of fingerprint pair keys (int64 bit
-        patterns, in candidate order) -> indices of the new ones."""
-        return np.flatnonzero(self.set.insert(keys.view(np.uint64)))
+        """A device level's one batched insert (the same keys and answer)."""
+        return self.insert(keys)
 
     def save_arrays(self) -> dict:
         return {"host_fps": self.set.dump()}
@@ -433,6 +450,11 @@ class _RamLevels:
     def append(self, rows, parent, act) -> None:
         self.parts.append((rows, parent, act))
 
+    def append_kept(self, out, keep: np.ndarray, start: int) -> None:
+        """A chunk's new states, `keep` its candidate indices on the host."""
+        idx = torch.from_numpy(keep).to(out.rows.device)
+        self.append(out.rows[idx], out.parent[idx] + start, out.act[idx])
+
     def end(self) -> _RamFrontier:
         level = tuple(torch.cat(x) for x in zip(*self.parts)) if self.parts else self.empty
         if self.trace is not None:
@@ -460,6 +482,12 @@ class _DiskLevels:
 
     def append(self, rows, parent, act) -> None:
         self.disk.append(to_u32(rows), parent.cpu().numpy(), act.cpu().numpy())
+
+    def append_kept(self, out, keep: np.ndarray, start: int) -> None:
+        """A chunk's new states from its host copies (the staged dispatch
+        issued them), `keep` their candidate indices."""
+        self.disk.append(out.rows_h[keep].astype(np.uint32), out.parent_h[keep] + start,
+                         out.act_h[keep])
 
     def end(self) -> _SpilledFrontier:
         # publish the level; the consumed level's segments go behind the
@@ -517,6 +545,7 @@ def check(
     disk_budget=None,
     run=None,
     governor: Optional[ResourceGovernor] = None,
+    overlap: Optional[bool] = None,
     device=None,
 ) -> CheckResult:
     """Breadth-first exhaustive check of `model`; stops at the first
@@ -536,7 +565,9 @@ def check(
     stats_path: append one heartbeat-enveloped JSON line per level (depth,
     frontier, enabled candidates, new, duplicates, total, wall ms of the
     level, of its expansion and of its host work, per-action enablement);
-    the same records go to stats["levels"].
+    the same records go to stats["levels"], which adds the level's
+    overlap accounting (io_hidden_ms, io_exposed_ms, overlap_efficiency;
+    in memory only, as in the JAX package).
     visited_backend: "device" (sorted set), "device-hash" (hash table) or
     "host" (the native C++ set; needs g++ at first use).
     visited_capacity_hint: size the sorted set for about this many states
@@ -595,6 +626,18 @@ def check(
     dispatch of a device-resident level), where the JAX package counts
     XLA programs.
     governor: a ResourceGovernor to use in place of the env-derived one.
+    overlap: the async overlap layer (``overlap.py``; None: $KSPEC_OVERLAP,
+    else on; "on"/"off" and the other spellings of the JAX package's knob
+    resolve as there).  On, the per-chunk loop stages two chunks (chunk k+1
+    dispatched before chunk k is committed), the disk tier's k-way merges
+    run on a worker thread (``kspec-io``) and checkpoint writes on another
+    (``kspec-ckpt``, with `checkpoint_dir`); off is the serial path.  The
+    result is the same either way: levels, total, diameter, violation and
+    trace, the per-level stats but their clocks, and the digest chain.
+    Worker errors re-raise on this thread at the next join (the level's
+    start, blocking when a fault plan is armed, and the run's end) with
+    their serial twins' typed exits.  No worker thread outlives the call.
+    stats["overlap"] holds the layer's accounting (JAX's keys).
 
     $KSPEC_FAULT (``resilience/faults.py``) arms fault injection; a plan
     naming a site this engine does not wire is refused (ValueError).
@@ -622,6 +665,46 @@ def check(
         )
     pipe_name = resolve_pipeline(pipeline)
     dev = resolve_device(device)
+    # the async overlap layer ($KSPEC_OVERLAP, default on): kspec-io carries
+    # the background spill-run merges, kspec-ckpt the checkpoint writes; the
+    # two-slot chunk pipeline below needs no thread
+    overlap_on = overlap_enabled(overlap)
+    io_worker = AsyncWorker("kspec-io") if overlap_on else None
+    ckpt_worker = (AsyncWorker("kspec-ckpt")
+                   if overlap_on and checkpoint_dir is not None else None)
+    workers = (io_worker, ckpt_worker)
+    try:
+        return _check(
+            model, max_depth=max_depth, max_states=max_states, store_trace=store_trace,
+            min_bucket=min_bucket, check_invariants=check_invariants, progress=progress,
+            collect_levels=collect_levels, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            check_deadlock=check_deadlock, stats_path=stats_path,
+            visited_backend=visited_backend, chunk_size=chunk_size,
+            visited_capacity_hint=visited_capacity_hint,
+            visited_capacity_exact=visited_capacity_exact, compact_shift=compact_shift,
+            compact_gate=compact_gate, mem_budget=mem_budget, spill_dir=spill_dir,
+            disk_budget=disk_budget, run=run, governor=governor, use_disk=use_disk,
+            fault=fault, pipe_name=pipe_name, dev=dev, io_worker=io_worker,
+            ckpt_worker=ckpt_worker,
+        )
+    finally:
+        # no worker outlives the call: a completed run drained and closed
+        # them; any other ending closes them here, discarding what they
+        # hold (its own exception is already propagating)
+        close_workers(workers, drain=False)
+
+
+def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, check_invariants,
+           progress, collect_levels, checkpoint_dir, checkpoint_every, checkpoint_keep,
+           check_deadlock, stats_path, visited_backend, chunk_size, visited_capacity_hint,
+           visited_capacity_exact, compact_shift, compact_gate, mem_budget, spill_dir,
+           disk_budget, run, governor, use_disk, fault, pipe_name, dev, io_worker,
+           ckpt_worker) -> CheckResult:
+    """check() past its argument checks, with the overlap layer's workers
+    (None where the layer is off, or for kspec-ckpt without checkpoints)."""
+    overlap_on = io_worker is not None
+    workers = (io_worker, ckpt_worker)
     # run_id-stamped stats/spans/metrics when a run context is given; the
     # bare stats_path stream otherwise
     obs_ = RunObserver(run, stats_path, engine="bfs")
@@ -629,7 +712,9 @@ def check(
     K = spec.num_lanes
     C = model.total_fanout
     t0 = time.perf_counter()
-    # the newest durably checkpointed level (None: not checkpointing);
+    # the newest checkpointed level (None: not checkpointing); with the
+    # async writer this is the newest SUBMITTED save (the save cadence),
+    # and `ckpt_durable_depth` the newest promoted one, on which
     # level-keyed faults defer until it reaches their level
     ckpt_depth = None
     if checkpoint_dir is not None:
@@ -659,6 +744,7 @@ def check(
             runs_per_merge=int(os.environ.get("KSPEC_SPILL_RUNS_PER_MERGE", "8")),
             fault_plan=fault,
             trace=store_trace or checkpoint_dir is not None,
+            merge_worker=io_worker,
         )
 
     def drop_ephemeral_spill():
@@ -697,6 +783,9 @@ def check(
         return Violation(invariant=name, depth=depth, state=decode_state(frontier.row(idx)),
                          trace=[])
 
+    staged_peak = 0  # most chunks staged at once (<= 2)
+    sync_io_s = 0.0  # wall spent on synchronous checkpoint writes
+
     def finish(violation):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -718,7 +807,17 @@ def check(
             stats["device"] = {"levels": pipe.levels, "fallback": pipe.fallback}
         if governor is not None:
             stats["governor"] = governor.stats()
+        # the overlap layer's accounting: the staged-chunk bound is
+        # structural (two slots)
+        stats["overlap"] = {
+            "enabled": overlap_on,
+            "staged_chunks_peak": staged_peak,
+            "sync_ckpt_io_s": round(sync_io_s, 4),
+            **({"io_worker": io_worker.stats()} if io_worker is not None else {}),
+            **({"ckpt_worker": ckpt_worker.stats()} if ckpt_worker is not None else {}),
+        }
         drop_ephemeral_spill()
+        close_workers(workers, drain=True)
         res = CheckResult(
             model=model.name,
             levels=levels,
@@ -779,6 +878,8 @@ def check(
                         if chain is not None else (spill_ref_errors,)),
             fault_plan=fault,
         )
+        if ckpt_worker is not None:
+            ckpt_store.attach_writer(ckpt_worker)
         loaded = ckpt_store.load()
     if loaded is not None:
         snap, _gen = loaded
@@ -818,11 +919,41 @@ def check(
             chain.fold(fps_u64(hi0, lo0))
             chain.seal(0, n0)
 
-    def save_checkpoint():
-        nonlocal ckpt_depth
+    # the async writer's bookkeeping: each in-flight save's deletion-barrier
+    # watermark (the barrier advances, once the save promotes, for exactly
+    # the files scheduled before its snapshot)
+    ckpt_durable_depth = ckpt_depth
+    ckpt_barrier_tokens: list = []
+
+    def ckpt_reap(completed) -> None:
+        nonlocal ckpt_durable_depth
+        for d, _path in completed:
+            ckpt_durable_depth = d if ckpt_durable_depth is None else max(ckpt_durable_depth, d)
+            if disk is not None:
+                tok = ckpt_barrier_tokens.pop(0) if ckpt_barrier_tokens else None
+                disk.fpset.deleter.on_save(upto=tok)
+
+    def ckpt_poll(block: bool = False) -> None:
+        """The join point of the async saves: surfaces the writer's errors
+        (typed ENOSPC, injected crashes) on this thread and advances the
+        durable depth and the deletion barrier."""
+        if ckpt_worker is None or ckpt_store is None:
+            return
+        ckpt_reap(ckpt_store.drain_async() if block else ckpt_store.poll_async())
+
+    def save_checkpoint(sync: bool = False):
+        """Snapshot everything mutable now, on this thread (every
+        device-to-host copy is made here), and write it: on the writer
+        thread (the chain check of the dump, the checksummed write, the
+        rotation, the promote and the chain read-back), or here when
+        `sync` or the layer is off."""
+        nonlocal ckpt_depth, ckpt_durable_depth, sync_io_s
+        run_async = ckpt_worker is not None and not sync
+        t_sync0 = time.perf_counter()
+        d_save = depth
         levels_arr = np.asarray(levels)
         anchored = chain is not None and chain.anchored
-        if anchored and fault.flip("ckpt", depth, ckpt_depth=ckpt_depth):
+        if anchored and fault.flip("ckpt", d_save, ckpt_depth=ckpt_durable_depth):
             # corrupt metadata before the CRC manifest is built: every
             # checksum passes over it, only the chain read-back flags it
             levels_arr = levels_arr.copy()
@@ -832,23 +963,45 @@ def check(
         # None for a tier generation: its hot dump is a subset of the set,
         # and its runs carry their own CRCs
         dump = integrity.visited_fps(extra)
+        pre_write = None
         if anchored and dump is not None:
-            if fault.flip("fpset", depth, ckpt_depth=ckpt_depth):
+            if fault.flip("fpset", d_save, ckpt_depth=ckpt_durable_depth):
                 key = next(iter(extra))
                 extra[key] = np.array(extra[key], copy=True)
                 integrity.flip_bit(extra[key])
                 dump = integrity.visited_fps(extra)
             # the dump must digest to the chain's running total before it is
-            # written: corruption found here never enters a checkpoint
-            integrity.count_check()
-            chain.verify_visited(dump, depth=depth)
-        path = ckpt_store.save(depth, dict(**frontier.save_arrays(), vcap=visited.capacity,
-                                           levels=levels_arr, total=total, **extra, **stamp))
-        if disk is not None:
-            disk.on_checkpoint_saved()  # a new durable generation: the deletion barrier advances
-        if anchored:
-            integrity.readback_chain(path, depth=depth)
-        ckpt_depth = depth
+            # written: corruption found here never enters a checkpoint.  The
+            # writer checks a snapshot of the chain (it goes on growing here)
+            chain_snap = (integrity.LevelDigestChain.from_array(chain.to_array())
+                          if run_async else chain)
+
+            def pre_write(chain_snap=chain_snap, dump=dump):
+                integrity.count_check()
+                chain_snap.verify_visited(dump, depth=d_save)
+
+        def after_promote(path):
+            if anchored:
+                integrity.readback_chain(path, depth=d_save)
+
+        arrays = dict(**frontier.save_arrays(), vcap=visited.capacity, levels=levels_arr,
+                      total=total, **extra, **stamp)
+        if run_async:
+            if disk is not None:
+                ckpt_barrier_tokens.append(disk.fpset.deleter.mark())
+            ckpt_store.save_async(d_save, arrays, pre_write=pre_write,
+                                  after_promote=after_promote)
+        else:
+            if pre_write is not None:
+                pre_write()
+            path = ckpt_store.save(d_save, arrays)
+            if disk is not None:
+                disk.on_checkpoint_saved()  # a new durable generation: the deletion barrier advances
+            after_promote(path)
+            ckpt_durable_depth = (d_save if ckpt_durable_depth is None
+                                  else max(ckpt_durable_depth, d_save))
+            sync_io_s += time.perf_counter() - t_sync0
+        ckpt_depth = d_save
 
     if governor is None:
         governor = ResourceGovernor.from_env(
@@ -859,34 +1012,127 @@ def check(
 
     def final_save():
         """Checkpoint-then-clean-exit: persist the level just completed,
-        off the checkpoint_every cadence if need be."""
-        if ckpt_store is not None and ckpt_depth != depth:
-            save_checkpoint()
+        off the checkpoint_every cadence if need be, synchronously and
+        after the async tail (the typed exit promises a DURABLE state)."""
+        if ckpt_store is None:
+            return
+        ckpt_poll(block=True)
+        if ckpt_depth != depth or ckpt_durable_depth != depth:
+            save_checkpoint(sync=True)
 
     def reclaim():
         """Soft-breach reclamation, in dependency order: tmp janitor,
         eager run merge, a fresh checkpoint (referencing the merged
         state), prune older generations, flush the deletion barrier
-        (everything still pending was referenced only by them)."""
+        (everything still pending was referenced only by them).  The
+        store's steps quiesce the merge worker first, and the blocking
+        checkpoint join keeps a reclaim from racing an in-flight write."""
         merged = False
         if disk is not None:
             disk.sweep_tmp()
             merged = disk.reclaim_merge()
         if ckpt_store is not None:
-            if merged or ckpt_depth != depth:
-                save_checkpoint()
+            ckpt_poll(block=True)
+            if merged or ckpt_depth != depth or ckpt_durable_depth != depth:
+                save_checkpoint(sync=True)
             ckpt_store.prune(keep_gens=1)
             if disk is not None:
                 disk.flush_deleted()
 
+    # the host copies a chunk's commit reads: its fingerprint pair keys
+    # (the host set's insert, the chain's fold) and, on the tier, its rows,
+    # parents and actions (the disk append), issued at the end of its
+    # dispatch into page-locked buffers
+    host_copies = ((("keys",) if chain is not None or visited_backend == "host" else ())
+                   + (("rows",) if disk is not None else ()))
+    slots = HostSlots()
     violation = None
     exhausted = None
     integrity_fail = None
+    verdict = None  # (frontier index, invariant name)
+    lvl_new = lvl_launches = 0
+    step_s = host_s = 0.0
+    act_en = None
+
+    def commit(st) -> bool:
+        """Commit one staged chunk, strictly in chunk order: wait for its
+        host copies, take its verdict, or insert its candidates into the
+        visited set, fold the chain and append the new states.  -> True
+        when a verdict ends the level."""
+        nonlocal verdict, lvl_new, lvl_launches, step_s, host_s
+        start, rows_n, bucket, handle, dispatch_s, t_staged = st
+        queued_s = time.perf_counter() - t_staged
+        if visited_backend == "device":
+            # the sorted set grows on its size after the previous chunk's
+            # merge, as the JAX engine's dispatch-time dedup sees it
+            visited.reserve(bucket * C)
+        t_wait = time.perf_counter()
+        out = handle.finalize()
+        wait_s = time.perf_counter() - t_wait
+        if out.verdict is not None:
+            verdict = (start + out.verdict[0], out.verdict[1])
+            return True
+        lvl_launches += 1
+        step_s += dispatch_s + wait_s
+        # dispatch_ms: issuing the chunk (its host reads included);
+        # wait_ms: the residual wait for its host copies; queued_ms: how
+        # long it sat staged while the previous chunk committed
+        obs_.chunk_span(
+            "step", dispatch_s + wait_s, depth=depth, start=start, rows=rows_n,
+            bucket=bucket, launches=1, dispatch_ms=round(dispatch_s * 1e3, 2),
+            wait_ms=round(wait_s * 1e3, 2), queued_ms=round(queued_s * 1e3, 2),
+        )
+        t_host = time.perf_counter()
+        if collect_stats:
+            act_en.add_(out.act_en)
+        # the span's `new`, as the JAX package counts it: the rows handed
+        # to the host set or table, the new states of the sorted set
+        nn = out.rows.shape[0]
+        if nn:
+            if visited.host_keys:
+                keep = visited.insert(out.keys)
+                if chain is not None:
+                    chain.fold(out.keys[keep].view(np.uint64))
+                won = keep.shape[0]
+                if won:
+                    sink.append_kept(out, keep, start)
+            else:
+                win = visited.insert(out.hi, out.lo)
+                if chain is not None:
+                    chain.fold(out.keys[win.cpu().numpy()].view(np.uint64))
+                won = win.shape[0]
+                sink.append(out.rows[win], out.parent[win] + start, out.act[win])
+                if visited_backend == "device":
+                    nn = won
+            lvl_new += won
+        obs_.chunk_span(
+            "host-assembly", time.perf_counter() - t_host, depth=depth, start=start,
+            new=nn, backend=visited_backend,
+        )
+        host_s += time.perf_counter() - t_host
+        return False
+
     try:
         while frontier.rows > 0:
-            fault.crash("level", depth, ckpt_depth=ckpt_depth)
+            # the level-start join: adopt finished background merges and
+            # promoted checkpoints, surfacing any worker error (typed
+            # faults, ENOSPC) on this thread before more work builds on
+            # them.  With a fault plan armed the join blocks, so that
+            # injection (crash deferral, flip gating, enospc surfacing)
+            # does not depend on the worker threads' timing
+            ckpt_poll(block=bool(fault.specs))
+            if disk is not None:
+                if fault.specs:
+                    disk.quiesce()
+                disk.poll_async()
+            lvl_io0 = worker_counters(workers)
+            lvl_sync_io0 = sync_io_s
+            # crash deferral keys on the DURABLE checkpoint depth, so an
+            # in-flight async save never arms a crash whose restart would
+            # not converge
+            fault.crash("level", depth, ckpt_depth=ckpt_durable_depth)
             if chain is not None:
-                if fault.flip("frontier", depth, ckpt_depth=ckpt_depth):
+                if fault.flip("frontier", depth, ckpt_depth=ckpt_durable_depth):
                     frontier.flip()
                 frontier.verify(chain, depth, spec)
             if max_depth is not None and depth >= max_depth:
@@ -906,7 +1152,7 @@ def check(
             act_en = torch.zeros(len(model.actions), dtype=torch.int64, device=dev) \
                 if collect_stats else None
             lvl_new = 0
-            verdict = None  # (frontier index, invariant name)
+            verdict = None
             dev_handled = 0
             source = frontier  # the level's rows, staged on the card for a device span
             plan = pipe.plan_level(f_total, chunk, min_bucket) if pipe is not None else None
@@ -922,7 +1168,8 @@ def check(
             if plan is not None:
                 # the device-resident span: every gated chunk queued on the
                 # card, one host read; a sub-gate tail chunk follows below at
-                # its serial offset
+                # its serial offset.  Not staged: its one read blocks on the
+                # span (the workers go on meanwhile)
                 t_step = time.perf_counter()
                 out = pipe.run_level(source.read_all(), plan, visited)
                 t_host = time.perf_counter()
@@ -975,43 +1222,45 @@ def check(
                         start=0, new=nn, backend=visited_backend,
                     )
                 host_s += time.perf_counter() - t_host
+            # the two-slot staged chunk pipeline: chunk k+1 is dispatched
+            # before chunk k is committed, so chunk k's host commit runs
+            # while the card finishes chunk k+1's tail.  At most two chunks
+            # are staged; commits run strictly in chunk order, so counts,
+            # novelty, the first violation and traces are the serial path's,
+            # which is this loop with the layer off (each dispatch followed
+            # by its commit).  A verdict is known at dispatch (its host
+            # reads): that chunk is committed before another is dispatched,
+            # so no chunk is launched that the serial path would not launch
+            staged = None
             for start, piece in source.chunks(chunk, dev_handled):
                 governor.poll(depth)  # the deadline watchdog
-                t_step = time.perf_counter()
                 bucket = next_pow2(max(piece.shape[0], min_bucket))
-                visited.reserve(bucket * C)
-                out = run_chunk(model, piece, compacts(bucket, compact_shift, compact_gate),
-                                check_deadlock, check_invariants, collect_stats)
-                t_host = time.perf_counter()
-                step_s += t_host - t_step
-                if out.verdict is not None:
-                    verdict = (start + out.verdict[0], out.verdict[1])
+                if visited_backend == "device-hash":
+                    # the table grows before a chunk is dispatched, as the
+                    # JAX engine's does: ahead of the staged chunk's commit
+                    visited.reserve(bucket * C)
+                t_step = time.perf_counter()
+                handle = run_chunk(model, piece, compacts(bucket, compact_shift, compact_gate),
+                                   check_deadlock, check_invariants, collect_stats,
+                                   host_copies, slots)
+                cur = (start, piece.shape[0], bucket, handle, time.perf_counter() - t_step,
+                       time.perf_counter())
+                if not overlap_on:
+                    if commit(cur):
+                        break
+                    continue
+                staged_peak = max(staged_peak, 2 if staged is not None else 1)
+                if staged is not None and commit(staged):
+                    staged = None  # the chunk just dispatched: discarded uncommitted
                     break
-                lvl_launches += 1
-                obs_.chunk_span(
-                    "step", t_host - t_step, depth=depth, start=start, rows=piece.shape[0],
-                    bucket=bucket, launches=1, dispatch_ms=round((t_host - t_step) * 1e3, 2),
-                    wait_ms=0.0, queued_ms=0.0,
-                )
-                if collect_stats:
-                    act_en += out.act_en
-                # the span's `new`, as the JAX package counts it: the rows
-                # handed to the host set or table, the new states of the
-                # sorted set
-                nn = out.rows.shape[0]
-                if nn:
-                    win = visited.insert(out.hi, out.lo)
-                    if chain is not None:
-                        chain.fold(fps_u64(out.hi[win], out.lo[win]))
-                    sink.append(out.rows[win], out.parent[win] + start, out.act[win])
-                    lvl_new += win.shape[0]
-                    if visited_backend == "device":
-                        nn = win.shape[0]
-                obs_.chunk_span(
-                    "host-assembly", time.perf_counter() - t_host, depth=depth, start=start,
-                    new=nn, backend=visited_backend,
-                )
-                host_s += time.perf_counter() - t_host
+                staged = cur
+                if handle.verdict is not None:
+                    commit(staged)
+                    staged = None
+                    break
+            if staged is not None:
+                commit(staged)
+            staged = None
 
             if verdict is not None:
                 sink.abort()
@@ -1047,7 +1296,9 @@ def check(
                     host_ms=round(host_s * 1e3, 1),
                     action_enablement={a.name: c for a, c in zip(model.actions, en)},
                 )
-                stats_levels.append(rec)
+                # the in-memory record: the emitted one, and below the
+                # level's overlap accounting
+                stats_levels.append(dict(rec))
                 _met.set_gauge("kspec_successor_launches_level", lvl_launches)
                 if lvl_probe_ms:
                     # the device level's one batched host probe, in ms
@@ -1062,6 +1313,27 @@ def check(
             # level-boundary governance: pressure, the injected stall,
             # soft-breach reclamation, the hard breach's typed clean exit
             governor.level_end(depth, reclaim=reclaim, save_hook=final_save)
+            if collect_stats:
+                # the level's overlap accounting (the JAX package's): hidden
+                # = the workers' busy wall not re-exposed as this thread's
+                # blocking; exposed = blocking waits on the workers plus
+                # synchronous checkpoint writes
+                busy1, blk1 = worker_counters(workers)
+                hid = max(0.0, (busy1 - lvl_io0[0]) - (blk1 - lvl_io0[1]))
+                exp = (blk1 - lvl_io0[1]) + (sync_io_s - lvl_sync_io0)
+                eff = hid / (hid + exp) if (hid + exp) > 1e-9 else 1.0
+                stats_levels[-1].update(io_hidden_ms=round(hid * 1e3, 2),
+                                        io_exposed_ms=round(exp * 1e3, 2),
+                                        overlap_efficiency=round(eff, 4))
+                _met.set_gauge("kspec_overlap_efficiency", round(eff, 4))
+                _met.inc("kspec_io_hidden_ms_total", round(hid * 1e3, 2))
+                _met.inc("kspec_io_exposed_ms_total", round(exp * 1e3, 2))
+        # the async tail, drained inside the typed-error scope: a pending
+        # checkpoint's ENOSPC or a background merge's injected fault takes
+        # the same typed exit as its synchronous twin
+        ckpt_poll(block=True)
+        if disk is not None:
+            disk.quiesce()
     except ResourceExhausted as e:
         exhausted = e
     except IntegrityError as e:

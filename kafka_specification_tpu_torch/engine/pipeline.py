@@ -30,6 +30,18 @@ guard program, host compaction and one update program); they give the
 same result.  The port's action kernels already evaluate every cell in one
 batched call, so one implementation (``run_chunk``) serves both names.
 
+``run_chunk`` is the chunk's *dispatch*, the counterpart of the JAX
+package's ``run_chunk_staged``: it does the host reads the squeeze cannot
+do without (the invariant flags, the deadlock flag, the exact enabled
+counts), queues the pack and K1 on the card's stream, issues the
+device-to-host copies the commit needs into page-locked buffers
+(``HostSlots``) and records an event after them.  Its
+``StagedChunk.finalize`` waits on that event alone and returns the
+chunk's ``Chunk``.  The level loop (``engine/bfs.py``) dispatches chunk
+k+1 before it commits chunk k, so chunk k's host commit runs while the
+card finishes chunk k+1's tail; a plain ``.cpu()`` in the commit would
+wait for every kernel queued ahead of it, chunk k+1's included.
+
 Buffers are sized at the exact enabled counts.  XLA compiles fixed shapes,
 so the JAX package sizes its compact buffers by a policy
 (``AdaptiveCompact``: a uniform 1/2^shift width, measured per-action
@@ -184,7 +196,10 @@ def sorted_dedup_stage(okeys: torch.Tensor, vkeys: torch.Tensor, vn: int):
 class Chunk(NamedTuple):
     """One chunk's outcome: a verdict (frontier index, invariant name), or
     its enabled candidates in candidate order with their fingerprints, and
-    (when asked for) the enabled cells of each action, int64[A]."""
+    (when asked for) the enabled cells of each action, int64[A].  The host
+    copies asked of the dispatch: `keys`, the candidates' fingerprint pair
+    keys (int64 bit patterns); `rows_h`, `parent_h`, `act_h`, their rows,
+    chunk-local parents and actions (int64)."""
 
     verdict: Optional[tuple]
     rows: Optional[torch.Tensor] = None
@@ -193,29 +208,110 @@ class Chunk(NamedTuple):
     hi: Optional[torch.Tensor] = None
     lo: Optional[torch.Tensor] = None
     act_en: Optional[torch.Tensor] = None
+    keys: Optional[np.ndarray] = None
+    rows_h: Optional[np.ndarray] = None
+    parent_h: Optional[np.ndarray] = None
+    act_h: Optional[np.ndarray] = None
+
+
+class HostSlots:
+    """Page-locked host buffers for the staged chunks' device-to-host
+    copies: one set a staging slot (the level loop stages at most two
+    chunks), each buffer grown (at least doubled) to hold the largest copy
+    it took, and never shrunk.  A slot is reused two dispatches later,
+    after its chunk was committed, and the commit keeps no view of it
+    (every host array it passes on is a fancy-indexed copy).  On the CPU
+    there is no copy: the host arrays are views of the chunk's tensors."""
+
+    SLOTS = 2
+
+    def __init__(self):
+        self._bufs = [{} for _ in range(self.SLOTS)]
+        self._next = 0
+
+    def take(self) -> dict:
+        """The next slot's buffers, in turn."""
+        slot = self._bufs[self._next]
+        self._next = (self._next + 1) % self.SLOTS
+        return slot
+
+    @staticmethod
+    def copy(slot: dict, name: str, t: torch.Tensor) -> np.ndarray:
+        """Issue the copy of `t` into the slot's buffer `name` (grown if
+        too small) on the current stream; -> its host view, valid once the
+        chunk's event has completed."""
+        if t.device.type != "cuda":
+            return t.numpy()
+        n = t.numel()
+        buf = slot.get(name)
+        if buf is None or buf.numel() < n or buf.dtype != t.dtype:
+            # doubled at least, so that a run's few growths amortize the
+            # page-locked allocation
+            old = 0 if buf is None else buf.numel()
+            buf = slot[name] = torch.empty(max(n, 2 * old, 1), dtype=t.dtype, pin_memory=True)
+        view = buf[:n].view(t.shape)
+        view.copy_(t, non_blocking=True)
+        return view.numpy()
+
+
+class StagedChunk:
+    """A dispatched chunk: its verdict (known at dispatch), or its outputs
+    on the card with their host copies in flight behind `event`."""
+
+    def __init__(self, chunk: Chunk, event=None):
+        self._chunk = chunk
+        self._event = event
+
+    @property
+    def verdict(self) -> Optional[tuple]:
+        return self._chunk.verdict
+
+    def finalize(self) -> Chunk:
+        """Wait for the chunk's host copies (their event, nothing queued
+        after it) and return the chunk."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._chunk
 
 
 def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadlock: bool,
-              check_invariants: bool, enablement: bool) -> Chunk:
-    """Stages 1-3 and 5 of one chunk of frontier rows, int64[rows, K], in
-    the candidate order `action_major` selects (``compacts``).  Serves the
-    "legacy" and "fused" pipelines alike (module docstring).  Stage 5 runs
-    when `check_invariants`; `enablement` counts each action's enabled
-    cells after the constraint (for the per-level stats)."""
+              check_invariants: bool, enablement: bool, host: tuple = (),
+              slots: Optional[HostSlots] = None) -> StagedChunk:
+    """Dispatch stages 1-3 and 5 of one chunk of frontier rows, int64[rows,
+    K], in the candidate order `action_major` selects (``compacts``).
+    Serves the "legacy" and "fused" pipelines alike (module docstring).
+    Stage 5 runs when `check_invariants`; `enablement` counts each action's
+    enabled cells after the constraint (for the per-level stats).  `host`
+    names the host copies the commit needs ("keys", "rows": the Chunk
+    fields), issued last, into `slots` on the card.  -> the staged chunk;
+    its ``finalize()`` gives the ``Chunk``."""
     states = model.spec.unpack(piece)
     if check_invariants:
         bad = invariant_stage(model, states)
         if bad is not None:
-            return Chunk((bad[1], bad[0]))
+            return StagedChunk(Chunk((bad[1], bad[0])))
     en_pre, parts = expand_stage(model, states)
     if check_deadlock:
         dead = deadlock_rows(en_pre)
         if bool(dead.any()):
-            return Chunk((int(torch.argmax(dead.to(torch.uint8))), "Deadlock"))
+            return StagedChunk(Chunk((int(torch.argmax(dead.to(torch.uint8))), "Deadlock")))
     act_en = torch.stack([e.sum() for e, _ in parts]) if enablement else None
     rows, parent, act = squeeze_stage(model.spec, parts, action_major)
     hi, lo = fp_stage(model.spec, rows)
-    return Chunk(None, rows, parent, act, hi, lo, act_en)
+    copies = {}
+    if host:
+        slot = slots.take()
+        if "keys" in host:
+            copies["keys"] = HostSlots.copy(slot, "keys", dedup.pair_key(hi, lo))
+        if "rows" in host:
+            for name, t in (("rows_h", rows), ("parent_h", parent), ("act_h", act)):
+                copies[name] = HostSlots.copy(slot, name, t)
+    event = None
+    if copies and rows.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return StagedChunk(Chunk(None, rows, parent, act, hi, lo, act_en, **copies), event)
 
 
 def fp_masked(spec, rows: torch.Tensor, valid: torch.Tensor):

@@ -1,0 +1,296 @@
+"""Async overlap layer: the worker-thread plumbing that takes storage
+I/O, spill-run merges and checkpoint writes off the level loop's
+critical path.
+
+The port's own copy of ``kafka_specification_tpu/overlap.py``.  One knob
+governs every overlap: ``KSPEC_OVERLAP`` (env) / ``--overlap on|off``
+(CLI) / ``check(overlap=...)``.  Default ON; ``off`` is the serial path,
+the bit-identity oracle the overlap tests compare against
+(tests/test_torch_overlap.py).  The three overlaps this module underpins:
+
+1. **two-slot staged chunk pipeline** (engine/bfs.py + pipeline.py): no
+   thread at all.  The level loop stages at most TWO chunks: chunk k+1 is
+   dispatched (its kernels queued on the card's stream, its device-to-host
+   copies issued into page-locked buffers behind an event) before chunk
+   k's host commit (fingerprint-set insert, disk append, digest folds)
+   runs, so the host work of one chunk runs while the card finishes the
+   next one's tail.
+2. **background spill-run merges** (storage/tiered.py): k-way merges run
+   on an :class:`AsyncWorker`.  Inputs are immutable sorted runs, so
+   lookups keep serving from them until the merged output is atomically
+   promoted and *adopted* — all engine-visible mutation stays on the
+   submitting thread.
+3. **async checkpoint writes** (resilience/checkpoints.py): the engine
+   snapshots the arrays synchronously (every device-to-host copy happens
+   there) and a writer thread runs chain verification + checksummed write
+   + atomic promote.
+
+A worker never touches the card: its jobs read and write host arrays and
+files only, so no kernel ever runs off the engine's stream.  The JAX
+package's fourth overlap (the sharded exchange and its fingerprint
+compression) waits for the sharded engine.
+
+Error contract: a worker NEVER swallows a failure.  Exceptions
+(including injected faults — ``crash@merge:N`` raising
+:class:`~.resilience.faults.InjectedCrash`, ``enospc@ckpt:N`` raising
+``OSError(ENOSPC)``) are stored on the job and re-raised on the
+submitting thread at its next ``wait``/``poll``/``drain`` — so the
+typed exit paths (rc-75 resource exits, crash-restart, exit-76
+integrity) fire exactly as in serial mode, at the next join point.  Jobs
+propagate the submitter's obs context (tracer + metrics registry are
+per thread), so ``checkpoint-write``/``spill-merge`` spans emitted on a
+worker land in the same run trace.
+
+Stdlib only (storage and resilience import it).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+OVERLAP_ENV = "KSPEC_OVERLAP"
+_OFF = ("0", "off", "false", "no")
+
+#: machine-readable ownership contract (asserted on every attribute write
+#: under KSPEC_TSAN=1, analysis/ownership.py; the JAX package's `cli
+#: analyze` checks it statically), equal to the JAX package's:
+#: - AsyncJob results are written by the worker and published by
+#:   `done.set()`; immutable afterwards (readers join through wait()).
+#: - AsyncWorker queue/accounting state is guarded by `_cv`;
+#:   `blocked_s` belongs to the single submitting (engine) thread.
+THREAD_CONTRACT = {
+    "schema": "kspec-ownership/1",
+    "classes": {
+        "AsyncJob": {
+            "immutable_after_init": ["label", "done"],
+            # result/exc/seconds/fn: worker-written, immutable after
+            # done.set() — writes happen in AsyncWorker._run, so they
+            # are checked under AsyncWorker's worker context
+        },
+        "AsyncWorker": {
+            "lock": "_cv",
+            "shared_locked": ["_q", "_inflight", "_failed", "_closed",
+                              "busy_s", "jobs_done"],
+            "engine_only": ["blocked_s"],
+            "immutable_after_init": ["name", "_cv", "_thread"],
+            "worker_methods": ["_run"],
+        },
+    },
+}
+
+
+def overlap_enabled(flag=None) -> bool:
+    """Resolve the overlap knob: explicit arg > $KSPEC_OVERLAP > on."""
+    if flag is not None:
+        if isinstance(flag, str):
+            return flag.strip().lower() not in _OFF
+        return bool(flag)
+    env = os.environ.get(OVERLAP_ENV)
+    if env is None or not env.strip():
+        return True
+    return env.strip().lower() not in _OFF
+
+
+class AsyncJob:
+    """One unit of background work; results/errors read via the worker."""
+
+    __slots__ = ("label", "fn", "done", "result", "exc", "seconds")
+
+    def __init__(self, label: str, fn: Callable):
+        self.label = label
+        self.fn = fn
+        self.done = threading.Event()
+        self.result = None
+        self.exc: Optional[BaseException] = None
+        self.seconds = 0.0
+
+
+class AsyncWorker:
+    """A single serial daemon worker thread.
+
+    Jobs run strictly in submission order (the engine relies on this:
+    checkpoint generations rotate in save order, merge promotes never
+    reorder).  Jobs must only produce files/values — every mutation of
+    engine-visible state happens on the submitting thread when it adopts
+    a completed job's result.  ``busy_s``/``blocked_s`` feed the
+    hidden-vs-exposed I/O accounting (obs ``kspec_overlap_efficiency``).
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self._cv = threading.Condition()
+        self._q: deque = deque()
+        self._inflight: Optional[AsyncJob] = None
+        self._failed: deque = deque()  # completed jobs with unraised errors
+        self._closed = False
+        self.busy_s = 0.0  # worker wall spent running jobs (hidden I/O)
+        self.blocked_s = 0.0  # submitter wall spent blocked on jobs (exposed)
+        self.jobs_done = 0
+        self._thread = threading.Thread(
+            target=self._run, name=name, daemon=True
+        )
+        self._thread.start()
+
+    # --- submission -------------------------------------------------------
+    def submit(self, label: str, fn: Callable) -> AsyncJob:
+        """Queue `fn` for the worker; returns the job handle.
+
+        The submitter's per-thread obs context (active tracer + metrics
+        registry) is captured here and re-activated around the job, so
+        spans/metrics emitted by background I/O land in the same run."""
+        from .obs import metrics as _met
+        from .obs import tracer as _tr
+
+        tracer = _tr.current_tracer()
+        registry = _met.current_registry()
+        inner = fn
+
+        def run():
+            _tr.set_tracer(tracer)
+            _met.set_registry(registry)
+            try:
+                return inner()
+            finally:
+                _tr.set_tracer(None)
+                _met.set_registry(None)
+
+        job = AsyncJob(label, run)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(f"AsyncWorker {self.name!r} is closed")
+            self._q.append(job)
+            self._cv.notify_all()
+        return job
+
+    # --- worker loop ------------------------------------------------------
+    def _run(self) -> None:
+        from .analysis import ownership as _own
+
+        _own.register_worker_thread(self._thread)
+        try:
+            self._run_loop()
+        finally:
+            _own.unregister_worker_thread(self._thread)
+
+    def _run_loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._q and not self._closed:
+                    self._cv.wait()
+                if not self._q and self._closed:
+                    return
+                job = self._q.popleft()
+                self._inflight = job
+            t0 = time.perf_counter()
+            try:
+                job.result = job.fn()
+            except BaseException as e:  # noqa: BLE001 — stored, re-raised
+                job.exc = e
+            # release the closure NOW: a checkpoint job closes over the
+            # full array snapshot, and the engine may not reap the handle
+            # until a level later — the promoted file is the durable copy
+            job.fn = None
+            job.seconds = time.perf_counter() - t0
+            with self._cv:
+                self.busy_s += job.seconds
+                self.jobs_done += 1
+                self._inflight = None
+                if job.exc is not None:
+                    self._failed.append(job)
+                job.done.set()
+                self._cv.notify_all()
+
+    # --- joining ----------------------------------------------------------
+    def _raise_failed(self, job: AsyncJob) -> None:
+        with self._cv:
+            try:
+                self._failed.remove(job)
+            except ValueError:
+                pass  # already consumed by a poll
+        raise job.exc
+
+    def wait(self, job: AsyncJob):
+        """Block for one job; re-raise its error; return its result."""
+        t0 = time.perf_counter()
+        job.done.wait()
+        self.blocked_s += time.perf_counter() - t0
+        if job.exc is not None:
+            self._raise_failed(job)
+        return job.result
+
+    def poll(self) -> None:
+        """Non-blocking: re-raise the oldest unraised worker error."""
+        with self._cv:
+            job = self._failed.popleft() if self._failed else None
+        if job is not None:
+            raise job.exc
+
+    def pending(self) -> int:
+        with self._cv:
+            return len(self._q) + (1 if self._inflight is not None else 0)
+
+    def drain(self) -> None:
+        """Block until every queued job completed, then raise the first
+        stored error (if any) — the engine's durability join point."""
+        t0 = time.perf_counter()
+        with self._cv:
+            while self._q or self._inflight is not None:
+                self._cv.wait()
+        self.blocked_s += time.perf_counter() - t0
+        self.poll()
+
+    def close(self, swallow: bool = True) -> None:
+        """Drain + stop the thread.  swallow=True (terminal/error paths)
+        discards stored errors instead of raising from cleanup."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=60.0)
+        if not swallow:
+            self.poll()
+        else:
+            with self._cv:
+                self._failed.clear()
+
+    def stats(self) -> dict:
+        with self._cv:
+            return {
+                "jobs": self.jobs_done,
+                "busy_s": round(self.busy_s, 4),
+                "blocked_s": round(self.blocked_s, 4),
+            }
+
+
+def close_workers(workers, drain: bool) -> None:
+    """Shared engine shutdown: drain=True (clean completion) surfaces
+    worker errors; error paths close with swallow (their typed exception
+    is already propagating).  None entries are skipped."""
+    for w in workers:
+        if w is None:
+            continue
+        if drain:
+            w.drain()
+        w.close(swallow=True)
+
+
+def worker_counters(workers) -> tuple:
+    """(worker-busy, caller-blocked) seconds across `workers` — the
+    hidden-vs-exposed I/O attribution inputs the engine samples per
+    level.  None entries are skipped."""
+    busy = blocked = 0.0
+    for w in workers:
+        if w is not None:
+            busy += w.busy_s
+            blocked += w.blocked_s
+    return busy, blocked
+
+
+# KSPEC_TSAN=1 (test-only): assert THREAD_CONTRACT ownership on every
+# attribute write (analysis/ownership.py); zero overhead otherwise
+from .analysis.ownership import bind_contract as _bind_contract  # noqa: E402
+
+_bind_contract(globals(), THREAD_CONTRACT)

@@ -1,8 +1,8 @@
 """Hardened checkpoint store: checksums, keep-last-K rotation, fallback.
 
 The port's own copy of ``kafka_specification_tpu/resilience/checkpoints.py``
-(single-file, synchronous saves), writing and reading the same files, so a
-checkpoint written by either package resumes in the other:
+(single-file saves), writing and reading the same files, so a checkpoint
+written by either package resumes in the other:
 
 - **Integrity**: every array in a checkpoint is CRC32-summed into a JSON
   manifest stored inside the npz (``__manifest__``).  Loads recompute and
@@ -27,10 +27,16 @@ Fault injection (``resilience/faults.py``): ``crash@ckpt:N`` and
 ``verify_checkpoint_dir`` is the offline verifier behind ``cli
 verify-checkpoint``.
 
-Not ported: the asynchronous writer (``save_async``; the JAX package's
-``--overlap off`` is this serial path) and the sharded engine's per-shard
-part files and per-shard spill manifests (the verifier reads single-device
-directories, the only ones the port writes).
+The asynchronous writer (``attach_writer``/``save_async``, the overlap
+layer's ``kspec-ckpt`` thread, ``overlap.py``): the engine snapshots
+every array synchronously (the device-to-host copies happen there) and
+the writer thread runs the pre-write chain check, the checksummed write,
+the rotation and the promote; its errors re-raise on the engine thread at
+``poll_async``/``drain_async``.  The files are the synchronous save's.
+
+Not ported: the sharded engine's per-shard part files and per-shard spill
+manifests (the verifier reads single-device directories, the only ones
+the port writes).
 """
 
 from __future__ import annotations
@@ -48,6 +54,26 @@ from .. import durable_io as _dio
 from .faults import corrupt_file
 
 MANIFEST_KEY = "__manifest__"
+
+#: machine-readable ownership contract (analysis/ownership.py), equal to
+#: the JAX package's: the writer thread runs `save()` — which mutates
+#: NOTHING on the store (files only; every array handed to save_async is
+#: immutable from snapshot time) — while the async bookkeeping
+#: (_async_job/_async_done and the attached writer) belongs to the engine
+#: thread that polls it.  (`ident_aliases`, the sharded engine's, names no
+#: attribute of the port's store.)
+THREAD_CONTRACT = {
+    "schema": "kspec-ownership/1",
+    "classes": {
+        "CheckpointStore": {
+            "engine_only": ["_writer", "_async_job", "_async_done"],
+            "immutable_after_init": ["directory", "basename", "ident",
+                                     "ident_aliases", "keep",
+                                     "fault_plan", "validators"],
+            "worker_safe": ["save"],
+        },
+    },
+}
 
 
 class CheckpointCorrupt(Exception):
@@ -111,6 +137,11 @@ class CheckpointStore:
         self.keep = max(1, int(keep))
         self.validators = tuple(validators)
         self.fault_plan = fault_plan
+        # async-write state (attach_writer): at most one save in flight,
+        # completed (depth, path) pairs held until the engine polls them
+        self._writer = None
+        self._async_job = None
+        self._async_done: list = []
         os.makedirs(directory, exist_ok=True)
         # startup janitor: a save killed mid-write leaves `<name>.tmp.npz`
         # behind, which no generation names
@@ -172,6 +203,78 @@ class CheckpointStore:
         if self.fault_plan is not None and self.fault_plan.should_corrupt(depth):
             corrupt_file(path)
         return path
+
+    # --- async writes (KSPEC_OVERLAP) -----------------------------------
+    def attach_writer(self, worker) -> None:
+        """Enable :meth:`save_async` on an :class:`~..overlap.AsyncWorker`.
+
+        The split of responsibilities is the async-checkpoint contract:
+        the ENGINE snapshots the level metadata, the digest chain, and the
+        visited/frontier dumps synchronously — every array handed to
+        save_async is immutable from then on — and the WRITER thread runs
+        the pre-write chain verification, the checksummed tmp write,
+        rotation and the atomic promote.  Errors (a real or injected
+        ENOSPC, an injected crash) are stored on the job and re-raised on
+        the engine thread at its next poll_async()/drain_async(), so the
+        typed exit-75 path and the crash-restart contract fire exactly as
+        in serial mode."""
+        self._writer = worker
+
+    def save_async(self, depth: int, arrays: dict, pre_write=None,
+                   after_promote=None) -> None:
+        """Queue one checksummed save on the attached writer thread.
+
+        Serialized: a still-pending previous save is drained first (its
+        error, if any, propagates here).  `pre_write` runs on the writer
+        BEFORE the tmp write (the engine passes the digest-chain visited
+        self-check — verification moves off the critical path but stays
+        ahead of the promote, so detected corruption still never enters a
+        checkpoint); `after_promote(path)` runs on the writer after the
+        atomic promote (the chain read-back)."""
+        assert self._writer is not None, "attach_writer first"
+        # join the previous save WITHOUT consuming its completion record:
+        # the engine's poll_async/drain_async is what processes the
+        # (depth, path) pairs (barrier advance, durable-depth tracking)
+        self._reap(block=True)
+
+        def job():
+            if pre_write is not None:
+                pre_write()
+            path = self.save(depth, arrays)
+            if after_promote is not None:
+                after_promote(path)
+            return path
+
+        self._async_job = (depth, self._writer.submit("checkpoint-write-async", job))
+
+    def _reap(self, block: bool) -> None:
+        if self._async_job is None:
+            return
+        depth, job = self._async_job
+        if not block and not job.done.is_set():
+            return
+        try:
+            # wait() re-raises THIS job's error (and consumes it from the
+            # worker's failed queue) — never some other client's failure
+            path = self._writer.wait(job)
+        except BaseException:
+            self._async_job = None
+            raise
+        self._async_job = None
+        self._async_done.append((depth, path))
+
+    def poll_async(self) -> list:
+        """Non-blocking join: -> completed (depth, path) pairs since the
+        last poll; re-raises a failed write's error."""
+        self._reap(block=False)
+        done, self._async_done = self._async_done, []
+        return done
+
+    def drain_async(self) -> list:
+        """Block for the pending save (if any); -> completed pairs."""
+        self._reap(block=True)
+        done, self._async_done = self._async_done, []
+        return done
 
     def prune(self, keep_gens: int = 1) -> list:
         """Unlink every rotated generation at index >= `keep_gens`, keeping
@@ -351,3 +454,10 @@ def verify_checkpoint_dir(directory: str, spill_dir=None) -> dict:
         report["stores"].append(store_rep)
     report["ok"] = bool(report["stores"]) and all(s["ok"] for s in report["stores"])
     return report
+
+
+# KSPEC_TSAN=1 (test-only): assert THREAD_CONTRACT ownership on every
+# attribute write (analysis/ownership.py); no cost otherwise
+from ..analysis.ownership import bind_contract as _bind_contract  # noqa: E402
+
+_bind_contract(globals(), THREAD_CONTRACT)

@@ -45,6 +45,7 @@ class DiskTierStore:
         runs_per_merge: int = 8,
         fault_plan=None,
         trace: bool = True,
+        merge_worker=None,
     ):
         # normalized for the same reason as TieredFpSet.dir: resume's
         # orphan sweep compares dirnames textually against deleter paths
@@ -59,6 +60,7 @@ class DiskTierStore:
             runs_per_merge=runs_per_merge,
             gc_barrier=gc_barrier,
             fault_plan=fault_plan,
+            merge_worker=merge_worker,
         )
         self.frontier_dir = os.path.join(spill_dir, "frontier")
         sweep_tmp(self.frontier_dir)  # mid-write death janitor
@@ -130,12 +132,25 @@ class DiskTierStore:
     def on_checkpoint_saved(self) -> None:
         self.fpset.on_checkpoint_saved()
 
+    def poll_async(self) -> None:
+        """Engine-thread adoption/error point for the background merge
+        worker (no-op without one): finished merges swap in, worker
+        errors — typed faults included — re-raise here."""
+        self.fpset.poll_merge()
+
+    def quiesce(self) -> None:
+        """Wait out (and adopt) any in-flight background merge."""
+        self.fpset.quiesce()
+
     def reclaim_merge(self) -> bool:
         """Soft-breach reclamation step: eagerly k-way merge all runs
         (superseded inputs go behind the deletion barrier; the caller's
         fresh checkpoint + generation prune then makes them deletable).
-        Returns whether a merge ran — the caller skips its fresh
-        checkpoint when nothing changed the on-disk state."""
+        Quiesces the merge worker first — a reclaim must never race a
+        background promote.  Returns whether a merge ran — the caller
+        skips its fresh checkpoint when nothing changed the on-disk
+        state."""
+        self.fpset.quiesce()
         if len(self.fpset.runs) < 2:
             return False
         self.fpset.merge()
@@ -144,11 +159,18 @@ class DiskTierStore:
     def flush_deleted(self) -> int:
         """Delete every barrier-pending file now — legal only right after
         the caller pruned all generations but the newest (see
-        DeferredDeleter.flush).  Returns the number of files freed."""
+        DeferredDeleter.flush).  Quiesces the merge worker first: an
+        in-flight merge's inputs must reach the barrier (adoption) before
+        a flush can claim the barrier is fully accounted.  Returns the
+        number of files freed."""
+        self.fpset.quiesce()
         return self._deleter.flush()
 
     def sweep_tmp(self) -> list:
-        """Janitor pass over every directory this store writes."""
+        """Janitor pass over every directory this store writes.  Quiesces
+        the merge worker first — the background merge's half-written tmp
+        is live work, not a stray."""
+        self.fpset.quiesce()
         out = sweep_tmp(os.path.join(self.dir, "fps"))
         out += sweep_tmp(self.frontier_dir)
         out += sweep_tmp(os.path.join(self.dir, "plog"))

@@ -20,10 +20,16 @@ have been saved (`on_checkpoint_saved`), so every retained generation's
 manifest still resolves on disk — the deletion barrier is what makes the
 disk tier itself the durable state the checkpoint merely *references*.
 
-Merges run in line on the caller's thread: the JAX package's background
-merge worker (its default overlap layer) and its thread-ownership
-contract binding are not ported; its serial path, which this follows,
-writes the same files.
+With a `merge_worker` (the overlap layer's ``kspec-io`` AsyncWorker,
+``overlap.py``) the k-way merges run in the background: the worker only
+writes files (tmp-write + atomic promote, the in-line merge's crash
+contract), and lookups keep serving from the immutable input runs until
+the engine thread *adopts* the merged run (`poll_merge`): the run list,
+the gate counters and the deletion barrier change on the engine thread
+only.  Without one (``--overlap off``) merges run in line on the caller's
+thread, as the JAX package's serial path does, writing the same files.
+Where thread timing decides when a merge is adopted, the run files may
+differ from the serial path's, never the set's membership.
 """
 
 from __future__ import annotations
@@ -41,6 +47,29 @@ from .runs import SortedRun, merge_runs, write_run
 # ~bytes of host residency per fingerprint: 8 B/slot at <=1/2 open-
 # addressing load, i.e. ~16 B per live entry
 _BYTES_PER_FP = 16
+
+#: machine-readable ownership contract (analysis/ownership.py), equal to
+#: the JAX package's: the merge worker writes FILES ONLY — its job closure
+#: captures immutable SortedRun inputs and never touches the set object,
+#: so every attribute is engine-thread-only; adoption of a finished merge
+#: (run-list swap, counter retirement, deletion-barrier scheduling)
+#: happens on the engine thread in poll_merge.
+THREAD_CONTRACT = {
+    "schema": "kspec-ownership/1",
+    "classes": {
+        "DeferredDeleter": {
+            "engine_only": ["pending", "barrier"],
+        },
+        "TieredFpSet": {
+            "engine_only": ["hot", "runs", "disk_n", "seq", "spills",
+                            "merges", "_merge_job", "_retired_probes",
+                            "mem_budget", "deleter"],
+            "immutable_after_init": ["dir", "runs_per_merge",
+                                     "fault_plan", "verify_on_open",
+                                     "merge_worker"],
+        },
+    },
+}
 
 
 class DeferredDeleter:
@@ -64,11 +93,24 @@ class DeferredDeleter:
             return
         self.pending.extend([self.barrier, p] for p in paths)
 
-    def on_save(self) -> None:
-        """Advance the barrier for one durably promoted generation."""
+    def mark(self) -> int:
+        """Watermark for :meth:`on_save` — the count of currently pending
+        entries.  An ASYNC checkpoint save snapshots its manifest now but
+        promotes later; its barrier advance must cover exactly the files
+        scheduled before the snapshot (entries appended afterwards belong
+        to younger state the write never referenced)."""
+        return len(self.pending)
+
+    def on_save(self, upto=None) -> None:
+        """Advance the barrier for one durably promoted generation.
+        `upto` (a :meth:`mark` watermark) restricts the advance to the
+        entries pending at that save's snapshot; None = all (the
+        synchronous path, where snapshot and promote coincide)."""
+        n = len(self.pending) if upto is None else min(int(upto), len(self.pending))
         keep = []
-        for item in self.pending:
-            item[0] -= 1
+        for i, item in enumerate(self.pending):
+            if i < n:
+                item[0] -= 1
             if item[0] <= 0:
                 _unlink_quiet(item[1])
             else:
@@ -123,7 +165,18 @@ class TieredFpSet:
         gc_barrier: int = 0,
         fault_plan=None,
         verify_on_open: bool = True,
+        merge_worker=None,
     ):
+        """merge_worker: an :class:`~..overlap.AsyncWorker` — k-way merges
+        then run in the background.  The worker only writes files
+        (tmp-write + atomic promote, the in-line merge's crash contract);
+        the run list, gate counters and the deletion barrier mutate ONLY
+        on the engine thread when a finished merge is *adopted*
+        (poll_merge), so lookups keep serving from the immutable inputs
+        the whole time and never block on an unfinished merge.  Worker
+        errors — including the injected crash@merge:N / enospc@merge:N
+        faults, which fire on the worker — re-raise on the engine thread
+        at the next poll/quiesce."""
         # normalized: orphan sweeps and the deletion barrier compare paths
         # textually, and DeferredDeleter.restore normpaths its entries —
         # a dot-prefixed directory ("./ck/spill") must compare equal
@@ -133,6 +186,8 @@ class TieredFpSet:
         self.fault_plan = fault_plan
         self.verify_on_open = verify_on_open
         self.deleter = DeferredDeleter(gc_barrier)
+        self.merge_worker = merge_worker
+        self._merge_job = None  # (job, inputs, out_path) in flight
         self.hot = FpSet()  # builds native/fpset.cpp at first use; raises without g++
         self.runs: list[SortedRun] = []
         self.disk_n = 0
@@ -151,6 +206,7 @@ class TieredFpSet:
     def start_fresh(self) -> None:
         """Wipe the directory (a fresh run owns its namespace — stale runs
         from an abandoned search must not pre-seed the visited set)."""
+        self._abandon_merge()
         for name in os.listdir(self.dir):
             _unlink_quiet(os.path.join(self.dir, name))
         self.hot = FpSet()
@@ -164,6 +220,7 @@ class TieredFpSet:
         the checkpointed dump, and sweep orphan files (tmp/run files from
         the crashed post-checkpoint window — the deterministic re-run
         regenerates them identically)."""
+        self._abandon_merge()
         directory = self.dir
         self.mem_budget = int(manifest["mem_budget"])
         self.seq = int(manifest["seq"])
@@ -222,6 +279,9 @@ class TieredFpSet:
     def insert(self, fps: np.ndarray) -> np.ndarray:
         """Novelty mask, bit-identical to an unbounded FpSet (in-batch
         duplicates report novel exactly once, at first occurrence)."""
+        if self._merge_job is not None:
+            self.poll_merge()  # adopt a finished background merge (and
+            # surface its errors) before probing the run list
         fps = np.ascontiguousarray(fps, np.uint64)
         novel = np.zeros(fps.shape[0], bool)
         fresh = ~self._disk_contains(fps)
@@ -247,6 +307,8 @@ class TieredFpSet:
         level-new set guarantees it), so slice order cannot change any
         first-occurrence decision; runs stay pairwise disjoint because the
         disk probe still precedes every hot insert."""
+        if self._merge_job is not None:
+            self.poll_merge()
         fps = np.ascontiguousarray(fps, np.uint64)
         novel = np.zeros(fps.shape[0], bool)
         if not fps.shape[0]:
@@ -377,7 +439,10 @@ class TieredFpSet:
         self.spills += 1
         self.hot = FpSet()
         if len(self.runs) > self.runs_per_merge:
-            self.merge()
+            if self.merge_worker is not None:
+                self._start_merge()
+            else:
+                self.merge()
 
     def merge(self) -> None:
         """K-way merge every run into one.  Crash-safe: the merged output
@@ -385,6 +450,8 @@ class TieredFpSet:
         behind the checkpoint-generation deletion barrier, so a crash at
         ANY point (including the injected `crash@merge:N`) leaves a state
         some retained checkpoint manifest fully resolves."""
+        self.quiesce()  # a reclaim's eager merge must not race a
+        # background promote over the same inputs
         if len(self.runs) < 2:
             return
         from ..obs import metrics as _met
@@ -414,3 +481,109 @@ class TieredFpSet:
         old = [r.path for r in self.runs]
         self.runs = [SortedRun(self.dir, meta, verify=False)]
         self.deleter.schedule(old)
+
+    # --- background merges (KSPEC_OVERLAP) -------------------------------
+    def _start_merge(self) -> None:
+        """Submit a k-way merge of the CURRENT runs to the worker.  At
+        most one merge is in flight; if one still is, this spill's runs
+        simply ride along until the next trigger (the run list only
+        grows between merges, so correctness never depends on merge
+        timing — only lookup fan-out does)."""
+        self.poll_merge()
+        if self._merge_job is not None:
+            return  # one merge at a time; adopted at the next poll
+        inputs = list(self.runs)
+        if len(inputs) < 2:
+            return
+        self.merges += 1
+        ordinal = self.merges
+        path = self._run_path()
+        fault_plan = self.fault_plan
+
+        def job():
+            # worker-side: files only.  The crash/enospc injection points
+            # fire HERE (on the worker) and propagate to the engine
+            # thread at its next poll/quiesce — same typed exits, same
+            # on-disk contract (tmp cleaned, inputs untouched).
+            from ..obs import metrics as _met
+            from ..obs import tracer as _obs
+
+            hook = None
+            if fault_plan is not None:
+                def hook():
+                    fault_plan.crash("merge", ordinal)
+                    fault_plan.enospc("merge", ordinal)
+
+            with _obs.span(
+                "spill-merge",
+                runs=len(inputs),
+                rows=int(sum(r.count for r in inputs)),
+                background=True,
+            ):
+                meta = merge_runs(inputs, path, crash_hook=hook)
+            _met.inc("kspec_spill_merges_total")
+            return meta
+
+        self._merge_job = (
+            self.merge_worker.submit("spill-merge", job), inputs, path
+        )
+
+    def poll_merge(self, wait: bool = False) -> None:
+        """Engine-thread adoption point: if the in-flight merge finished,
+        swap the merged run in for its inputs (newer spills appended
+        after submission stay), retire the inputs' gate counters, and
+        schedule the input files on the deletion barrier.  Re-raises the
+        worker's stored error (typed faults included)."""
+        if self._merge_job is None:
+            return
+        job, inputs, path = self._merge_job
+        if not wait and not job.done.is_set():
+            return
+        try:
+            # wait() re-raises THIS job's error (consuming it from the
+            # worker's failed queue) — with several tiered sets sharing
+            # one worker, a sibling's poll must never launder our error
+            # (or vice versa) into the wrong adoption
+            meta = self.merge_worker.wait(job)
+        except BaseException:
+            self._merge_job = None
+            raise
+        self._merge_job = None
+        for r in inputs:
+            self._retired_probes["probes"] += r.probes
+            self._retired_probes["bloom_maybe"] += r.bloom_maybe
+            self._retired_probes["hits"] += r.hits
+        self.runs = [SortedRun(self.dir, meta, verify=False)] + [
+            r for r in self.runs if r not in inputs
+        ]
+        self.deleter.schedule([r.path for r in inputs])
+
+    def quiesce(self) -> None:
+        """Block until no merge is in flight and adopt its output —
+        REQUIRED before any reclamation that sweeps tmp files, flushes
+        the deletion barrier, or runs an in-line merge (a reclaim racing
+        a background promote could unlink the merge's tmp mid-write or
+        flush files its manifest still needs)."""
+        if self._merge_job is not None:
+            self.poll_merge(wait=True)
+
+    def _abandon_merge(self) -> None:
+        """Wait out (never adopt) an in-flight merge — fresh-start /
+        restore paths: the merged output becomes an unreferenced orphan
+        their sweeps remove.  Worker errors are swallowed (the state the
+        merge would have produced is being discarded anyway)."""
+        if self._merge_job is None:
+            return
+        job, _inputs, _path = self._merge_job
+        self._merge_job = None
+        try:
+            self.merge_worker.wait(job)  # consumes THIS job's error only
+        except BaseException:  # noqa: BLE001 — discarded with the merge
+            pass
+
+
+# KSPEC_TSAN=1 (test-only): assert THREAD_CONTRACT ownership on every
+# attribute write (analysis/ownership.py); no cost otherwise
+from ..analysis.ownership import bind_contract as _bind_contract  # noqa: E402
+
+_bind_contract(globals(), THREAD_CONTRACT)

@@ -31,6 +31,7 @@ from kafka_specification_tpu_torch.models.base import Action, EncodingUnsound, I
 from kafka_specification_tpu_torch.models.kafka_replication import Config
 from kafka_specification_tpu_torch.ops.packing import Field, StateSpec
 from kafka_specification_tpu_torch.utils import cfg as tcfg
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 # config -> (module, max_depth of the BFS whose values the hull must hold)

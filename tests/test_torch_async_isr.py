@@ -29,6 +29,7 @@ from kafka_specification_tpu_torch.models import async_isr as tasync
 from kafka_specification_tpu_torch.models.base import EncodingUnsound
 from kafka_specification_tpu_torch.utils import cfg as tcfg
 from kafka_specification_tpu_torch.utils import pretty
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BACKENDS = ["device", "device-hash", "host"]

@@ -16,6 +16,7 @@ from kafka_specification_tpu.engine import bfs as jbfs
 from kafka_specification_tpu_torch import check, interop
 
 from test_torch_async_isr import BACKENDS, PIPELINES, chain_of, pair, stats_lines
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 CFG = (4, 2, 2)
 

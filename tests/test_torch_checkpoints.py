@@ -33,6 +33,7 @@ from kafka_specification_tpu_torch.models.base import Invariant as TInvariant
 from kafka_specification_tpu_torch.resilience import checkpoints as tckpt
 from kafka_specification_tpu_torch.resilience import integrity as tinteg
 from kafka_specification_tpu_torch.utils import cfg as tcfg
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BACKENDS = ["device", "device-hash", "host"]

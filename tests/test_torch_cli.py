@@ -30,6 +30,7 @@ from kafka_specification_tpu.utils.pretty import render_state as jax_render_stat
 from kafka_specification_tpu_torch import cli
 from kafka_specification_tpu_torch.resilience import checkpoints as tckpt
 from kafka_specification_tpu_torch.utils import pretty
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TIMING = ("seconds", "states_per_sec", "run_id")

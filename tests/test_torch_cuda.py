@@ -20,6 +20,7 @@ from kafka_specification_tpu_torch.ops import build, cuda_fingerprint, cuda_hash
 from kafka_specification_tpu_torch.engine import pipeline
 from kafka_specification_tpu_torch.ops import dedup
 from kafka_specification_tpu_torch.ops.dedup import pair_key
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -291,7 +292,10 @@ def test_disk_tier_on_card_equals_cpu(card, pipeline, monkeypatch, tmp_path):
     monkeypatch.setenv("KSPEC_SPILL_SEG_ROWS", "97")
     monkeypatch.setenv("KSPEC_SPILL_RUNS_PER_MERGE", "2")
     model = lambda: kip320.make_model(Config(3, 2, 1, 1))  # noqa: E731
-    kw = dict(mem_budget="8K", pipeline=pipeline, min_bucket=32, chunk_size=256, compact_gate=32)
+    # the serial paths: with the overlap layer on, thread timing decides
+    # when a background merge is adopted, and with it the run files
+    kw = dict(mem_budget="8K", pipeline=pipeline, min_bucket=32, chunk_size=256, compact_gate=32,
+              overlap=False)
     runs = {}
     for dev in (card, "cpu"):
         d = tmp_path / str(dev)
@@ -664,3 +668,32 @@ def test_profiler_window_sees_k1(card, tmp_path):
                  if e.get("cat") == "kernel" and "fingerprint_kernel" in e.get("name", "")]
     assert res.total == 6787 and launches > 0 and len(k1_events) == launches
     assert not torch.autograd.profiler._is_profiler_enabled
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_staged_loop_on_the_card_equals_serial(card, backend, tmp_path):
+    """The overlap layer's two-slot staged chunk loop on the card: Kip320 3r
+    L2 R1 E1 (6,787 states, hashed fingerprints) at chunk_size=256, several
+    chunks a level, gives the serial loop's levels, chain and K1 launches
+    (their host copies go through page-locked buffers behind an event), and
+    the CPU run's levels and chain."""
+    import os
+
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    model = lambda: kip320.make_model(Config(3, 2, 1, 1))  # noqa: E731
+    kw = dict(min_bucket=32, chunk_size=256, visited_backend=backend)
+    out = {}
+    for dev, on in ((card, True), (card, False), ("cpu", False)):
+        d = str(tmp_path / f"{dev}-{on}")
+        k1 = cuda_fingerprint.LAUNCHES
+        res = check(model(), device=dev, overlap=on, checkpoint_dir=d, **kw)
+        chain = verify_file(os.path.join(d, CHECKPOINT_BASENAME))["digest_chain"]
+        out[(str(dev), on)] = (res, cuda_fingerprint.LAUNCHES - k1, chain)
+    (r_on, k_on, c_on), (r_off, k_off, c_off), (r_cpu, _, c_cpu) = out.values()
+    assert r_on.ok and r_on.total == 6787 and r_on.levels == r_off.levels == r_cpu.levels
+    assert np.array_equal(c_on, c_off) and np.array_equal(c_on, c_cpu)
+    assert k_on == k_off > 0
+    assert r_on.stats["overlap"]["staged_chunks_peak"] == 2
+    assert r_off.stats["overlap"]["staged_chunks_peak"] == 0

@@ -39,6 +39,7 @@ from kafka_specification_tpu_torch.models import kafka_replication as tkr
 from kafka_specification_tpu_torch.models import variants as tvariants
 from kafka_specification_tpu_torch.ops import dedup, devlevel
 from kafka_specification_tpu_torch.resilience import integrity as tinteg
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

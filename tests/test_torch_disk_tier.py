@@ -4,8 +4,9 @@ fixture (segments of 13 rows, a merge every 2 runs, a 300-byte budget):
 levels, total, diameter, verdict, trace values, digest chain and the
 stats["spill"] counts, on the legacy, fused and device pipelines and after a
 crash and resume; the spill directory and the checkpoint's spill_manifest
-byte for byte (the JAX engine's serial path, overlap=False); and disk-tier
-checkpoints resumed across the two packages.
+byte for byte (the serial paths of both packages, overlap=False: with the
+overlap layer on, thread timing decides when a background merge is
+adopted); and disk-tier checkpoints resumed across the two packages.
 
 Trace values are held against the in-RAM `host` run: the tier spills the
 host level of the hierarchy, and which parent a state keeps is a property
@@ -30,6 +31,7 @@ from kafka_specification_tpu_torch.models import variants as tvariants
 from kafka_specification_tpu_torch.models.kafka_replication import Config
 from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
 from kafka_specification_tpu_torch.resilience.faults import FaultPlan, InjectedCrash
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.spill
 
@@ -110,7 +112,7 @@ def test_kip320_tiny_forced_spills_equal_jax():
     and merges, stats["spill"] equal to the JAX package's, key for key."""
     j = golden("kip-disk")
     t = check(tkip320.make_model(Config(2, 2, 1, 1), KIP_INV), min_bucket=32, mem_budget=300,
-              device="cpu")
+              overlap=False, device="cpu")
     assert t.ok and t.total == 277
     same(t, j)
     assert t.stats["spill"] == j.stats["spill"]
@@ -147,7 +149,7 @@ def test_device_pipeline_on_the_tier_equals_jax_tier(tmp_path):
     j = jbfs.check(jthw(), min_bucket=32, mem_budget=300, spill_dir=str(tmp_path / "j"),
                    pipeline="device", overlap=False, **DEV_KW)
     t = check(tthw(), min_bucket=32, mem_budget=300, spill_dir=str(tmp_path / "t"),
-              pipeline="device", device="cpu", **DEV_KW)
+              pipeline="device", overlap=False, device="cpu", **DEV_KW)
     same(t, j)
     assert t.stats["spill"] == j.stats["spill"]
     assert t.stats["device"] == j.stats["device"]
@@ -190,12 +192,14 @@ def test_level_crash_then_violation_reports_the_full_trace(tmp_path, monkeypatch
     ck, jck = str(tmp_path / "ck"), str(tmp_path / "jck")
     monkeypatch.setenv("KSPEC_FAULT", "crash@level:4")
     with pytest.raises(InjectedCrash):
-        check(tthw(), min_bucket=32, mem_budget=300, checkpoint_dir=ck, device="cpu")
+        check(tthw(), min_bucket=32, mem_budget=300, checkpoint_dir=ck, overlap=False,
+              device="cpu")
     with pytest.raises(Exception, match="injected crash at level:4"):
         jbfs.check(jthw(), min_bucket=32, mem_budget=300, checkpoint_dir=jck, overlap=False)
     assert int(verify_file(os.path.join(ck, CHECKPOINT_BASENAME))["depth"]) == 4
     monkeypatch.delenv("KSPEC_FAULT")
-    t = check(tthw(), min_bucket=32, mem_budget=300, checkpoint_dir=ck, device="cpu")
+    t = check(tthw(), min_bucket=32, mem_budget=300, checkpoint_dir=ck, overlap=False,
+              device="cpu")
     j = jbfs.check(jthw(), min_bucket=32, mem_budget=300, checkpoint_dir=jck, overlap=False)
     same(t, golden("thw-host"))
     same(t, j)
@@ -229,7 +233,7 @@ def test_spill_files_and_manifest_equal_jax_and_resume_across_packages(tmp_path)
     other's checkpoint to the JAX verdict and trace."""
     kw = dict(min_bucket=32, mem_budget=300, max_depth=5)
     tdir, jdir = str(tmp_path / "t"), str(tmp_path / "j")
-    t_cut = check(tthw(), checkpoint_dir=tdir, device="cpu", **kw)
+    t_cut = check(tthw(), checkpoint_dir=tdir, overlap=False, device="cpu", **kw)
     j_cut = jbfs.check(jthw(), checkpoint_dir=jdir, overlap=False, **kw)
     assert verdict(t_cut) == verdict(j_cut)
     assert tree(os.path.join(tdir, "spill")) == tree(os.path.join(jdir, "spill"))

@@ -17,6 +17,7 @@ from kafka_specification_tpu_torch.engine import bfs as tbfs
 from kafka_specification_tpu_torch.models import kafka_replication as tkr
 from kafka_specification_tpu_torch.models import kip320 as tkip320
 from kafka_specification_tpu_torch.models import variants as tvariants
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 JAX_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
 

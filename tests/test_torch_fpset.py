@@ -13,6 +13,7 @@ import pytest
 from kafka_specification_tpu.native import FpSet as JFpSet
 from kafka_specification_tpu_torch import check, cli, native
 from kafka_specification_tpu_torch.models import id_sequence as tids
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,7 @@ from kafka_specification_tpu_torch import check
 from kafka_specification_tpu_torch.models import kip320
 from kafka_specification_tpu_torch.models.kafka_replication import Config
 from kafka_specification_tpu_torch.ops import build
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "kafka_specification_tpu")
@@ -75,7 +76,8 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "storage.frontier", "storage.parent_log", "storage.tiered",
                      "storage.store", "resilience.faults",
                      "resilience.resources", "obs", "obs.atomicio", "obs.tracer",
-                     "obs.metrics", "obs.runctx", "obs.observer", "obs.report"):
+                     "obs.metrics", "obs.runctx", "obs.observer", "obs.report",
+                     "overlap", "analysis.ownership"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -119,12 +121,12 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "storage/store.py",
             "resilience/faults.py", "resilience/resources.py", "obs/__init__.py",
             "obs/atomicio.py", "obs/tracer.py", "obs/metrics.py", "obs/runctx.py",
-            "obs/observer.py", "obs/report.py"} <= names
+            "obs/observer.py", "obs/report.py", "overlap.py", "analysis/ownership.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
         "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
-        "torch_slice_walls.py", "torch_gate_cost.py")]
+        "torch_slice_walls.py", "torch_gate_cost.py", "torch_overlap_walls.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)

@@ -29,6 +29,7 @@ from kafka_specification_tpu_torch.models import kip320 as tkip320
 from kafka_specification_tpu_torch.ops.fingerprint import fingerprint_lanes
 from kafka_specification_tpu_torch.resilience import checkpoints as tckpt
 from kafka_specification_tpu_torch.resilience import integrity as tinteg
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 # 64-bit values where signed and unsigned arithmetic part ways
 EDGES = np.array([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**63 + 1,

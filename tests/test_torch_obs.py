@@ -14,9 +14,13 @@ depend on a clock.  Where the two cannot agree, the test says why:
 - the JAX package's ``compile`` spans (an XLA compile; the port has none);
 - ``launches`` and ``kspec_successor_launches_level``: JAX counts XLA
   programs, the port its chunk step dispatches (held by key);
-- the overlap layer's gauges, which the JAX engine sets even with
-  ``overlap=False`` and the port leaves unset until it has the layer
-  (``cli report`` then omits the overlap beat).
+- the overlap layer's gauges and counters, which both engines set even
+  with the layer off, from clocks (held by key).
+
+The run against run comparisons hold the port's serial path
+(``overlap=False``) against the JAX engine's: with the layer on, thread
+timing decides when a background merge is adopted, and with it the
+spill spans (tests/test_torch_overlap.py holds the layer on).
 
 Then ``cli report`` (text and ``--json``) of each package on the other's
 run directory and on ``tests/data/mini_run``, a crashed run's directory,
@@ -54,6 +58,7 @@ from kafka_specification_tpu_torch.obs import report as treport
 from kafka_specification_tpu_torch.obs import runctx as trunctx
 from kafka_specification_tpu_torch.obs import tracer as ttracer
 from kafka_specification_tpu_torch.resilience.faults import InjectedCrash
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.obs
 
@@ -69,10 +74,10 @@ LEVEL_VOLATILE = ("ts", "unix", "level_ms", "step_ms", "host_ms", "run_id")
 # metrics that read a clock or the process, held by key only
 METRIC_BY_KEY = ("kspec_successor_launches_level", "kspec_rss_bytes", "kspec_states_per_sec",
                  "kspec_level_ms", "kspec_step_ms_total", "kspec_host_ms_total",
-                 "kspec_host_probe_ms")
-# the JAX engine's overlap-layer metrics (set even with overlap=False)
-JAX_ONLY_METRICS = ("kspec_overlap_efficiency", "kspec_io_hidden_ms_total",
-                    "kspec_io_exposed_ms_total")
+                 "kspec_host_probe_ms", "kspec_overlap_efficiency", "kspec_io_hidden_ms_total",
+                 "kspec_io_exposed_ms_total")
+# the overlap accounting on the in-memory level records (not the stream's)
+LEVEL_IN_MEMORY = ("io_hidden_ms", "io_exposed_ms", "overlap_efficiency")
 # manifest fields that read a clock or the process
 MANIFEST_VOLATILE = ("run_id", "pid", "argv", "cwd", "git", "created", "created_unix")
 
@@ -175,7 +180,7 @@ def run_pair(tmp_path, variant, kw, jkw=None):
     jr = jrunctx.RunContext(str(tmp_path / "jax"))
     tr = trunctx.RunContext(str(tmp_path / "port"))
     jres = jbfs.check(jmodel, run=jr, overlap=False, **kw, **(jkw or {}))
-    tres = check(tmodel, run=tr, device="cpu", **kw)
+    tres = check(tmodel, run=tr, device="cpu", overlap=False, **kw)
     return jr, tr, jres, tres
 
 
@@ -195,9 +200,9 @@ def assert_same_run_dirs(jr, tr):
     assert all(r["run_id"] == tr.run_id for r in records(tr.stats_path))
     assert spans_by_level(tr.spans_path) == spans_by_level(jr.spans_path)
     pj, pt = prom(jr.metrics_prom), prom(tr.metrics_prom)
-    assert {k for k in pj if base(k) not in JAX_ONLY_METRICS} == set(pt)
+    assert set(pj) == set(pt)
     assert ({k: v for k, v in pt.items() if base(k) not in METRIC_BY_KEY}
-            == {k: v for k, v in pj.items() if base(k) not in METRIC_BY_KEY + JAX_ONLY_METRICS})
+            == {k: v for k, v in pj.items() if base(k) not in METRIC_BY_KEY})
     assert all(f'run_id="{tr.run_id}"' in line for line in open(tr.metrics_prom)
                if not line.startswith("#"))
 
@@ -322,7 +327,11 @@ def test_stats_shim_record_for_record(tmp_path):
         strip(r, LEVEL_VOLATILE) for r in recs_run]
     assert all("run_id" not in r for r in recs_bare)
     assert all(list(r)[3] == "run_id" and r["run_id"] == run.run_id for r in recs_run)
-    assert r1.stats["levels"] == recs_bare and r2.stats["levels"] == recs_run
+    # in memory, each record also carries the level's overlap accounting
+    assert all(list(r)[-3:] == list(LEVEL_IN_MEMORY) for r in r1.stats["levels"] + r2.stats[
+        "levels"])
+    assert [strip(r, LEVEL_IN_MEMORY) for r in r1.stats["levels"]] == recs_bare
+    assert [strip(r, LEVEL_IN_MEMORY) for r in r2.stats["levels"]] == recs_run
 
 
 # --- check(run=) against the JAX package's -----------------------------------------
@@ -421,7 +430,7 @@ def test_crashed_run_dir_equals_jax_and_renders(tmp_path, monkeypatch):
         with pytest.raises(JInjectedCrash):
             jbfs.check(jmodel, run=jr, overlap=False, **extra)
         with pytest.raises(InjectedCrash):
-            check(tmodel, run=tr, device="cpu", **extra)
+            check(tmodel, run=tr, device="cpu", overlap=False, **extra)
         assert ttracer.current_tracer() is tr.tracer  # a crash tears nothing down
         reset_globals()
         jr.tracer.close()
@@ -524,7 +533,7 @@ def test_exit_75_manifest_and_report_beat_equal_jax(tmp_path, capsys, monkeypatc
     args = ["--min-bucket", "32", "--mem-budget", "300", "--fault", "enospc@spill:1", "--json"]
     outs = {}
     for main, name, extra in ((jcli, "jax", ["--hand", "--overlap", "off"]),
-                              (tcli.main, "port", ["--cpu"])):
+                              (tcli.main, "port", ["--cpu", "--overlap", "off"])):
         d = tmp_path / name
         rc = main(["check", str(cfg), *extra, "--checkpoint", str(tmp_path / f"ck-{name}"),
                    "--run-dir", str(d), *args])

@@ -25,6 +25,7 @@ from kafka_specification_tpu_torch.models import kafka_replication as tkr
 from kafka_specification_tpu_torch.models import kip320 as tkip320
 from kafka_specification_tpu_torch.models.base import Invariant as TInvariant
 from kafka_specification_tpu_torch.resilience import heartbeat
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 BACKENDS = ["device", "device-hash", "host"]
 # the fields of a per-level stats record that do not depend on timing

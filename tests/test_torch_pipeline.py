@@ -22,6 +22,7 @@ from kafka_specification_tpu_torch.models import kafka_replication as tkr
 from kafka_specification_tpu_torch.models import kip320 as tkip320
 from kafka_specification_tpu_torch.models import variants as tvariants
 from kafka_specification_tpu_torch.pipeline_registry import resolve_pipeline
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 KW = dict(min_bucket=32, chunk_size=256, compact_gate=32)
 THW = "KafkaTruncateToHighWatermark"

@@ -44,6 +44,7 @@ from kafka_specification_tpu_torch.ops import packing as tpacking
 from kafka_specification_tpu_torch.utils import pretty
 
 from test_torch_async_isr import chain_of, stats_lines
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = (2, 2, 1, 1)

@@ -32,6 +32,7 @@ from kafka_specification_tpu_torch.resilience import faults as tfaults
 from kafka_specification_tpu_torch.resilience import resources as tres
 from kafka_specification_tpu_torch.resilience.integrity import IntegrityError
 from kafka_specification_tpu_torch.storage.atomic import atomic_write
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.resource
 
@@ -245,11 +246,15 @@ def test_atomic_write_cleans_its_tmp(tmp_path):
 def drill(fault, tmp_path, monkeypatch, budget=300):
     """Inject `fault`, require ResourceExhausted, verify the checkpoint with
     both packages' verifiers, resume with the fault cleared, and hold the
-    result to JAX's trace and the JAX package's chain under the same fault."""
+    result to JAX's trace and the JAX package's chain under the same fault.
+    Both packages run their serial paths (overlap=False): with the overlap
+    layer on, a fault raised on a worker surfaces at the next join, and
+    thread timing may decide at which level."""
     ck, jck = str(tmp_path / "ck"), str(tmp_path / "jck")
     monkeypatch.setenv("KSPEC_FAULT", fault)
     with pytest.raises(tres.ResourceExhausted) as ei:
-        check(tthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=ck, device="cpu")
+        check(tthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=ck, overlap=False,
+              device="cpu")
     with pytest.raises(jres.ResourceExhausted) as ej:
         jbfs.check(jthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=jck, overlap=False)
     monkeypatch.delenv("KSPEC_FAULT")
@@ -258,7 +263,8 @@ def drill(fault, tmp_path, monkeypatch, budget=300):
     assert rep["ok"], rep
     assert jckpt.verify_checkpoint_dir(ck)["ok"]
     assert sorted(os.listdir(ck)) == sorted(os.listdir(jck))
-    t = check(tthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=ck, device="cpu")
+    t = check(tthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=ck, overlap=False,
+              device="cpu")
     j = jbfs.check(jthw(), min_bucket=32, mem_budget=budget, checkpoint_dir=jck, overlap=False)
     g = golden()
     assert verdict(t) == verdict(j) == verdict(g)
@@ -329,7 +335,7 @@ def test_flip_caught_as_jax_catches_it_and_recovered(site, backend, disk, tmp_pa
     ck, jck = str(tmp_path / "ck"), str(tmp_path / "jck")
     monkeypatch.setenv("KSPEC_FAULT", f"flip@{site}:{n}")
     with pytest.raises(IntegrityError) as ei:
-        check(tfrl.make_model(2, 2, 2), checkpoint_dir=ck, device="cpu", **kw)
+        check(tfrl.make_model(2, 2, 2), checkpoint_dir=ck, overlap=False, device="cpu", **kw)
     with pytest.raises(jinteg.IntegrityError) as ej:
         jbfs.check(jfrl.make_model(2, 2, 2), checkpoint_dir=jck, overlap=False, **kw)
     monkeypatch.delenv("KSPEC_FAULT")

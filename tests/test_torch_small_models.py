@@ -22,6 +22,7 @@ from kafka_specification_tpu_torch import check, interop
 from kafka_specification_tpu_torch.models import finite_replicated_log as tfrl
 from kafka_specification_tpu_torch.models import id_sequence as tids
 from kafka_specification_tpu_torch.models.base import Invariant as TInvariant
+from torch_guards import overlap_guard  # noqa: F401  (autouse)
 
 BACKENDS = ["device", "device-hash", "host"]
 
