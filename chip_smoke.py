@@ -146,11 +146,32 @@ print no result:
          checkpoint writer's and merge worker's jobs and the levels' mean
          overlap_efficiency (every earlier phase runs with the layer on,
          the default)
+  oracle  the card's engine against the port's reference interpreter
+         (oracle/, each model's set-semantics twin, pure Python on the
+         host), one decoded level at a time: every level's packed rows
+         unpacked on the card, copied to the host once and decoded there,
+         equal as a set to the oracle's level.  Kip320 3r (configs/
+         Kip320.cfg) with no knobs: 26 levels, 737,794 states, diameter 25,
+         every level equal; Kip320FirstTry 3r with StrongIsr only on
+         visited_backend="device-hash": StrongIsr at depth 12 in both,
+         levels 0-12 equal; configs/AsyncIsr.cfg on visited_backend="host":
+         4,088 states, diameter 16, every level equal (its state packs into
+         two lanes, so its fingerprint is the state itself and K1 is not
+         launched); TruncateToHW 2r (TypeOk, WeakIsr) x 2 on
+         pipeline="device": WeakIsr at depth 8, levels 0-8 equal.  Each
+         run's oracle wall (and states/s), engine wall and decode wall.
+         Meanwhile four commands in subprocesses: `cli oracle configs/
+         Kip320.cfg` exit 0 with 737,794 states, diameter 25; `cli oracle
+         configs/Kip320FirstTry.cfg` exit 1 with 184,141 states, diameter
+         11 and WeakIsr at depth 11 (what the JAX package's `cli oracle`
+         prints); `cli analyze --json` exit 0, ok, no HIGH or MEDIUM
+         finding, the Kip320 and engine-sources targets; `cli pipelines
+         --json` listing device, fused and legacy
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
 three E3 runs of disk-tier, each check of obs, each side of each overlap
-path) then
+path, each oracle run that launches K1) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -442,6 +463,11 @@ KIP320_DEVICE_LEVELS = 18
 THW_DEVICE_LEVELS = 4
 ASYNC_4R_DEVICE_LEVELS = 23
 TINY_DEVICE_LEVELS = 26
+# the `cli oracle` lines, as the JAX package's `cli oracle` printed them on
+# the CPU (the rate aside)
+ORACLE_KIP320_HEAD = "Oracle: 737794 distinct states, diameter 25, "
+ORACLE_FIRST_TRY_HEAD = "Oracle: 184141 distinct states, diameter 11, "
+ORACLE_FIRST_TRY_VIOLATION = "Invariant WeakIsr is VIOLATED at depth 11."
 # the knobs of the path before the sorted backend was ported
 HASH_KNOBS = dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0)
 # where checkpoints and stats files go: inside the checkout, gitignored
@@ -1791,6 +1817,182 @@ def phase_overlap():
     return {"line": "; ".join(parts), "counts": counts}
 
 
+def _oracle_path(model, oracle, path_kernels, **knobs):
+    """One path held against the port's oracle: the oracle's BFS on the
+    host, check() on the card with collect_levels (counted from 0), then
+    each level decoded (unpacked on the card, one copy to the host) and
+    compared with the oracle's level as a set, up to the violation level
+    on a violation.  -> (result, oracle result, counts, walls, held note)."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.engine.decode import decode_rows
+    from kafka_specification_tpu_torch.oracle import oracle_bfs
+
+    t0 = time.perf_counter()
+    ores = oracle_bfs(oracle)
+    o_wall = time.perf_counter() - t0
+    packed = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = check(model, device=DEV, collect_levels=packed, **knobs)
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t0
+    counts = _read_counts(path_kernels)
+    largest = _largest()
+    if ores.violation is None:
+        if res.violation is not None or res.levels != ores.levels or res.total != ores.total:
+            raise AssertionError(f"engine {res.levels} {res.violation}, oracle {ores.levels}")
+        last = len(ores.levels) - 1
+    else:
+        v = res.violation
+        if v is None or (v.invariant, v.depth) != ores.violation[:2]:
+            raise AssertionError(f"oracle {ores.violation[:2]}, engine "
+                                 f"{v and (v.invariant, v.depth)}")
+        last = ores.violation[1]
+    if len(packed) < last + 1:
+        raise AssertionError(f"the engine collected {len(packed)} levels, the oracle {last + 1}")
+    t0 = time.perf_counter()
+    for d in range(last + 1):
+        eng = set(decode_rows(model, packed[d]))
+        packed[d] = None
+        orc = ores.level_sets[d]
+        if eng != orc:
+            raise AssertionError(f"level {d}: {len(eng - orc)} engine-only states "
+                                 f"{list(eng - orc)[:2]}, {len(orc - eng)} oracle-only "
+                                 f"{list(orc - eng)[:2]}")
+    d_wall = time.perf_counter() - t0
+    held = (_hold_path_shapes(largest, res.total) if path_kernels
+            else "no kernel launched (the state's fingerprint is the state itself)")
+    return res, ores, counts, (o_wall, e_wall, d_wall), held
+
+
+def _oracle_paths():
+    """(name, model, its oracle twin, the path's kernels, knobs, (expected
+    violation, total, diameter)) of the four runs of phase oracle."""
+    from kafka_specification_tpu_torch import build_model, load_config
+    from kafka_specification_tpu_torch.models import variants
+    from kafka_specification_tpu_torch.models.kafka_replication import Config
+    from kafka_specification_tpu_torch.models.product import product_model, product_oracle
+
+    kip = load_config("configs/Kip320.cfg")
+    first_try = load_config("configs/Kip320FirstTry.cfg")
+    first_try.invariants = ["StrongIsr"]
+    asy = load_config("configs/AsyncIsr.cfg")
+    base, weak = Config(2, 2, 1, 1), ("TypeOk", "WeakIsr")
+    thw = "KafkaTruncateToHighWatermark"
+    return [
+        ("Kip320 3r", build_model("Kip320", kip), build_model("Kip320", kip, oracle=True),
+         ("fingerprint",), {}, (None, 737_794, 25)),
+        ("Kip320FirstTry StrongIsr device-hash", build_model("Kip320FirstTry", first_try),
+         build_model("Kip320FirstTry", first_try, oracle=True),
+         ("fingerprint", "hash_probe_insert"), dict(visited_backend="device-hash"),
+         (("StrongIsr", 12), None, None)),
+        ("AsyncIsr.cfg host", build_model("AsyncIsr", asy),
+         build_model("AsyncIsr", asy, oracle=True), (), dict(visited_backend="host"),
+         (None, 4_088, 16)),
+        ("TruncateToHW 2r x 2 device",
+         product_model(variants.make_model(thw, base, weak), 2),
+         product_oracle(variants.make_oracle(thw, base, weak), 2),
+         ("fingerprint",), dict(pipeline="device"), (("WeakIsr", 8), None, None)),
+    ]
+
+
+def _oracle_verbs(outs):
+    """The four subprocesses' (exit code, stdout, stderr, wall) checked;
+    -> the phase line's note of them."""
+    rc, out, err, wall = outs["oracle Kip320"]
+    if (rc != 0 or not out.startswith(ORACLE_KIP320_HEAD)
+            or "No invariant violations" not in out):
+        raise AssertionError(f"cli oracle Kip320.cfg: exit {rc}: {out[:300]} {err[-500:]}")
+    kip_rate = out.splitlines()[0].rsplit("(", 1)[-1].rstrip(")")
+    rc, out, err, wall2 = outs["oracle Kip320FirstTry"]
+    lines = out.splitlines()
+    if (rc != 1 or not out.startswith(ORACLE_FIRST_TRY_HEAD)
+            or lines[1] != ORACLE_FIRST_TRY_VIOLATION):
+        raise AssertionError(f"cli oracle Kip320FirstTry.cfg: exit {rc}: {out[:300]} "
+                             f"{err[-500:]}")
+    ft_rate = lines[0].rsplit("(", 1)[-1].rstrip(")")
+    rc, out, err, wall3 = outs["analyze"]
+    rec = json.loads(out) if rc == 0 else {}
+    if (rc != 0 or not rec.get("ok") or rec["counts"]["HIGH"] or rec["counts"]["MEDIUM"]
+            or not any(t.startswith("Kip320 (") for t in rec["targets"])
+            or "engine sources (ownership + purity)" not in rec["targets"]):
+        raise AssertionError(f"cli analyze --json: exit {rc}: {out[:500]} {err[-500:]}")
+    rc, out, err, wall4 = outs["pipelines"]
+    names = [e["name"] for e in json.loads(out)] if rc == 0 else []
+    if names != ["device", "fused", "legacy"]:
+        raise AssertionError(f"cli pipelines --json: exit {rc}, names {names}: {err[-500:]}")
+    return (f"cli oracle Kip320.cfg: exit 0, 737794 states, diameter 25, {kip_rate}, process "
+            f"{wall:.1f} s; cli oracle Kip320FirstTry.cfg: exit 1, 184141 states, diameter "
+            f"11, WeakIsr at depth 11, {ft_rate}, process {wall2:.1f} s; cli analyze --json: "
+            f"exit 0, {len(rec['targets'])} targets, counts {rec['counts']}, process "
+            f"{wall3:.1f} s; cli pipelines --json: {names}, process {wall4:.1f} s")
+
+
+def _start_verbs(cmds):
+    """Start each `cli` command in a subprocess, with a thread that waits
+    for it: -> {name: (process, thread, result dict)}; the result gets
+    (exit code, stdout, stderr, process wall) when the process ends."""
+    import threading
+
+    def wait(proc, t0, out):
+        stdout, stderr = proc.communicate()
+        out["result"] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+
+    started = {}
+    for name, argv in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "kafka_specification_tpu_torch.cli", *argv],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out = {}
+        th = threading.Thread(target=wait, args=(proc, t0, out), daemon=True)
+        th.start()
+        started[name] = (proc, th, out)
+    return started
+
+
+def phase_oracle():
+    """The card's engine against the port's oracle, state set for state
+    set, on four paths; the three one-shot verbs in subprocesses, which
+    run on the host alone and so run meanwhile."""
+    verbs = _start_verbs({
+        "oracle Kip320": ["oracle", "configs/Kip320.cfg"],
+        "oracle Kip320FirstTry": ["oracle", "configs/Kip320FirstTry.cfg"],
+        "analyze": ["analyze", "--json"],
+        "pipelines": ["pipelines", "--json"],
+    })
+    try:
+        parts, counts = [], {}
+        for name, model, oracle, path_kernels, knobs, (viol, total, diameter) in _oracle_paths():
+            res, ores, counts[name], (ow, ew, dw), held = _oracle_path(
+                model, oracle, path_kernels, **knobs)
+            got_v = ores.violation and tuple(ores.violation[:2])
+            if got_v != viol or (total is not None
+                                 and (ores.total, ores.diameter) != (total, diameter)):
+                raise AssertionError(f"{name}: oracle {got_v}, {ores.total} states, "
+                                     f"diameter {ores.diameter}")
+            if "pipeline" in knobs and res.stats["device"]["levels"] < 1:
+                raise AssertionError(f"{name}: no level ran on the card: {res.stats['device']}")
+            n_levels = (viol[1] if viol else ores.diameter) + 1
+            n_states = sum(ores.levels[:n_levels])
+            parts.append(
+                f"{name}: " + (f"{viol[0]} at depth {viol[1]} in both, " if viol else
+                               f"ok, {ores.total} states, diameter {ores.diameter}, ")
+                + f"{n_levels} levels equal as sets ({n_states} states); oracle {ow:.2f} s "
+                f"({ores.total / ow:.0f} states/s), engine {ew:.2f} s, decode {dw:.2f} s "
+                f"({n_states / dw:.0f} states/s); launches {counts[name]}; {held}")
+            del ores
+        for _, th, _ in verbs.values():
+            th.join(timeout=600)
+        outs = {name: out["result"] for name, (_, _, out) in verbs.items()}
+    finally:
+        for proc, th, _ in verbs.values():
+            if proc.poll() is None:
+                proc.kill()
+            th.join()
+    parts.append(_oracle_verbs(outs))
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1825,6 +2027,7 @@ def main() -> int:
     disk_tier = ph.run("disk-tier", phase_disk_tier)
     obs = ph.run("obs", phase_obs)
     overlap = ph.run("overlap", phase_overlap)
+    oracle = ph.run("oracle", phase_oracle)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -1838,7 +2041,8 @@ def main() -> int:
                **{f"device-pipeline {p}": c for p, c in device_pipeline["counts"].items()},
                **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()},
                **{f"obs {p}": c for p, c in obs["counts"].items()},
-               **{f"overlap {p}": c for p, c in overlap["counts"].items()}}
+               **{f"overlap {p}": c for p, c in overlap["counts"].items()},
+               **{f"oracle {p}": c for p, c in oracle["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

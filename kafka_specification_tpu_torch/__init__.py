@@ -27,19 +27,25 @@ Layout (module names mirror the JAX package):
                checkpoints and the sorted, hash and host visited sets;
                pipeline.py: the per-chunk stages, the candidate order and
                the device-resident level pipeline)
-               and random simulation (simulate.py, TLC's -simulate)
+               and random simulation (simulate.py, TLC's -simulate);
+               decode.py turns collected levels into canonical states
+    oracle/    the reference interpreter: each model's set semantics in
+               plain Python (the models' make_oracle twins), sharing no
+               code with the kernels
     analysis/  the encoding gate and proven field hulls (interval
-               abstract interpretation of the action kernels)
+               abstract interpretation of the action kernels), and the
+               ownership and purity passes over the engine sources
     native/    the host fingerprint set (fpset.cpp, g++ at first use)
     resilience/  the level digest chain, the checkpoint store, the
                per-level heartbeat record
     durable_io.py  the file steps checkpoints and stats lines take
     utils/     TLC .cfg parsing and model instantiation, trace rendering,
                device timing
-    cli.py     `python -m kafka_specification_tpu_torch.cli check|simulate CFG`
+    cli.py     `python -m kafka_specification_tpu_torch.cli check|simulate|oracle CFG`,
+               and `report`, `faults`, `pipelines`, `analyze`, `verify-checkpoint`
     verdict.py the kspec-verdict/1 record and exit codes
     pipeline_registry.py  pipeline names ("fused", "legacy", "device"),
-               their backend support and $KSPEC_PIPELINE
+               their per-engine and per-backend support and $KSPEC_PIPELINE
     interop.py JAX/numpy state -> the port's tensors (used by the tests)
 """
 
@@ -60,8 +66,10 @@ def load_config(path):
     return parse_cfg(path)
 
 
-def build_model(module, cfg):
-    """Instantiate a model from a TLA+ module name and a parsed TLC config."""
+def build_model(module, cfg, oracle=False):
+    """Instantiate a model (or, with oracle=True, its set-semantics twin)
+    from a TLA+ module name and a parsed TLC config (see
+    utils.cfg.build_model)."""
     from .utils.cfg import build_model as _build_model
 
-    return _build_model(module, cfg)
+    return _build_model(module, cfg, oracle=oracle)

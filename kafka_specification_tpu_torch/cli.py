@@ -1,5 +1,7 @@
-"""Command line of the PyTorch port: check or simulate a TLC .cfg, render
-a run directory, list the fault grammar, or verify a checkpoint directory.
+"""Command line of the PyTorch port: check or simulate a TLC .cfg, run the
+reference interpreter on it, analyze the specs and the engine sources, list
+the level pipelines or the fault grammar, render a run directory, or verify
+a checkpoint directory.
 
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli check configs/IdSequence.cfg --cpu --json
@@ -14,6 +16,9 @@ a run directory, list the fault grammar, or verify a checkpoint directory.
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --run-dir runs/k320
     python -m kafka_specification_tpu_torch.cli report runs/k320
     python -m kafka_specification_tpu_torch.cli faults --list
+    python -m kafka_specification_tpu_torch.cli oracle configs/Kip320.cfg
+    python -m kafka_specification_tpu_torch.cli pipelines --json
+    python -m kafka_specification_tpu_torch.cli analyze --json
 
 ``check`` takes the options of the JAX package's ``cli check`` that the
 ported engine serves, with the same names and defaults, and prints what it
@@ -57,6 +62,23 @@ random walks of at most ``--depth`` steps from ``--seed``, the same walks
 as the JAX package's ``cli simulate``.  It prints what that prints: one
 "Simulation: ..." line when no walk breaks an invariant (exit 0), else the
 violation as ``check`` prints it, or its record with ``--json`` (exit 1).
+
+``oracle`` runs the reference interpreter (``oracle/``, the model's
+set-semantics twin) on the host, as the JAX package's ``cli oracle``:
+"Oracle: N distinct states, diameter D, ...", then no violation (exit 0)
+or the violated invariant, its depth and the rendered trace (exit 1).
+
+``pipelines`` prints the level-pipeline registry (``pipeline_registry.py``)
+with each entry's support matrix, or with ``--json`` the list itself.
+
+``analyze`` is the static analysis (``analysis/``): the encoding and
+action passes over the models of the given .cfg files (default: every
+``configs/*.cfg``), then the ownership and purity passes over the port's
+engine sources.  It prints the findings (``--json``: the
+``kspec-analysis/1`` record) and exits 0 with no HIGH finding, 1 with
+one, and 2 when a target cannot be analyzed or ``--module`` is given with
+other than one .cfg.  ``oracle``, ``pipelines`` and ``analyze`` touch no
+card.
 """
 
 from __future__ import annotations
@@ -116,10 +138,11 @@ def _parse(args):
         return None
 
 
-def _model(args, tlc_cfg):
-    """The model of the .cfg's module, or None after printing why not."""
+def _model(args, tlc_cfg, oracle: bool = False):
+    """The model of the .cfg's module (its oracle twin with `oracle`), or
+    None after printing why not."""
     try:
-        return build_model(_module(args), tlc_cfg)
+        return build_model(_module(args), tlc_cfg, oracle=oracle)
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
     except ValueError as e:
@@ -373,6 +396,142 @@ def _faults(args) -> int:
     return 0
 
 
+def _oracle(args) -> int:
+    """`cli oracle`: the reference interpreter on the .cfg's model, on the
+    host (the JAX package's handler and lines)."""
+    import time
+
+    from .oracle.interp import oracle_bfs
+
+    tlc_cfg = _parse(args)
+    om = None if tlc_cfg is None else _model(args, tlc_cfg, oracle=True)
+    if om is None:
+        return EXIT_ERROR
+    t0 = time.perf_counter()
+    r = oracle_bfs(
+        om,
+        max_depth=args.max_depth,
+        max_states=args.max_states,
+        keep_level_sets=False,
+        check_deadlock=tlc_cfg.check_deadlock,
+    )
+    dt = time.perf_counter() - t0
+    print(
+        f"Oracle: {r.total} distinct states, diameter {r.diameter}, "
+        f"{dt:.2f}s ({r.total / max(dt, 1e-9):,.0f} states/sec)"
+    )
+    if r.violation:
+        name, depth, _ = r.violation
+        print(f"Invariant {name} is VIOLATED at depth {depth}.")
+        from .utils.pretty import render_trace
+
+        print("Counterexample trace:")
+        print(render_trace(om.meta, r.trace))
+    else:
+        print("No invariant violations. Exhaustive check complete.")
+    return 0 if r.violation is None else 1
+
+
+def _pipelines(args) -> int:
+    """`cli pipelines`: the registry the --pipeline parser and the engine's
+    resolve_pipeline validate against, with every support cell."""
+    from .pipeline_registry import list_pipelines
+
+    entries = list_pipelines()
+    if args.json:
+        print(json.dumps(entries))
+        return 0
+    print("Registered level pipelines (--pipeline / $KSPEC_PIPELINE; "
+          "engine/pipeline.py):")
+    for e in entries:
+        tag = " (default)" if e["default"] else ""
+        fb = (f" -> degrades to '{e['fallback']}'"
+              if e["fallback"] else " (the bit-identity oracle)")
+        print(f"  {e['name']}{tag}: {e['launches']}{fb}")
+        print(f"      {e['description']}")
+        for eng, cell in e["engines"].items():
+            mark = "supported" if cell["supported"] else "degrades"
+            print(f"      [{eng}] {mark}: {cell['detail']}")
+        # an unsupported backend cell's detail is the fallback reason the
+        # engine stamps into stats['device']['fallback']
+        for be, cell in e["backends"].items():
+            mark = "native" if cell["supported"] else "degrades"
+            print(f"      [backend {be}] {mark}: {cell['detail']}")
+    return 0
+
+
+def _analyze(args) -> int:
+    """`cli analyze`: the models' encoding and action passes, then the
+    engine sources' ownership and purity passes.  Exit 0 with no HIGH
+    finding, 1 with one, 2 when a target cannot be analyzed."""
+    from .analysis import Finding, analysis_record, analyze_engine_sources, repo_root
+
+    findings = []
+    targets = []
+    rc_error = 0
+    if not args.no_models:
+        from .analysis.encoding import analyze_model
+        from .models.base import EncodingUnsound
+
+        cfg_paths = list(args.cfgs)
+        if args.module and len(cfg_paths) != 1:
+            # --module pairs with exactly one .cfg (the default matrix
+            # resolves its own modules)
+            print("error: --module requires exactly one .cfg argument "
+                  f"(got {len(cfg_paths)})", file=sys.stderr)
+            return EXIT_ERROR
+        if not cfg_paths:
+            cfg_paths = sorted(str(p) for p in Path(repo_root(), "configs").glob("*.cfg"))
+        # stems that are not module names
+        aliases = {"Kip320Stretch": "Kip320"}
+        for path in cfg_paths:
+            stem = Path(path).stem
+            module = args.module or aliases.get(stem, stem)
+            targets.append(f"{module} ({path})")
+            try:
+                # the gate raises on the FIRST HIGH finding; here every
+                # finding is wanted
+                model = build_model(module, parse_cfg(path), analysis_gate=False)
+            except EncodingUnsound as e:
+                findings.extend(e.findings)
+                continue
+            except (OSError, ValueError, KeyError) as e:
+                # the record says so too: a consumer keying off `ok` must
+                # never read a partly analyzed matrix as clean
+                findings.append(Finding(
+                    kind="analysis-error", severity="HIGH",
+                    target=f"{module} ({path})",
+                    message=f"cannot analyze: {e}",
+                    data={"path": str(path), "module": module},
+                ))
+                print(f"error: cannot analyze {path}: {e}", file=sys.stderr)
+                rc_error = EXIT_ERROR
+                continue
+            findings.extend(analyze_model(model))
+    if not args.no_engine:
+        targets.append("engine sources (ownership + purity)")
+        findings.extend(analyze_engine_sources())
+    rec = analysis_record(findings, targets=targets)
+    if args.json:
+        print(json.dumps(rec))
+    else:
+        c = rec["counts"]
+        print(f"kspec analyze: {len(targets)} target(s) — "
+              f"{c['HIGH']} high / {c['MEDIUM']} medium / {c['LOW']} low / "
+              f"{c['INFO']} info")
+        shown = [f for f in findings if args.info or f.severity != "INFO"]
+        for f in shown:
+            tag = f" [suppressed: {f.suppressed}]" if f.suppressed else ""
+            print(f"  {f.severity:<6} {f.kind:<24} {f.target}{tag}")
+            print(f"         {f.message}")
+        if not shown:
+            print("  clean: encoding sound, frames honored, ownership "
+                  "contracts verified")
+    if rc_error:
+        return rc_error
+    return 0 if rec["ok"] else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kafka_specification_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -547,7 +706,47 @@ def main(argv=None) -> int:
     ps.add_argument("--device", default=None,
                     help="torch device (default: the card, 'cuda'; 'cpu' runs the plain kernels)")
     ps.add_argument("--cpu", action="store_true", help="force the CPU platform (--device cpu)")
+    po = sub.add_parser("oracle", help="run the Python reference interpreter (on the host)")
+    po.add_argument("cfg")
+    po.add_argument("--module", help="TLA+ module (default: cfg file stem)")
+    po.add_argument("--max-depth", type=int)
+    po.add_argument("--max-states", type=int)
+    pp = sub.add_parser(
+        "pipelines",
+        help="enumerate the registered level pipelines (the --pipeline / "
+        "$KSPEC_PIPELINE registry, pipeline_registry.py) with their launches, "
+        "degradation ladder and per-engine and per-backend support; touches no card",
+    )
+    pp.add_argument("--list", action="store_true", dest="list_pipelines",
+                    help="list the pipeline registry (the default action)")
+    pp.add_argument("--json", action="store_true")
+    pan = sub.add_parser(
+        "analyze",
+        help="static analysis of the specs and the engine: encoding-soundness "
+        "proofs (interval abstract interpretation of every action kernel "
+        "against its packed field ranges), action/guard lint (vacuous guards, "
+        "frame violations, dead fields), and the ownership and purity checks "
+        "over the port's engine sources.  Touches no card.  Exits non-zero on "
+        "any HIGH finding; --json prints the kspec-analysis/1 record",
+    )
+    pan.add_argument("cfgs", nargs="*",
+                     help="TLC .cfg files to analyze (default: every configs/*.cfg)")
+    pan.add_argument("--module", help="TLA+ module for a single .cfg (default: the cfg stem)")
+    pan.add_argument("--no-models", action="store_true",
+                     help="skip the per-model encoding/lint passes")
+    pan.add_argument("--no-engine", action="store_true",
+                     help="skip the engine ownership/purity passes")
+    pan.add_argument("--info", action="store_true",
+                     help="also print INFO findings (suppressions, skips)")
+    pan.add_argument("--json", action="store_true",
+                     help="machine-readable kspec-analysis/1 record")
     args = p.parse_args(argv)
+    if args.cmd == "oracle":
+        return _oracle(args)
+    if args.cmd == "pipelines":
+        return _pipelines(args)
+    if args.cmd == "analyze":
+        return _analyze(args)
     if args.cmd == "verify-checkpoint":
         return _verify_checkpoint(args)
     if args.cmd == "report":

@@ -94,6 +94,7 @@ def grow_visited(vkeys: torch.Tensor, need: int) -> torch.Tensor:
     return torch.cat([vkeys, pad])
 
 
+# kspec: traced
 def invariant_flags(model: Model, states: dict, valid: Optional[torch.Tensor] = None):
     """Stage 5 with no host read: (hit bool[], index of the first violated
     invariant in model order int64[], its first row int64[]).  Rows
@@ -116,6 +117,7 @@ def invariant_stage(model: Model, states: dict):
     return (model.invariants[i].name, row) if hit else None
 
 
+# kspec: traced
 def expand_stage(model: Model, states: dict):
     """-> ([enabled bool[B, n_a] before the constraint], [(enabled[B, n_a],
     next fields[B, n_a, ...]) with the constraint ANDed in]), per action.
@@ -127,6 +129,7 @@ def expand_stage(model: Model, states: dict):
     return en_pre, parts
 
 
+# kspec: traced
 def deadlock_rows(en_pre, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """bool[B]: the rows on which no action's guard holds, whatever the
     constraint prunes (rows outside `valid` are not deadlocked)."""
@@ -134,6 +137,7 @@ def deadlock_rows(en_pre, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     return dead if valid is None else dead & valid
 
 
+# kspec: traced
 def first_copies(okeys: torch.Tensor):
     """The stable sort of a chunk's order keys: -> (sorted keys, candidate
     index of each, bool first copy of its key in candidate order)."""
@@ -314,6 +318,7 @@ def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadl
     return StagedChunk(Chunk(None, rows, parent, act, hi, lo, act_en, **copies), event)
 
 
+# kspec: traced
 def fp_masked(spec, rows: torch.Tensor, valid: torch.Tensor):
     """fp_stage with a row mask: the sentinel pair for invalid rows."""
     if spec.exact64:
@@ -387,6 +392,7 @@ def device_hull_fallback(model: Model) -> Optional[str]:
     return None
 
 
+# kspec: traced
 def chunk_novelty(okeys: torch.Tensor, lkeys: torch.Tensor, vkeys: Optional[torch.Tensor]):
     """Stage 4 of a level chunk: the stable sort of the chunk's order keys
     (the sentinel's, PAD, for invalid rows), first occurrences, and
@@ -401,6 +407,7 @@ def chunk_novelty(okeys: torch.Tensor, lkeys: torch.Tensor, vkeys: Optional[torc
     return sk, order, is_new, rank_l
 
 
+# kspec: traced
 def candidate_dedup_stage(order: torch.Tensor, take_sorted: torch.Tensor):
     """The host mode's winner emission: the novelty decided in key order
     (the stable sort's first copy, the row the serial host insert keeps),
@@ -411,6 +418,7 @@ def candidate_dedup_stage(order: torch.Tensor, take_sorted: torch.Tensor):
     return take_c, torch.cumsum(take_c, 0) - 1
 
 
+# kspec: traced
 def sorted_emit(order: torch.Tensor, take_sorted: torch.Tensor):
     """The device mode's winner emission, in KEY order (the sorted set's
     commit order).  -> (taken, rank among the chunk's winners), per
@@ -579,6 +587,7 @@ class DevicePipeline:
         return self.pool.widths_for(B, np.zeros(len(self.model.actions)) if counts is None
                                     else counts)
 
+    # kspec: traced
     def queue_level(self, frontier, handled: int, B: int, nc: int, widths: tuple, LN: int,
                     vkeys: Optional[torch.Tensor]) -> _Level:
         """Queue every chunk of one dispatch on the card; reads nothing
@@ -588,6 +597,7 @@ class DevicePipeline:
             self._chunk(st, i)
         return st
 
+    # kspec: traced
     def _chunk(self, st: _Level, i: int) -> None:
         model, spec = self.model, self.model.spec
         B, start = st.B, i * st.B

@@ -1,7 +1,7 @@
 """AsyncIsr: the KIP-497-style AlterIsr model, as batched PyTorch kernels.
 
-Counterpart of the tensor half of ``kafka_specification_tpu/models/
-async_isr.py`` (its set-semantics oracle stays in the JAX package).  A
+Counterpart of ``kafka_specification_tpu/models/async_isr.py``, with its
+set-semantics oracle (``o_init``, ``make_oracle``) at the end.  A
 fixed leader (replica 0) proposes ISR changes to the controller
 asynchronously; the high watermark counts pending ISR members too
 (``HighWatermark == Min(offsets over isr \\union pendingIsr)``), and the
@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.packing import Field, StateSpec
+from ..oracle.interp import OracleAction, OracleModel
 from .base import INT32_MAX, Action, EncodingUnsound, Invariant, Model
 from .kafka_replication import _at, _bit, _member, _out, _put, choices, col
 
@@ -58,18 +59,24 @@ class AsyncIsrConfig:
 
 def check_encoding_bounds(cfg: AsyncIsrConfig) -> None:
     """The N <= 4 cliff, with the JAX package's message: the per-version
-    request bitset has 2^N bits and must fit one signed int32 element."""
+    request bitset has 2^N bits and must fit one signed int32 element.
+    The spec-width finding of that bitset rides on the error's
+    ``.findings``, as in the JAX package (``cli analyze`` reports it)."""
     # N capped before the shift, as in the JAX package, so a wild N cannot
     # make the probe allocate a huge integer
     hi = (1 << (1 << min(cfg.n, 6))) - 1
     if hi > INT32_MAX:
+        from ..analysis.encoding import spec_fits_errors
+
+        probe = Field("req_bits", (cfg.max_version + 1,), 0, hi)
         raise EncodingUnsound(
             f"AsyncIsr supports at most 4 replicas, got {cfg.n_replicas}: "
             "the request set is encoded as a per-version 2^N-bit subset "
             "bitset (req_bits) that must fit one signed int32 element "
             f"(2^{cfg.n_replicas} bits > 31); "
             "reduce the replica count or extend the encoding to multiple "
-            "lanes"
+            "lanes",
+            findings=spec_fits_errors([probe], context="AsyncIsr"),
         )
 
 
@@ -315,5 +322,140 @@ def make_model(cfg: AsyncIsrConfig, invariants=DEFAULT_INVARIANTS) -> Model:
         ],
         invariants=[table[n](cfg) for n in invariants],
         decode=make_decode(cfg),
+        meta={"variant": "AsyncIsr", "cfg": cfg},
+    )
+
+
+# ==========================================================================
+# oracle transcription
+# ==========================================================================
+# state = ((c_isr, c_ver), (l_isr, l_ver, pend, pver, offs), reqs, upds)
+# with isr values as frozensets, reqs/upds as frozensets of (isr, version).
+
+
+def o_init(cfg: AsyncIsrConfig):
+    # Init (:137-150)
+    full = frozenset(range(cfg.n))
+    return (
+        (full, 0),
+        (full, 0, frozenset(), NIL, tuple([0] * cfg.n)),
+        frozenset(),
+        frozenset(),
+    )
+
+
+def _o_hw(s):
+    # HighWatermark (:58-60)
+    (_, _), (l_isr, _, pend, _, offs), _, _ = s
+    return min(offs[r] for r in (l_isr | pend))
+
+
+def make_oracle(cfg: AsyncIsrConfig, invariants=DEFAULT_INVARIANTS) -> OracleModel:
+    # the oracle itself has no bitset (frozensets), but it exists to
+    # cross-check the engine — accepting a config the engine cannot
+    # encode would just diverge later, so the cliff check is shared
+    check_encoding_bounds(cfg)
+    V, M = cfg.max_version, cfg.max_offset
+
+    def ctrl_shrink(s):
+        # :72-79 (+ version constraint)
+        (c_isr, c_ver), lstate, reqs, upds = s
+        if c_ver >= V:
+            return
+        for r in range(cfg.n):
+            if r != LEADER and r in c_isr:
+                isr = c_isr - {r}
+                yield ((isr, c_ver + 1), lstate, reqs, upds | {(isr, c_ver + 1)})
+
+    def ctrl_handle(s):
+        # :81-86 (+ version constraint)
+        (c_isr, c_ver), lstate, reqs, upds = s
+        if c_ver >= V:
+            return
+        for (isr, ver) in reqs:
+            if ver == c_ver:
+                yield ((isr, c_ver + 1), lstate, reqs, upds | {(isr, c_ver + 1)})
+
+    def leader_req_shrink(s):
+        # :88-100
+        cstate, (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        for r in sorted(l_isr):
+            if r == LEADER:
+                continue
+            isr = l_isr - {r}
+            yield (
+                cstate,
+                (l_isr, l_ver, pend | isr, l_ver, offs),
+                reqs | {(isr, l_ver)},
+                upds,
+            )
+
+    def leader_req_expand(s):
+        # :102-115
+        cstate, (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        hw = _o_hw(s)
+        for r in range(cfg.n):
+            if r in l_isr or offs[r] < hw:
+                continue
+            isr = l_isr | {r}
+            yield (
+                cstate,
+                (l_isr, l_ver, pend | isr, l_ver, offs),
+                reqs | {(isr, l_ver)},
+                upds,
+            )
+
+    def leader_write(s):
+        # :117-119 (+ MaxOffset constraint)
+        cstate, (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        if offs[LEADER] >= M:
+            return
+        offs2 = offs[:LEADER] + (offs[LEADER] + 1,) + offs[LEADER + 1 :]
+        yield (cstate, (l_isr, l_ver, pend, pver, offs2), reqs, upds)
+
+    def leader_handle_update(s):
+        # :121-129
+        cstate, (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        for (isr, ver) in upds:
+            if ver > l_ver:
+                yield (cstate, (isr, ver, frozenset(), NIL, offs), reqs, upds)
+
+    def follower_replicate(s):
+        # :131-135
+        cstate, (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        for r in range(cfg.n):
+            if r != LEADER and offs[r] < offs[LEADER]:
+                offs2 = offs[:r] + (offs[r] + 1,) + offs[r + 1 :]
+                yield (cstate, (l_isr, l_ver, pend, pver, offs2), reqs, upds)
+
+    def valid_hw(s):
+        # :161-162
+        (c_isr, _), (_, _, _, _, offs), _, _ = s
+        hw = _o_hw(s)
+        return all(offs[r] >= hw for r in c_isr)
+
+    def o_type_ok(s):
+        (c_isr, c_ver), (l_isr, l_ver, pend, pver, offs), reqs, upds = s
+        return (
+            0 <= c_ver <= V
+            and 0 <= l_ver <= V
+            and NIL <= pver <= V
+            and all(0 <= o <= M for o in offs)
+        )
+
+    table = {"TypeOk": o_type_ok, "ValidHighWatermark": valid_hw}
+    return OracleModel(
+        name="AsyncIsr-oracle",
+        init_states=lambda: [o_init(cfg)],
+        actions=[
+            OracleAction("ControllerShrinkIsr", ctrl_shrink),
+            OracleAction("ControllerHandleRequest", ctrl_handle),
+            OracleAction("LeaderRequestShrinkIsr", leader_req_shrink),
+            OracleAction("LeaderRequestExpandIsr", leader_req_expand),
+            OracleAction("LeaderWrite", leader_write),
+            OracleAction("LeaderHandleUpdate", leader_handle_update),
+            OracleAction("FollowerReplicate", follower_replicate),
+        ],
+        invariants=[(n, table[n]) for n in invariants],
         meta={"variant": "AsyncIsr", "cfg": cfg},
     )

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.packing import Field, StateSpec
+from ..oracle.interp import OracleAction, OracleModel
 from .base import Action, Invariant, Model
 from .kafka_replication import _at, _put
 
@@ -94,4 +95,55 @@ def make_model(n_replicas: int, log_size: int, n_records: int, force_hashed: boo
         ],
         invariants=[Invariant("TypeOk", type_ok)],
         decode=decode,
+    )
+
+
+def make_oracle(n_replicas: int, log_size: int, n_records: int) -> OracleModel:
+    """Set-semantics transcription. State = tuple over replicas of the written
+    record tuple (endOffset is its length; unwritten slots are implicit Nil,
+    canonical per FiniteReplicatedLog.tla:105-109)."""
+    N, L, R = n_replicas, log_size, n_records
+
+    def append(s):
+        # :99-103
+        for r in range(N):
+            if len(s[r]) < L:
+                for record in range(R):
+                    yield s[:r] + (s[r] + (record,),) + s[r + 1 :]
+
+    def truncate(s):
+        # :105-109; newEndOffset in Offsets = 0..L-1 (:37,117) and <= endOffset
+        for r in range(N):
+            for new_end in range(min(len(s[r]), L - 1) + 1):
+                yield s[:r] + (s[r][:new_end],) + s[r + 1 :]
+
+    def replicate(s):
+        # :111-113, 118
+        for src in range(N):
+            for dst in range(N):
+                if dst == src:
+                    continue
+                off = len(s[dst])
+                if off < L and off < len(s[src]):
+                    yield s[:dst] + (s[dst] + (s[src][off],),) + s[dst + 1 :]
+
+    return OracleModel(
+        name=f"FiniteReplicatedLog(N={N},L={L},R={R})",
+        init_states=lambda: [tuple(() for _ in range(N))],  # :97
+        actions=[
+            OracleAction("Append", append),
+            OracleAction("TruncateTo", truncate),
+            OracleAction("ReplicateTo", replicate),
+        ],
+        # TypeOk (:90-95): endOffset bounded; written slots hold LogRecords
+        # (unwritten slots are implicitly Nil in this representation, which is
+        # the canonical form TruncateTo maintains, :108)
+        invariants=[
+            (
+                "TypeOk",
+                lambda s: all(
+                    len(log) <= L and all(0 <= rec < R for rec in log) for log in s
+                ),
+            )
+        ],
     )

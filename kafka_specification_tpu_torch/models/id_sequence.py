@@ -11,6 +11,7 @@ states in one chain.
 from __future__ import annotations
 
 from ..ops.packing import Field, StateSpec
+from ..oracle.interp import OracleAction, OracleModel
 from .base import Action, Invariant, Model
 
 
@@ -31,4 +32,17 @@ def make_model(max_id: int) -> Model:
         actions=[Action("NextId", 1, next_id, writes=frozenset({"nextId"}))],
         invariants=[Invariant("TypeOk", type_ok)],
         decode=lambda s: int(s["nextId"]),
+    )
+
+
+def make_oracle(max_id: int) -> OracleModel:
+    def successors(s):
+        if s <= max_id:  # IdSequence.tla:31-33
+            yield s + 1
+
+    return OracleModel(
+        name=f"IdSequence(MaxId={max_id})",
+        init_states=lambda: [0],  # IdSequence.tla:37
+        actions=[OracleAction("NextId", successors)],
+        invariants=[("TypeOk", lambda s: 0 <= s <= max_id + 1)],  # IdSequence.tla:43
     )

@@ -1,10 +1,11 @@
 """KafkaReplication: the shared protocol core, as batched PyTorch kernels.
 
-Counterpart of the tensor half of
-``kafka_specification_tpu/models/kafka_replication.py`` (the set-semantics
-oracle stays in the JAX package).  Same constants, the same encoding of the
-six state variables, the same actions, truncation offsets, invariants and
-decoder, so both packages reach the same states in the same order.
+Counterpart of ``kafka_specification_tpu/models/kafka_replication.py``.
+Same constants, the same encoding of the six state variables, the same
+actions, truncation offsets, invariants and decoder, so both packages
+reach the same states in the same order; and below the kernels, the same
+set-semantics oracle transcription (``o_*``), whose states are the
+decoder's canonical values, so engine and oracle levels compare as sets.
 
 Value conventions: replicas are 0..N-1, `None` and `Nil` are -1, an epoch
 slot with no LeaderAndIsr request is -2, ISRs are bitmasks.
@@ -24,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.packing import Field, StateSpec
+from ..oracle.interp import OracleAction
 from .base import Action, Invariant
 
 NONE = -1  # KafkaReplication.tla:38
@@ -637,8 +639,13 @@ def make_decode(cfg: Config):
       quorum  = (epoch, leader, isr_frozenset)
     """
 
+    # every ISR bitmask's frozenset, built once: decoding a whole level
+    # (engine vs oracle, level for level) calls this a dozen times a state
+    isets = [frozenset(r for r in range(cfg.n) if (mask >> r) & 1)
+             for mask in range(1 << cfg.n)]
+
     def iset(mask):
-        return frozenset(r for r in range(cfg.n) if (int(mask) >> r) & 1)
+        return isets[int(mask)]
 
     def decode(s):
         logs = tuple(
@@ -661,3 +668,319 @@ def make_decode(cfg: Config):
         return (logs, rstates, int(s["nrid"]), int(s["nep"]), reqs, quorum)
 
     return decode
+
+
+# ==========================================================================
+# oracle transcription (independent set semantics; the golden source)
+# ==========================================================================
+#
+# Oracle state mirrors make_decode's canonical form exactly.  Indices below
+# cite the corpus's KafkaReplication.tla.
+
+
+def o_init(cfg: Config):
+    # Init (:109-120)
+    logs = tuple(() for _ in range(cfg.n))
+    rstates = tuple((0, NIL, NONE, frozenset()) for _ in range(cfg.n))
+    quorum = (NIL, NONE, frozenset(range(cfg.n)))
+    return (logs, rstates, 0, 0, frozenset(), quorum)
+
+
+def _o_ctrl_update(cfg, s, new_leader, new_isr):
+    # ControllerUpdateIsr (:138-145); None if epochs exhausted
+    logs, rstates, nrid, nep, reqs, quorum = s
+    if nep > cfg.e:
+        return None
+    req = (nep, new_leader, frozenset(new_isr))
+    return (logs, rstates, nrid, nep + 1, reqs | {req}, req)
+
+
+def o_controller_shrink_isr(cfg: Config):
+    # ControllerShrinkIsr (:158-168)
+    def successors(s):
+        _, _, _, _, _, (qep, qldr, qisr) = s
+        for r in range(cfg.n):
+            if qldr == r and qisr == {r}:
+                t = _o_ctrl_update(cfg, s, NONE, qisr)
+            elif qldr == r and qisr != {r}:
+                t = _o_ctrl_update(cfg, s, NONE, qisr - {r})
+            elif qldr != r and r in qisr:
+                t = _o_ctrl_update(cfg, s, qldr, qisr - {r})
+            else:
+                continue
+            if t is not None:
+                yield t
+
+    return OracleAction("ControllerShrinkIsr", successors)
+
+
+def o_controller_elect_leader(cfg: Config):
+    # ControllerElectLeader (:176-179)
+    def successors(s):
+        _, _, _, _, _, (qep, qldr, qisr) = s
+        for n in sorted(qisr):
+            if qldr != n:
+                t = _o_ctrl_update(cfg, s, n, qisr)
+                if t is not None:
+                    yield t
+
+    return OracleAction("ControllerElectLeader", successors)
+
+
+def o_become_leader(cfg: Config):
+    # BecomeLeader (:186-195)
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for (e, l, risr) in reqs:
+            if l != NONE and e > rstates[l][1]:
+                hw = rstates[l][0]
+                new_rs = rstates[:l] + ((hw, e, l, risr),) + rstates[l + 1 :]
+                yield (logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("BecomeLeader", successors)
+
+
+def o_leader_write(cfg: Config):
+    # LeaderWrite (:202-207): presumed leader appends [id |-> nextRecordId,
+    # epoch |-> own epoch]; RecordSeq!NextId bumps the counter.
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        if nrid >= cfg.r:
+            return
+        for r in range(cfg.n):
+            if rstates[r][2] == r and len(logs[r]) < cfg.l:
+                rec = (nrid, rstates[r][1])
+                new_logs = logs[:r] + (logs[r] + (rec,),) + logs[r + 1 :]
+                yield (new_logs, rstates, nrid + 1, nep, reqs, quorum)
+
+    return OracleAction("LeaderWrite", successors)
+
+
+def _o_is_true_leader(s, l):
+    # IsTrueLeader (:128-131)
+    _, rstates, _, _, _, (qep, qldr, _) = s
+    return qldr == l and rstates[l][2] == l and rstates[l][1] == qep
+
+
+def _o_quorum_update(s, l, new_isr):
+    # QuorumUpdateLeaderAndIsr (:213-217)
+    if not _o_is_true_leader(s, l):
+        return None
+    logs, rstates, nrid, nep, reqs, (qep, qldr, qisr) = s
+    fs = frozenset(new_isr)
+    hw, ep, ldr, _ = rstates[l]
+    new_rs = rstates[:l] + ((hw, ep, ldr, fs),) + rstates[l + 1 :]
+    return (logs, new_rs, nrid, nep, reqs, (qep, qldr, fs))
+
+
+def _o_caught_up(s, l, f, end_offset):
+    # IsFollowerCaughtUp (:219-225)
+    logs, rstates, _, _, _, _ = s
+    if rstates[f][2] != l:
+        return False
+    if end_offset == 0:
+        return True
+    return end_offset <= len(logs[l]) and len(logs[f]) >= end_offset
+
+
+def o_leader_shrink_isr(cfg: Config):
+    # LeaderShrinkIsr (:233-239)
+    def successors(s):
+        _, rstates, _, _, _, _ = s
+        logs = s[0]
+        for l in range(cfg.n):
+            isr = rstates[l][3]
+            for f in sorted(isr - {l}):
+                if not _o_caught_up(s, l, f, len(logs[l])):
+                    t = _o_quorum_update(s, l, isr - {f})
+                    if t is not None:
+                        yield t
+
+    return OracleAction("LeaderShrinkIsr", successors)
+
+
+def o_leader_expand_isr(cfg: Config):
+    # LeaderExpandIsr (:248-254)
+    def successors(s):
+        _, rstates, _, _, _, _ = s
+        for l in range(cfg.n):
+            isr = rstates[l][3]
+            hw = rstates[l][0]
+            for f in range(cfg.n):
+                if f not in isr and _o_caught_up(s, l, f, hw):
+                    t = _o_quorum_update(s, l, isr | {f})
+                    if t is not None:
+                        yield t
+
+    return OracleAction("LeaderExpandIsr", successors)
+
+
+def o_leader_inc_high_watermark(cfg: Config):
+    # LeaderIncHighWatermark (:264-271)
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for l in range(cfg.n):
+            hw, ep, ldr, isr = rstates[l]
+            if ldr != l or hw >= cfg.l:
+                continue
+            if all(rstates[f][2] == l and len(logs[f]) > hw for f in isr):
+                new_rs = rstates[:l] + ((hw + 1, ep, ldr, isr),) + rstates[l + 1 :]
+                yield (logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("LeaderIncHighWatermark", successors)
+
+
+def o_become_follower_and_truncate_to(cfg: Config, name: str, trunc_offset_fn):
+    # BecomeFollowerAndTruncateTo (:281-294) composed per-variant; leader
+    # ranges over Replicas in every variant, so the None branch is dead.
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for (e, l, risr) in reqs:
+            if l == NONE:
+                continue
+            for r in range(cfg.n):
+                if r == l or e <= rstates[r][1]:
+                    continue
+                toff = trunc_offset_fn(cfg, s, l, r)
+                if toff > len(logs[r]):  # TruncateTo guard (FRL:106)
+                    continue
+                new_logs = logs[:r] + (logs[r][:toff],) + logs[r + 1 :]
+                new_hw = min(toff, rstates[r][0])
+                new_rs = rstates[:r] + ((new_hw, e, l, risr),) + rstates[r + 1 :]
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction(name, successors)
+
+
+def o_follower_replicate(cfg: Config):
+    # FollowerReplicate (:302-310)
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for f in range(cfg.n):
+            for l in range(cfg.n):
+                if rstates[l][2] != l or rstates[f][2] != l:
+                    continue
+                off = len(logs[f])
+                if off >= cfg.l or off >= len(logs[l]):
+                    continue
+                new_logs = logs[:f] + (logs[f] + (logs[l][off],),) + logs[f + 1 :]
+                new_hw = min(rstates[l][0], off + 1)
+                hwf, epf, ldrf, isrf = rstates[f]
+                new_rs = rstates[:f] + ((new_hw, epf, ldrf, isrf),) + rstates[f + 1 :]
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FollowerReplicate", successors)
+
+
+# variant truncation offsets, oracle side ---------------------------------
+
+
+def o_truncate_to_hw_offset(cfg, s, l, r):
+    # KafkaTruncateToHighWatermark.tla:29-31
+    return s[1][r][0]
+
+
+def o_kip101_offset(cfg, s, l, r):
+    # Kip101.tla:27-47
+    logs, rstates, *_ = s
+    if len(logs[r]) == 0:
+        return 0
+    epoch = logs[r][-1][1]
+    if len(logs[l]) == 0:
+        return rstates[r][0]
+    if logs[l][-1][1] == epoch:
+        return len(logs[l])
+    larger = [o for o, (_, ep) in enumerate(logs[l]) if ep > epoch]
+    return min(larger) if larger else rstates[r][0]
+
+
+def o_kip279_offset(cfg, s, l, r):
+    # Kip279.tla:27-45
+    logs = s[0]
+    if len(logs[l]) == 0:
+        return 0
+    matching = [
+        o
+        for o, rec in enumerate(logs[r])
+        if o < len(logs[l]) and logs[l][o] == rec
+    ]
+    return (max(matching) + 1) if matching else 0
+
+
+# oracle invariants --------------------------------------------------------
+
+
+def o_weak_isr(cfg: Config):
+    # WeakIsr (:320-326)
+    def pred(s):
+        logs, rstates, *_ = s
+        for r1 in range(cfg.n):
+            hw, _, ldr, isr = rstates[r1]
+            if ldr != r1:
+                continue
+            for r2 in isr:
+                for off in range(hw):
+                    if off >= len(logs[r1]) or off >= len(logs[r2]):
+                        return False
+                    if logs[r1][off] != logs[r2][off]:
+                        return False
+        return True
+
+    return ("WeakIsr", pred)
+
+
+def o_strong_isr(cfg: Config):
+    # StrongIsr (:334-340)
+    def pred(s):
+        logs, rstates, _, _, _, (_, _, qisr) = s
+        for r1 in range(cfg.n):
+            hw, _, ldr, _ = rstates[r1]
+            if ldr != r1:
+                continue
+            for r2 in qisr:
+                for off in range(hw):
+                    if off >= len(logs[r1]) or off >= len(logs[r2]):
+                        return False
+                    if logs[r1][off] != logs[r2][off]:
+                        return False
+        return True
+
+    return ("StrongIsr", pred)
+
+
+def o_leader_in_isr_literal(cfg: Config):
+    # LeaderInIsr (:345), literal
+    def pred(s):
+        _, _, _, _, _, (_, qldr, qisr) = s
+        return qldr in qisr
+
+    return ("LeaderInIsrLiteral", pred)
+
+
+def o_leader_in_isr(cfg: Config):
+    def pred(s):
+        _, _, _, _, _, (_, qldr, qisr) = s
+        return qldr == NONE or qldr in qisr
+
+    return ("LeaderInIsr", pred)
+
+
+def o_type_ok(cfg: Config):
+    # TypeOk (:101-107) on the canonical representation
+    def pred(s):
+        logs, rstates, nrid, nep, reqs, (qep, qldr, qisr) = s
+        if not (0 <= nrid <= cfg.r and 0 <= nep <= cfg.e + 1):
+            return False
+        for log in logs:
+            if len(log) > cfg.l:
+                return False
+            if any(not (0 <= i < cfg.r and 0 <= e <= cfg.e) for i, e in log):
+                return False
+        for hw, ep, ldr, isr in rstates:
+            if not (0 <= hw <= cfg.l and NIL <= ep <= cfg.e and NONE <= ldr < cfg.n):
+                return False
+            if not isr <= set(range(cfg.n)):
+                return False
+        return NIL <= qep <= cfg.e and NONE <= qldr < cfg.n
+
+    return ("TypeOk", pred)

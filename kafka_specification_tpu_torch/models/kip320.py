@@ -7,7 +7,8 @@ LeaderWrite from the core and replaces the five replica-side actions with
 fenced versions (:49-148); its THEOREMs (:168-171) say TypeOk, LeaderInIsr,
 WeakIsr and StrongIsr all hold.  Kip320FirstTry (Kip320FirstTry.tla:159-169)
 lets followers fetch at once and truncate on an epoch mismatch; it fails
-StrongIsr.
+StrongIsr.  The set-semantics oracles of both (``make_oracle``,
+``make_first_try_oracle``) are at the end.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ from typing import Sequence
 
 import torch
 
+from ..oracle.interp import OracleAction, OracleModel
 from . import kafka_replication as kr
 from .base import Action, Model
-from .kafka_replication import Config, _at, _bit, _member, _out, _put, _row, _vec, choices
-from .variants import DEFAULT_INVARIANTS, invariant_kernels
+from .kafka_replication import NONE, Config, _at, _bit, _member, _out, _put, _row, _vec, choices
+from .variants import DEFAULT_INVARIANTS, _invariant_oracles, invariant_kernels
 
 
 # --------------------------------------------------------------------------
@@ -367,5 +369,300 @@ def make_first_try_model(
         actions=actions,
         invariants=invariant_kernels(cfg, invariants),
         decode=kr.make_decode(cfg),
+        meta={"variant": "Kip320FirstTry", "cfg": cfg},
+    )
+
+
+# ==========================================================================
+# oracle transcription
+# ==========================================================================
+
+
+def _o_following_epoch(s, l, f):
+    # IsFollowingLeaderEpoch (Kip320.tla:39-42)
+    _, rstates, *_ = s
+    return (
+        rstates[l][2] == l and rstates[f][2] == l and rstates[f][1] == rstates[l][1]
+    )
+
+
+def o_fenced_follower_fetch(cfg: Config):
+    # Kip320.tla:49-56
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for f in range(cfg.n):
+            for l in range(cfg.n):
+                if not _o_following_epoch(s, l, f):
+                    continue
+                off = len(logs[f])
+                if off >= cfg.l or off >= len(logs[l]):
+                    continue
+                new_logs = logs[:f] + (logs[f] + (logs[l][off],),) + logs[f + 1 :]
+                hwf = min(rstates[l][0], off + 1)
+                _, epf, ldrf, isrf = rstates[f]
+                new_rs = rstates[:f] + ((hwf, epf, ldrf, isrf),) + rstates[f + 1 :]
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FencedFollowerFetch", successors)
+
+
+def o_fenced_leader_inc_hw(cfg: Config):
+    # Kip320.tla:63-70
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for l in range(cfg.n):
+            hw, ep, ldr, isr = rstates[l]
+            if hw >= len(logs[l]):
+                continue
+            if all(
+                _o_following_epoch(s, l, f) and len(logs[f]) > hw for f in isr
+            ):
+                new_rs = rstates[:l] + ((hw + 1, ep, ldr, isr),) + rstates[l + 1 :]
+                yield (logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FencedLeaderIncHighWatermark", successors)
+
+
+def o_fenced_leader_shrink_isr(cfg: Config):
+    # Kip320.tla:78-85
+    def successors(s):
+        logs, rstates, *_ = s
+        for l in range(cfg.n):
+            isr = rstates[l][3]
+            for f in sorted(isr - {l}):
+                if (not _o_following_epoch(s, l, f)) or len(logs[f]) < len(logs[l]):
+                    t = kr._o_quorum_update(s, l, isr - {f})
+                    if t is not None:
+                        yield t
+
+    return OracleAction("FencedLeaderShrinkIsr", successors)
+
+
+def _o_hw_reached_epoch(s, l):
+    # HasHighWatermarkReachedCurrentEpoch (Kip320.tla:87-92)
+    logs, rstates, *_ = s
+    hw = rstates[l][0]
+    if hw == len(logs[l]):
+        return True
+    return hw < len(logs[l]) and logs[l][hw][1] == rstates[l][1]
+
+
+def o_fenced_leader_expand_isr(cfg: Config):
+    # Kip320.tla:110-117
+    def successors(s):
+        logs, rstates, *_ = s
+        for l in range(cfg.n):
+            hw, _, _, isr = rstates[l]
+            for f in range(cfg.n):
+                if f in isr:
+                    continue
+                if not _o_following_epoch(s, l, f):
+                    continue
+                if not (hw == 0 or len(logs[f]) >= hw):  # :94-98
+                    continue
+                if not _o_hw_reached_epoch(s, l):  # :87-92
+                    continue
+                t = kr._o_quorum_update(s, l, isr | {f})
+                if t is not None:
+                    yield t
+
+    return OracleAction("FencedLeaderExpandIsr", successors)
+
+
+def o_fenced_become_follower_and_truncate(cfg: Config):
+    # Kip320.tla:134-148
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for (e, l, risr) in reqs:
+            if l == NONE:
+                continue
+            for r in range(cfg.n):
+                if r == l or e <= rstates[r][1]:
+                    continue
+                if rstates[l][2] != l or rstates[l][1] != e:  # :142-143
+                    continue
+                toff = kr.o_kip279_offset(cfg, s, l, r)
+                if toff > len(logs[r]):
+                    continue
+                new_hw = min(toff, rstates[r][0])
+                new_logs = logs[:r] + (logs[r][:toff],) + logs[r + 1 :]
+                new_rs = rstates[:r] + ((new_hw, e, l, risr),) + rstates[r + 1 :]
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FencedBecomeFollowerAndTruncate", successors)
+
+
+def _o_caught_up_to_epoch(cfg, s, l, f, end_offset):
+    # Kip320FirstTry.tla:49-57
+    logs, rstates, *_ = s
+    if rstates[l][2] != l or rstates[f][2] != l:
+        return False
+    if end_offset == 0:
+        return True
+    off = end_offset - 1
+    return (
+        end_offset <= len(logs[l])
+        and end_offset <= len(logs[f])
+        and logs[f][off][1] == logs[l][off][1]
+    )
+
+
+def o_ft_follower_truncate(cfg: Config):
+    # Kip320FirstTry.tla:64-82
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for l in range(cfg.n):
+            for f in range(cfg.n):
+                if rstates[l][2] != l or rstates[f][2] != l:
+                    continue
+                f_end = len(logs[f])
+                mismatch = (
+                    f_end > 0
+                    and f_end <= len(logs[l])
+                    and logs[l][f_end - 1][1] != logs[f][f_end - 1][1]
+                )
+                if not (f_end > len(logs[l]) or mismatch):
+                    continue
+                toff = kr.o_kip279_offset(cfg, s, l, f)
+                if toff > f_end:
+                    continue
+                new_logs = logs[:f] + (logs[f][:toff],) + logs[f + 1 :]
+                hwf, epf, ldrf, isrf = rstates[f]
+                new_rs = (
+                    rstates[:f] + ((min(toff, hwf), epf, ldrf, isrf),) + rstates[f + 1 :]
+                )
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FollowerTruncate", successors)
+
+
+def o_ft_improved_inc_hw(cfg: Config):
+    # Kip320FirstTry.tla:90-97
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for l in range(cfg.n):
+            hw, ep, ldr, isr = rstates[l]
+            if ldr != l or hw >= len(logs[l]):
+                continue
+            if all(_o_caught_up_to_epoch(cfg, s, l, f, hw + 1) for f in isr):
+                new_rs = rstates[:l] + ((hw + 1, ep, ldr, isr),) + rstates[l + 1 :]
+                yield (logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("ImprovedLeaderIncHighWatermark", successors)
+
+
+def o_ft_follower_fetch(cfg: Config):
+    # Kip320FirstTry.tla:103-111
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for f in range(cfg.n):
+            for l in range(cfg.n):
+                off = len(logs[f])
+                if not _o_caught_up_to_epoch(cfg, s, l, f, off):
+                    continue
+                if off >= cfg.l or off >= len(logs[l]):
+                    continue
+                new_logs = logs[:f] + (logs[f] + (logs[l][off],),) + logs[f + 1 :]
+                hwf = min(rstates[l][0], off + 1)
+                _, epf, ldrf, isrf = rstates[f]
+                new_rs = rstates[:f] + ((hwf, epf, ldrf, isrf),) + rstates[f + 1 :]
+                yield (new_logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("FollowerFetch", successors)
+
+
+def o_ft_leader_shrink(cfg: Config):
+    # Kip320FirstTry.tla:114-120
+    def successors(s):
+        logs, rstates, *_ = s
+        for l in range(cfg.n):
+            isr = rstates[l][3]
+            for f in sorted(isr - {l}):
+                if not _o_caught_up_to_epoch(cfg, s, l, f, len(logs[l])):
+                    t = kr._o_quorum_update(s, l, isr - {f})
+                    if t is not None:
+                        yield t
+
+    return OracleAction("LeaderShrinkIsrBetterFencing", successors)
+
+
+def o_ft_leader_expand(cfg: Config):
+    # Kip320FirstTry.tla:122-141
+    def successors(s):
+        logs, rstates, *_ = s
+        for l in range(cfg.n):
+            hw, _, _, isr = rstates[l]
+            for f in range(cfg.n):
+                if f in isr:
+                    continue
+                if not _o_caught_up_to_epoch(cfg, s, l, f, hw):
+                    continue
+                if not _o_hw_reached_epoch(s, l):
+                    continue
+                t = kr._o_quorum_update(s, l, isr | {f})
+                if t is not None:
+                    yield t
+
+    return OracleAction("LeaderExpandIsrBetterFencing", successors)
+
+
+def o_ft_become_follower(cfg: Config):
+    # Kip320FirstTry.tla:148-157
+    def successors(s):
+        logs, rstates, nrid, nep, reqs, quorum = s
+        for (e, l, risr) in reqs:
+            if l == NONE:
+                continue
+            for r in range(cfg.n):
+                if r == l or e <= rstates[r][1]:
+                    continue
+                hwf = rstates[r][0]
+                new_rs = rstates[:r] + ((hwf, e, l, risr),) + rstates[r + 1 :]
+                yield (logs, new_rs, nrid, nep, reqs, quorum)
+
+    return OracleAction("BecomeFollower", successors)
+
+
+def make_oracle(cfg: Config, invariants: Sequence[str] = DEFAULT_INVARIANTS) -> OracleModel:
+    actions = [
+        kr.o_controller_elect_leader(cfg),
+        kr.o_controller_shrink_isr(cfg),
+        kr.o_become_leader(cfg),
+        o_fenced_leader_expand_isr(cfg),
+        o_fenced_leader_shrink_isr(cfg),
+        kr.o_leader_write(cfg),
+        o_fenced_leader_inc_hw(cfg),
+        o_fenced_become_follower_and_truncate(cfg),
+        o_fenced_follower_fetch(cfg),
+    ]
+    return OracleModel(
+        name="Kip320-oracle",
+        init_states=lambda: [kr.o_init(cfg)],
+        actions=actions,
+        invariants=_invariant_oracles(cfg, invariants),
+        meta={"variant": "Kip320", "cfg": cfg},
+    )
+
+
+def make_first_try_oracle(
+    cfg: Config, invariants: Sequence[str] = DEFAULT_INVARIANTS
+) -> OracleModel:
+    actions = [
+        kr.o_controller_elect_leader(cfg),
+        kr.o_controller_shrink_isr(cfg),
+        kr.o_become_leader(cfg),
+        o_ft_leader_expand(cfg),
+        o_ft_leader_shrink(cfg),
+        kr.o_leader_write(cfg),
+        o_ft_improved_inc_hw(cfg),
+        o_ft_become_follower(cfg),
+        o_ft_follower_fetch(cfg),
+        o_ft_follower_truncate(cfg),
+    ]
+    return OracleModel(
+        name="Kip320FirstTry-oracle",
+        init_states=lambda: [kr.o_init(cfg)],
+        actions=actions,
+        invariants=_invariant_oracles(cfg, invariants),
         meta={"variant": "Kip320FirstTry", "cfg": cfg},
     )

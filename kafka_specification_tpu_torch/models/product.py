@@ -1,7 +1,7 @@
 """The partition product: K independent partitions of base models as one.
 
-Counterpart of ``kafka_specification_tpu/models/product.py`` (without its
-oracle twin).  The reference specs model one partition; the product reads
+Counterpart of ``kafka_specification_tpu/models/product.py``, with its
+oracle twin (``product_oracle``).  The reference specs model one partition; the product reads
 "5 brokers / 3 partitions" as K independent instances interleaved: `Next`
 is the disjoint union of the per-partition actions (one partition steps at
 a time), the invariants are the conjunction over partitions, and so is
@@ -21,6 +21,7 @@ from __future__ import annotations
 import itertools
 
 from ..ops.packing import Field, StateSpec
+from ..oracle.interp import OracleAction, OracleModel
 from .base import Action, Invariant, Model
 
 
@@ -109,4 +110,43 @@ def product_models(bases, name: str | None = None, meta: dict | None = None) -> 
         constraint=constraint,
         decode=decode,
         meta=meta or {**bases[0].meta, "partitions": k, "base": [b.name for b in bases]},
+    )
+
+
+def product_oracle(base: OracleModel, k: int) -> OracleModel:
+    """Oracle twin of product_model: state = k-tuple of base states; each
+    action steps one partition.  Canonical form matches product_model's
+    decode (a tuple of per-partition decodes)."""
+    assert k >= 1
+
+    def init():
+        import itertools
+
+        return [tuple(c) for c in itertools.product(base.init_states(), repeat=k)]
+
+    actions = []
+    for p in range(k):
+        for a in base.actions:
+            def succ(s, p=p, a=a):
+                for t in a.successors(s[p]):
+                    yield s[:p] + (t,) + s[p + 1 :]
+
+            actions.append(OracleAction(f"p{p}.{a.name}", succ))
+
+    invariants = [
+        (name, lambda s, pred=pred: all(pred(x) for x in s))
+        for name, pred in base.invariants
+    ]
+    constraint = None
+    if base.constraint is not None:
+        def constraint(s):
+            return all(base.constraint(x) for x in s)
+
+    return OracleModel(
+        name=f"{base.name} x{k}partitions",
+        init_states=init,
+        actions=actions,
+        invariants=invariants,
+        constraint=constraint,
+        meta={**base.meta, "partitions": k, "base": base.name},
     )

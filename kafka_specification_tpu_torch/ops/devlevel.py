@@ -63,6 +63,7 @@ def zero_digest(device) -> torch.Tensor:
     return torch.zeros(3, dtype=torch.int64, device=device)
 
 
+# kspec: traced
 def xor_reduce(x: torch.Tensor) -> torch.Tensor:
     """XOR of all elements of an int64 vector, as a 0-d tensor (a halving
     tree: torch has no XOR reduction)."""
@@ -75,6 +76,7 @@ def xor_reduce(x: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+# kspec: traced
 def masked_digest(fps: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(count, xor, sum) over the u64 fingerprints (int64 bit patterns)
     selected by `valid`, as int64[3]."""
@@ -82,6 +84,7 @@ def masked_digest(fps: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.stack([valid.sum(), xor_reduce(m), m.sum()])
 
 
+# kspec: traced
 def combine_digest(acc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Fold one chunk's digest into the running level accumulator."""
     return torch.stack([acc[0] + new[0], acc[1] ^ new[1], acc[2] + new[2]])
@@ -94,6 +97,7 @@ def digest_ints(acc) -> tuple:
     return count, xor & _M64, total & _M64
 
 
+# kspec: traced
 def append_slots(pos: torch.Tensor, take: torch.Tensor, offset: torch.Tensor,
                  dump: int) -> torch.Tensor:
     """The output row of each of a chunk's entries: `offset + pos` for an
@@ -102,6 +106,7 @@ def append_slots(pos: torch.Tensor, take: torch.Tensor, offset: torch.Tensor,
     return torch.where(take, offset + pos, dump)
 
 
+# kspec: traced
 def append_rows(buf: torch.Tensor, seg: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Write `seg`'s rows at their slots of `buf` (``append_slots``)."""
     return buf.index_copy_(0, slots, seg)

@@ -3,8 +3,9 @@
 The parser is a copy of ``kafka_specification_tpu/utils/cfg.py::parse_cfg``
 (the port imports nothing from the JAX package).  ``build_model`` and
 ``resolved_invariants`` are copies of that module's, for the hand-written
-models: IdSequence, FiniteReplicatedLog, the five Kafka modules (with the
-authored constant ``Partitions = K`` building the K-partition product,
+models and their oracle twins (``build_model(..., oracle=True)``):
+IdSequence, FiniteReplicatedLog, the five Kafka modules (with the authored
+constant ``Partitions = K`` building the K-partition product,
 ``models/product.py``) and AsyncIsr; every other module raises.
 
 Supported .cfg subset:
@@ -131,25 +132,33 @@ def _with_names(model, constants):
     return model
 
 
-def build_model(module: str, cfg: TlcConfig):
+def build_model(module: str, cfg: TlcConfig, oracle: bool = False, analysis_gate: bool = True):
     """The tensor model for a TLA+ module name under a parsed config, with
-    the invariants of ``resolved_invariants``.  CONSTRAINT is accepted for
-    AsyncIsr only, whose bound the MaxOffset/MaxVersion constants already
-    are (MaxVersion defaults to MaxOffset); a Kafka module's ``Partitions =
-    K > 1`` builds the product of K copies of it.
+    the invariants of ``resolved_invariants``; with ``oracle=True`` its
+    set-semantics twin instead (``oracle/``: the same invariants, the
+    .cfg's replica names, and for ``Partitions = K > 1`` the
+    ``product_oracle`` of K copies).  CONSTRAINT is accepted for AsyncIsr
+    only, whose bound the MaxOffset/MaxVersion constants already are
+    (MaxVersion defaults to MaxOffset); a Kafka module's ``Partitions = K
+    > 1`` builds the product of K copies of it.
 
-    The built model passes the encoding gate (``analysis.
+    The built tensor model passes the encoding gate (``analysis.
     require_encoding_sound``; KSPEC_ANALYZE=0 disables) before it is
     returned, as the JAX package's build_model does: an unsound (config,
-    schema) pair raises ``EncodingUnsound`` and ``cli check`` exits 2."""
-    from ..analysis import require_encoding_sound
+    schema) pair raises ``EncodingUnsound`` and ``cli check`` exits 2.
+    Oracle twins carry no tensor schema and skip the gate (AsyncIsr's
+    shares its N <= 4 cliff check directly); ``analysis_gate=False`` skips
+    it too, for ``cli analyze``, which wants every finding and not the
+    first HIGH one."""
+    built = _build_model(module, cfg, oracle)
+    if analysis_gate and not oracle:
+        from ..analysis import require_encoding_sound
 
-    built = _build_model(module, cfg)
-    require_encoding_sound(built)
+        require_encoding_sound(built)
     return built
 
 
-def _build_model(module: str, cfg: TlcConfig):
+def _build_model(module: str, cfg: TlcConfig, oracle: bool = False):
     if module not in MODULES:
         raise KeyError(f"unknown module {module!r}")
     if cfg.constraints and module != "AsyncIsr":
@@ -159,25 +168,25 @@ def _build_model(module: str, cfg: TlcConfig):
         )
     c = cfg.constants
     if module == "IdSequence":
-        from ..models import id_sequence
+        from ..models import id_sequence as m
 
-        return id_sequence.make_model(int(c["MaxId"]))
+        return (m.make_oracle if oracle else m.make_model)(int(c["MaxId"]))
     if module == "FiniteReplicatedLog":
-        from ..models import finite_replicated_log
+        from ..models import finite_replicated_log as m
 
-        return finite_replicated_log.make_model(
+        return (m.make_oracle if oracle else m.make_model)(
             _setlen(c["Replicas"]), int(c["LogSize"]), _setlen(c["LogRecords"])
         )
     invs = resolved_invariants(module, cfg)
     if module == "AsyncIsr":
-        from ..models import async_isr
+        from ..models import async_isr as m
 
-        acfg = async_isr.AsyncIsrConfig(
+        acfg = m.AsyncIsrConfig(
             n_replicas=_setlen(c["Replicas"]),
             max_offset=int(c["MaxOffset"]),
             max_version=int(c.get("MaxVersion", c["MaxOffset"])),
         )
-        return _with_names(async_isr.make_model(acfg, invs), c)
+        return _with_names((m.make_oracle if oracle else m.make_model)(acfg, invs), c)
     from ..models.kafka_replication import Config
 
     kcfg = Config(
@@ -187,18 +196,21 @@ def _build_model(module: str, cfg: TlcConfig):
         max_leader_epoch=int(c["MaxLeaderEpoch"]),
     )
     if module in KAFKA_VARIANTS:
-        from ..models import variants
+        from ..models import variants as m
 
-        built = variants.make_model(module, kcfg, invs)
+        built = (m.make_oracle if oracle else m.make_model)(module, kcfg, invs)
     else:
-        from ..models import kip320
+        from ..models import kip320 as m
 
-        make = kip320.make_model if module == "Kip320" else kip320.make_first_try_model
+        if module == "Kip320":
+            make = m.make_oracle if oracle else m.make_model
+        else:
+            make = m.make_first_try_oracle if oracle else m.make_first_try_model
         built = make(kcfg, invs)
     built = _with_names(built, c)
     k = _setlen(c.get("Partitions", 1))
     if k > 1:
-        from ..models.product import product_model
+        from ..models.product import product_model, product_oracle
 
-        built = product_model(built, k)
+        built = (product_oracle if oracle else product_model)(built, k)
     return built

@@ -404,3 +404,76 @@ def test_faults_list_equals_jax(capsys):
     entries = json.loads(capsys.readouterr().out)
     jrc, jout = jax_cli(capsys, "faults", "--json")
     assert entries == [e for e in json.loads(jout.out) if e["kind"] != "crashcheck-scenario"]
+
+
+# --- cli pipelines: the registry against the JAX package's support matrix ---------------
+
+
+def test_pipelines_json_equals_jax_support_matrix(capsys):
+    """Names, order, default, each entry's fallback, every backend cell's
+    flag and the (device, device-hash) detail are JAX's; the port's
+    sharded engine cells say they are not served."""
+    from kafka_specification_tpu.pipeline_registry import list_pipelines as jax_list
+    from kafka_specification_tpu_torch import pipeline_registry as reg
+
+    assert cli.main(["pipelines", "--json"]) == 0
+    entries = json.loads(capsys.readouterr().out)
+    jentries = jax_list()
+    assert entries == reg.list_pipelines()
+    assert [e["name"] for e in entries] == [e["name"] for e in jentries] == list(reg.PIPELINES)
+    for e, j in zip(entries, jentries):
+        assert (e["default"], e["fallback"]) == (j["default"], j["fallback"])
+        assert list(e["backends"]) == list(j["backends"])
+        assert set(e["backends"]) == set(reg.BACKENDS)
+        assert list(e["engines"]) == list(j["engines"]) == list(reg.ENGINES)
+        for be in reg.BACKENDS:
+            assert e["backends"][be]["supported"] == j["backends"][be]["supported"]
+            assert reg.backend_support(e["name"], be) == e["backends"][be]
+        assert e["engines"]["single-device"]["supported"] is True
+        assert e["engines"]["sharded"]["supported"] is False
+        assert "no sharded engine" in e["engines"]["sharded"]["detail"]
+        assert reg.engine_support(e["name"], "sharded") == e["engines"]["sharded"]
+    dh, jdh = entries[0]["backends"]["device-hash"], jentries[0]["backends"]["device-hash"]
+    assert dh == jdh
+    assert reg.DEVICE_HASH_REASON == f"visited backend 'device-hash': {jdh['detail']}"
+    assert reg.DEFAULT_PIPELINE == "fused"
+    from kafka_specification_tpu.pipeline_registry import pipeline_names as jax_names
+
+    assert reg.pipeline_names() == jax_names()
+    with pytest.raises(ValueError, match="unknown visited backend"):
+        reg.backend_support("device", "disk")
+    with pytest.raises(ValueError, match="unknown engine"):
+        reg.engine_support("device", "multi-host")
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        reg.backend_support("mega", "host")
+
+
+def test_pipelines_text_has_jax_layout(capsys):
+    """One line per entry, its description, then one [engine] and one
+    [backend b] line per cell, as JAX's `cli pipelines` prints them; the
+    marks agree except on the sharded cells the port does not serve."""
+    from kafka_specification_tpu.utils.cli import main as jmain
+
+    assert cli.main(["pipelines"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert jmain(["pipelines", "--list"]) == 0
+    jout = capsys.readouterr().out.splitlines()
+    assert len(out) == len(jout) == 1 + 3 * (2 + 2 + 3)
+
+    def head(line):
+        s = line.strip()
+        if s.startswith("["):
+            return s.split(":", 1)[0]
+        return s.split(":", 1)[0] if line.startswith("  ") and not line.startswith("      ") \
+            else "description"
+
+    assert out[0] == jout[0]
+    for a, b in zip(out[1:], jout[1:]):
+        if "[sharded]" in a:
+            assert a.startswith("      [sharded] degrades: the port has no sharded engine")
+            continue
+        assert head(a) == head(b), (a, b)
+    assert out[1] == ("  device: one K1 launch per chunk, one host read per LEVEL -> "
+                      "degrades to 'fused'")
+    assert cli.main(["pipelines", "--list"]) == 0
+    assert capsys.readouterr().out.splitlines() == out

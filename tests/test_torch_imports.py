@@ -67,6 +67,10 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                 "stats.jsonl"]
             assert cli.main(["report", tmp + "/run"]) == 0
             assert cli.main(["faults", "--list"]) == 0
+        # the reference interpreter, the pipeline registry, the static analysis
+        assert cli.main(["oracle", "configs/IdSequence.cfg"]) == 0
+        assert cli.main(["pipelines", "--json"]) == 0
+        assert cli.main(["analyze", "--no-models"]) == 0
         for name in ("cli", "verdict", "pipeline_registry", "engine.pipeline",
                      "utils.pretty", "models.id_sequence", "models.finite_replicated_log",
                      "durable_io", "native", "resilience.integrity",
@@ -77,7 +81,8 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "storage.store", "resilience.faults",
                      "resilience.resources", "obs", "obs.atomicio", "obs.tracer",
                      "obs.metrics", "obs.runctx", "obs.observer", "obs.report",
-                     "overlap", "analysis.ownership"):
+                     "overlap", "analysis.ownership", "oracle", "oracle.interp",
+                     "engine.decode"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -121,7 +126,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "storage/store.py",
             "resilience/faults.py", "resilience/resources.py", "obs/__init__.py",
             "obs/atomicio.py", "obs/tracer.py", "obs/metrics.py", "obs/runctx.py",
-            "obs/observer.py", "obs/report.py", "overlap.py", "analysis/ownership.py"} <= names
+            "obs/observer.py", "obs/report.py", "overlap.py", "analysis/ownership.py",
+            "oracle/__init__.py", "oracle/interp.py", "engine/decode.py",
+            "pipeline_registry.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
@@ -154,3 +161,18 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(build.KernelBuildError, match="nvcc"):
         build.nvcc_path()
+
+
+def test_the_oracle_and_the_ast_checker_are_stdlib_only():
+    """The reference interpreter shares no code with the kernel path (no
+    torch, no packing, no kernels), and the static analysis' AST half
+    needs no card stack: both import the standard library only (and the
+    checker its own package's Finding)."""
+    pkg = REPO / "kafka_specification_tpu_torch"
+    assert set(_imported_roots(pkg / "oracle" / "interp.py")) <= {
+        "__future__", "dataclasses", "typing"}
+    tree = ast.parse((pkg / "oracle" / "interp.py").read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level]
+    assert set(_imported_roots(pkg / "analysis" / "ownership.py")) <= {
+        "__future__", "ast", "os", "re", "threading", "typing"}
+    assert set(_imported_roots(pkg / "pipeline_registry.py")) <= {"__future__", "os"}
