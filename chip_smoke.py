@@ -167,11 +167,43 @@ print no result:
          prints); `cli analyze --json` exit 0, ok, no HIGH or MEDIUM
          finding, the Kip320 and engine-sources targets; `cli pipelines
          --json` listing device, fused and legacy
+  resilience  supervision and recovery (resilience/): (a) Kip320 3r under
+         KSPEC_FAULT=transient_device_err:3 with no knobs, on
+         visited_backend="device-hash" and on pipeline="device": 3 retries
+         (KSPEC_RETRY_BASE_DELAY 0.01 s), the pinned levels, the JAX
+         package's chain, K1 launched 69, 69 and 72 times as on the clean
+         paths (an injected error fires before anything is queued), K2 49;
+         (b) compile_oom with no knobs (one compile_fallback record, the fused
+         rung degraded) and on pipeline="device" (no level on the card, the
+         fallback naming the injected error), the same counts and chain;
+         (c) a genuine torch.OutOfMemoryError: E3 on the tier at 16M on
+         pipeline="device" under set_per_process_memory_fraction of a
+         1.0 GB cap (between the per-chunk path's 0.47 GB peak and the
+         staged level's 1.50 GB): a staged level fails to allocate, the run
+         degrades to the per-chunk path, records the error in
+         stats["device"]["fallback"] and ends ok with 9,985,570 states, its
+         peak under the cap (the fraction restored and the cache emptied
+         afterwards, whatever happens); (d) integrity_shadow=1.0: one
+         host-oracle check a chunk (42), the same levels and chain, K1 69;
+         (e) one bit of one chunk's hi flipped between K1 and the commit:
+         IntegrityError at site shadow; (f) `cli check configs/Kip320.cfg
+         --resilient --checkpoint D --run-dir R --fault crash@level:12
+         --json --max-restarts 2` in a subprocess: exit 0, the events start,
+         exit, restart, start, exit, complete, the last attempt's record
+         (737,794 states, diameter 25, the pinned levels), the newest
+         checkpoint's chain the JAX package's, `cli report R` naming the
+         restart; (g) scripts/torch_resilient_run.py --stall-timeout 25
+         --max-restarts 1 around a child that takes the card and sleeps with
+         a heartbeat never written, started at the phase's start and run
+         beside (a)-(f): two stall-kills, each of a child that logged that it
+         held the card, and a last give-up; then a Kip320 3r check() here
+         runs to 737,794 states
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
 three E3 runs of disk-tier, each check of obs, each side of each overlap
-path, each oracle run that launches K1) then
+path, each oracle run that launches K1, each in-process resilience
+run) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -1993,6 +2025,320 @@ def phase_oracle():
     return {"line": "; ".join(parts), "counts": counts}
 
 
+# phase `resilience`: the cap under which pipeline="device"'s staged level
+# fails to allocate on E3 on the tier while the per-chunk path fits (its
+# peaks: 1.50 GB and 0.47 GB, phase disk-tier)
+RESILIENCE_CAP = 1_000_000_000
+# the card-holding child of part (g): the stall timeout exceeds the time its
+# process takes to reach the card, so that it is killed while it holds it
+STALL_CHILD = ("import sys, time, torch; torch.zeros(1, device='cuda'); "
+               "torch.cuda.synchronize(); print('holding the card', flush=True); "
+               "time.sleep(600)")
+STALL_TIMEOUT = 25
+
+
+def _kip320_model():
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    return build_model("Kip320", load_config("configs/Kip320.cfg"))
+
+
+def _chain_is_jax(ckpt, what):
+    """The newest checkpoint's digest chain in `ckpt` against KIP320_CHAIN."""
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    want = np.array(KIP320_CHAIN, dtype=np.uint64)
+    chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+    if chain.shape != want.shape or not np.array_equal(chain, want):
+        raise AssertionError(f"{what}: the digest chain {chain.shape} is not the JAX package's")
+
+
+def _kip320_faulted(name, fault, path_kernels, want_k1, **knobs):
+    """Kip320 3r through check() under the fault plan `fault`, counted from
+    0, one checkpoint after its last level: ok, the pinned levels, the JAX
+    chain, K1 launched `want_k1` times.  -> (result, wall, counts, note)."""
+    ckpt = WORK / f"resilience-{name}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if fault:
+        os.environ["KSPEC_FAULT"] = fault
+    try:
+        res, wall, counts, held = _timed_check(_kip320_model(), path_kernels,
+                                               checkpoint_dir=str(ckpt),
+                                               checkpoint_every=len(KIP320_LEVELS), **knobs)
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    if not res.ok or res.levels != KIP320_LEVELS or res.diameter != 25:
+        raise AssertionError(f"{name}: ok={res.ok} levels {res.levels}")
+    _chain_is_jax(ckpt, name)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if counts["fingerprint"] != want_k1:
+        raise AssertionError(f"{name}: K1 launched {counts['fingerprint']} times, the clean "
+                             f"path's {want_k1}")
+    return res, wall, counts, held
+
+
+def _alloc_failure_part():
+    """(c) E3 on the tier at 16M on pipeline="device" under a memory cap
+    between the per-chunk path's peak and the staged level's: a genuine
+    torch.OutOfMemoryError in a staged level, the run degraded to the
+    per-chunk path, ok under the cap.  -> (result, wall, counts, note, cap,
+    peak); the fraction is restored and the cache emptied whatever
+    happens."""
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    cfg = load_config("configs/Kip320.cfg")
+    cfg.constants.update(E3_CONSTANTS)
+    model = build_model("Kip320", cfg)
+    spill = WORK / "resilience-e3"
+    shutil.rmtree(spill, ignore_errors=True)
+    index = torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(index).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    torch.cuda.set_per_process_memory_fraction(RESILIENCE_CAP / total, index)
+    try:
+        res, wall, counts, held = _timed_check(model, ("fingerprint",), mem_budget=E3_BUDGET,
+                                               spill_dir=str(spill), pipeline="device")
+        peak = torch.cuda.max_memory_allocated(DEV)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, index)
+        torch.cuda.empty_cache()
+        shutil.rmtree(spill, ignore_errors=True)
+    fb = res.stats["device"]["fallback"] or ""
+    degr = res.stats["degradations"]
+    if not fb.startswith("OutOfMemoryError: CUDA out of memory"):
+        raise AssertionError(
+            f"no staged level failed to allocate under a cap of {RESILIENCE_CAP} B (peak "
+            f"{peak} B, {res.stats['device']['levels']} levels on the card; the per-chunk "
+            f"path's peak is 0.47 GB, the staged level's 1.50 GB): fallback {fb!r}")
+    if (res.ok, res.total, res.diameter) != (True, E3_TOTAL, E3_DIAMETER) or peak > RESILIENCE_CAP:
+        raise AssertionError(f"E3 under the cap: ok={res.ok} total={res.total} "
+                             f"diameter={res.diameter}, peak {peak} B")
+    if [d["kind"] for d in degr] != ["compile_fallback"] or degr[0]["error"][:200] != fb:
+        raise AssertionError(f"E3 under the cap: degradations {degr}")
+    return res, wall, counts, held, total, peak
+
+
+def _stall_kill_start():
+    """(g) scripts/torch_resilient_run.py around a child that holds the card
+    and never writes its heartbeat, started in the background."""
+    d = WORK / "resilience-stall"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cmd = [sys.executable, "scripts/torch_resilient_run.py", "--run-dir", str(d / "run"),
+           "--heartbeat", str(d / "never.jsonl"), "--stall-timeout", str(STALL_TIMEOUT),
+           "--max-restarts", "1", "--backoff", "0.05", "--",
+           sys.executable, "-c", STALL_CHILD]
+    return d, subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                               text=True), time.perf_counter()
+
+
+def _stall_kill_wait(proc):
+    """Wait for the supervisor of part (g), which ends by itself once it
+    has killed both children (a bounded wait); -> its stderr."""
+    try:
+        return proc.communicate(timeout=4 * STALL_TIMEOUT + 120)[1]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _stall_kill_end(d, proc, t0):
+    err = _stall_kill_wait(proc)
+    wall = time.perf_counter() - t0
+    evs = _jsonl(d / "run" / "events.jsonl")
+    kinds = [e["event"] for e in evs]
+    # from each stall-kill's SIGTERM to the child's exit (past the 10 s
+    # grace, the process group got SIGKILL)
+    reaped = [round(b["unix"] - a["unix"], 2) for a, b in zip(evs, evs[1:])
+              if a["event"] == "stall-kill"]
+    logs = sorted((d / "run" / "logs").iterdir())
+    held = [p.read_text(errors="replace").count("holding the card") for p in logs]
+    if proc.returncode == 0 or kinds.count("stall-kill") != 2 or kinds[-1] != "give-up":
+        raise AssertionError(f"stall-kill: exit {proc.returncode}, events {kinds}: {err[-500:]}")
+    if held != [1, 1]:
+        raise AssertionError(f"stall-kill: the children's logs say they held the card {held}")
+    return wall, kinds, reaped
+
+
+def phase_resilience():
+    """Supervision and recovery on the card (resilience/): (a) Kip320 3r
+    under KSPEC_FAULT=transient_device_err:3 on the default path, on
+    device-hash and on pipeline="device": 3 retries, the pinned levels, the
+    JAX chain, K1's (and K2's) launches those of the clean paths; (b)
+    compile_oom on the default path (one compile_fallback record, the fused
+    rung degraded) and on pipeline="device" (no level on the card, the
+    fallback naming the injected error); (c) a genuine
+    torch.OutOfMemoryError: E3 on the tier at 16M on pipeline="device"
+    under a cap between the per-chunk path's peak and the staged level's,
+    degraded to the per-chunk path, ok under the cap; (d) integrity_shadow
+    1.0: one host-oracle check a chunk, the same result; (e) one bit of one
+    chunk's hi flipped between K1 and the commit: IntegrityError at site
+    shadow; (f) `cli check --resilient` crashed at level 12 and resumed by
+    the supervisor to the pinned record and the JAX chain, `cli report`
+    naming the restart; (g) scripts/torch_resilient_run.py stall-killing
+    (twice) a child that holds the card, then a Kip320 3r check() here.
+    Every in-process path is counted from 0 and holds K1 (and K2) at its
+    largest launch."""
+    stall = _stall_kill_start()  # (g) runs beside (a)-(f): its children only hold the card
+    try:
+        return _resilience_parts(stall)
+    finally:
+        # on a failed part, (g)'s supervisor still kills its children and
+        # ends (its own exit is then not checked): no process outlives the
+        # phase
+        if stall[1].poll() is None:
+            _stall_kill_wait(stall[1])
+
+
+def _resilience_parts(stall):
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.engine import pipeline
+    from kafka_specification_tpu_torch.obs import RunContext, metrics, tracer
+    from kafka_specification_tpu_torch.resilience.integrity import IntegrityError
+
+    parts, counts, walls = [], {}, {}
+    os.environ["KSPEC_RETRY_BASE_DELAY"] = "0.01"  # the retries' backoff, not the runs, is slept
+    try:
+        # (a) injected transients
+        for name, knobs, kern, want in (
+                ("default", {}, ("fingerprint",), 69),
+                ("device-hash", {"visited_backend": "device-hash"},
+                 ("fingerprint", "hash_probe_insert"), 69),
+                ("device", {"pipeline": "device"}, ("fingerprint",), 72)):
+            res, walls[f"a {name}"], counts[f"transient {name}"], held = _kip320_faulted(
+                f"transient-{name}", "transient_device_err:3", kern, want, **knobs)
+            k2 = counts[f"transient {name}"]["hash_probe_insert"]
+            if res.stats["transient_retries"] != 3 or res.stats["degradations"] or (
+                    name == "device-hash" and k2 != 49):
+                raise AssertionError(f"transient {name}: retries "
+                                     f"{res.stats['transient_retries']}, degradations "
+                                     f"{res.stats['degradations']}, K2 {k2}")
+            if name == "device" and res.stats["device"] != {"levels": KIP320_DEVICE_LEVELS,
+                                                            "fallback": None}:
+                raise AssertionError(f"transient device: {res.stats['device']}")
+            parts.append(f"(a) transient_device_err:3 {name}: 3 retries, levels and chain as "
+                         f"pinned, {walls[f'a {name}']:.2f} s, launches "
+                         f"{counts[f'transient {name}']}; {held}")
+        # (b) injected compile_oom
+        for name, knobs in (("default", {}), ("device", {"pipeline": "device"})):
+            res, walls[f"b {name}"], counts[f"compile_oom {name}"], held = _kip320_faulted(
+                f"oom-{name}", "compile_oom", ("fingerprint",), 69, **knobs)
+            degr = res.stats["degradations"]
+            if [d["kind"] for d in degr] != ["compile_fallback"]:
+                raise AssertionError(f"compile_oom {name}: degradations {degr}")
+            if name == "default" and res.stats["pipeline_fallback"] is not True:
+                raise AssertionError("compile_oom default: the fused rung did not degrade")
+            if name == "device" and (res.stats["device"]["levels"] != 0 or "KSPEC_FAULT=compile_oom"
+                                     not in (res.stats["device"]["fallback"] or "")):
+                raise AssertionError(f"compile_oom device: {res.stats['device']}")
+            parts.append(f"(b) compile_oom {name}: {degr}, pipeline_fallback "
+                         f"{res.stats['pipeline_fallback']}"
+                         + (f", device {res.stats['device']}" if name == "device" else "")
+                         + f", levels and chain as pinned, {walls[f'b {name}']:.2f} s, "
+                         f"launches {counts[f'compile_oom {name}']}; {held}")
+    finally:
+        os.environ.pop("KSPEC_RETRY_BASE_DELAY", None)
+    # (c) a genuine allocation failure
+    res, walls["c"], counts["alloc-failure E3 tier device"], held, total, peak = (
+        _alloc_failure_part())
+    parts.append(f"(c) E3 tier 16M pipeline=device under a cap of {RESILIENCE_CAP} B "
+                 f"(fraction {RESILIENCE_CAP / total:.6f} of {total} B): a staged level raised "
+                 f"{res.stats['device']['fallback'][:120]!r} after "
+                 f"{res.stats['device']['levels']} levels on the card; degraded, ok, "
+                 f"{res.total} states, peak {peak} B, {walls['c']:.2f} s, degradations "
+                 f"{[(d['kind'], d['depth']) for d in res.stats['degradations']]}; launches "
+                 f"{counts['alloc-failure E3 tier device']}; {held}")
+    # (d) a healthy shadow
+    d = WORK / "resilience-shadow-run"
+    shutil.rmtree(d, ignore_errors=True)
+    run = RunContext(str(d / "run"))
+    res, walls["d"], counts["shadow 1.0"], held = _kip320_faulted(
+        "shadow", None, ("fingerprint",), 69, integrity_shadow=1.0, run=run)
+    shadows = run.metrics.snapshot()["counters"].get("kspec_integrity_shadow_total")
+    spans = [r for r in _jsonl(run.spans_path) if r.get("span") == "shadow"]
+    chunks = sum(-(-n // 32768) for n in KIP320_LEVELS)  # 42 at the default chunk size
+    if shadows != chunks or len(spans) != chunks or {r["mode"] for r in spans} != {
+            "host-oracle"}:
+        raise AssertionError(f"shadow: {shadows} checks, {len(spans)} spans, {chunks} chunks")
+    parts.append(f"(d) integrity_shadow=1.0: {shadows} host-oracle checks (one a chunk), "
+                 f"levels and chain as pinned, {walls['d']:.2f} s, launches "
+                 f"{counts['shadow 1.0']}; {held}")
+    # (e) a corrupted shadow: one bit of one chunk's hi flipped after K1
+    real, calls = pipeline.fp_stage, [0]
+
+    def flipping(spec, rows):
+        hi, lo = real(spec, rows)
+        calls[0] += 1
+        if calls[0] == 10:
+            hi = hi.clone()
+            hi[0] ^= 1 << 9
+        return hi, lo
+
+    pipeline.fp_stage = flipping
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        check(_kip320_model(), device=DEV, integrity_shadow=1.0)
+        raise AssertionError("the flipped fingerprint was not caught")
+    except IntegrityError as e:
+        if e.site != "shadow":
+            raise AssertionError(f"the flip was caught at site {e.site}, not shadow") from e
+        caught = str(e)
+    finally:
+        pipeline.fp_stage = real
+    walls["e"] = time.perf_counter() - t0
+    counts["shadow flipped"] = _read_counts(("fingerprint",))
+    held = _hold_path_shapes(_largest(), 0)
+    tracer.set_tracer(None)
+    metrics.set_registry(None)
+    parts.append(f"(e) hi flipped after K1's 10th launch: {caught[:160]!r}, "
+                 f"{walls['e']:.2f} s, launches {counts['shadow flipped']}; {held}")
+    # (f) a supervised crash and resume, in subprocesses
+    ck, rd = WORK / "resilience-ck", WORK / "resilience-run"
+    for p in (ck, rd):
+        shutil.rmtree(p, ignore_errors=True)
+    out, walls["f"] = _run_cli("check", ["configs/Kip320.cfg", "--resilient", "--checkpoint",
+                                         str(ck), "--run-dir", str(rd), "--fault",
+                                         "crash@level:12", "--json", "--max-restarts", "2"], 0)
+    evs = _jsonl(rd / "events.jsonl")
+    kinds = [e["event"] for e in evs]
+    if kinds != ["start", "exit", "restart", "start", "exit", "complete"] or any(
+            e["kind"] != "supervisor" for e in evs):
+        raise AssertionError(f"supervised crash: events {kinds}")
+    logs = sorted((rd / "logs").iterdir())
+    last = json.loads([line for line in logs[-1].read_text(errors="replace").splitlines()
+                       if line.startswith("{")][-1])
+    if (last["distinct_states"], last["diameter"], last["levels"]) != (
+            737_794, 25, KIP320_LEVELS):
+        raise AssertionError(f"supervised crash: the last attempt's record {last}")
+    _chain_is_jax(ck, "supervised crash")
+    text, _ = _obs_report(rd)
+    if "restarts=1" not in text:
+        raise AssertionError(f"cli report of the supervised run: {text[:300]}")
+    seconds = [e["seconds"] for e in evs if e["event"] == "exit"]
+    parts.append(f"(f) cli check --resilient crash@level:12: events {kinds}, attempts "
+                 f"{seconds} s, backoff {evs[2]['backoff_s']} s, last record 737794 states, "
+                 f"diameter 25, levels as pinned, chain the JAX package's, report restarts=1; "
+                 f"{walls['f']:.2f} s")
+    for p in (ck, rd, d):
+        shutil.rmtree(p, ignore_errors=True)
+    # (g) the stall-kill, then a check here: the killed children let go
+    walls["g"], kinds, reaped = _stall_kill_end(*stall)
+    res, wall, counts["after the stall-kill"], held = _kip320_faulted(
+        "after-stall", None, ("fingerprint",), 69)
+    parts.append(f"(g) torch_resilient_run.py --stall-timeout {STALL_TIMEOUT} around a child "
+                 f"holding the card: events {kinds}, stall-kill to exit {reaped} s, "
+                 f"{walls['g']:.2f} s (beside (a)-(f)); then "
+                 f"Kip320 3r here: {res.total} states, {wall:.2f} s, launches "
+                 f"{counts['after the stall-kill']}; {held}")
+    shutil.rmtree(WORK / "resilience-stall", ignore_errors=True)
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2028,6 +2374,7 @@ def main() -> int:
     obs = ph.run("obs", phase_obs)
     overlap = ph.run("overlap", phase_overlap)
     oracle = ph.run("oracle", phase_oracle)
+    resilience = ph.run("resilience", phase_resilience)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -2042,7 +2389,8 @@ def main() -> int:
                **{f"disk-tier {p}": c for p, c in disk_tier["counts"].items()},
                **{f"obs {p}": c for p, c in obs["counts"].items()},
                **{f"overlap {p}": c for p, c in overlap["counts"].items()},
-               **{f"oracle {p}": c for p, c in oracle["counts"].items()}}
+               **{f"oracle {p}": c for p, c in oracle["counts"].items()},
+               **{f"resilience {p}": c for p, c in resilience["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

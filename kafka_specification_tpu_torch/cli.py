@@ -15,6 +15,9 @@ a checkpoint directory.
     python -m kafka_specification_tpu_torch.cli verify-checkpoint ckpt/ --json
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --run-dir runs/k320
     python -m kafka_specification_tpu_torch.cli report runs/k320
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --resilient \
+        --checkpoint ckpt/ --run-dir runs/k320r
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --integrity-shadow 0.1
     python -m kafka_specification_tpu_torch.cli faults --list
     python -m kafka_specification_tpu_torch.cli oracle configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli pipelines --json
@@ -51,6 +54,20 @@ record also finishes the manifest with status "error".
 its record with ``--json``); with no directory it lists the runs under
 ``--root``, and ``--latest`` renders the newest.  ``faults --list`` prints
 the fault grammar (``resilience/faults.py``).
+
+``check --resilient`` runs the same check as a child process under the
+auto-resume supervisor (``resilience/supervisor.py``): the child's
+``--stats`` stream is its heartbeat (default: the run directory's
+``stats.jsonl``), a child whose heartbeat stalls past ``--stall-timeout``
+is killed with its whole process group, a crashed child is restarted
+(resuming from ``--checkpoint``) with backoff up to ``--max-restarts``
+times, exit 75 halts with a verdict (``--reclaim``: prune stale tmp files
+and rotated generations, retry once), and every transition is an event in
+``--events`` (default: the run directory's ``events.jsonl``), with each
+attempt's output under its ``logs/``.  The supervising process resolves no
+device and touches no card.  ``--integrity-shadow RATE`` samples chunks for
+the host fingerprint oracle (``check(integrity_shadow=)``; a mismatch is
+exit 76).
 
 ``verify-checkpoint DIR`` checks a checkpoint directory offline (every
 generation's checksums and digest chain, and the spill files its disk-tier
@@ -188,7 +205,7 @@ def _simulate(args) -> int:
     return 1
 
 
-def _check(args) -> int:
+def _check(args, argv) -> int:
     tlc_cfg = _parse(args)
     if tlc_cfg is None:
         return EXIT_ERROR
@@ -212,10 +229,15 @@ def _check(args) -> int:
             print(f"error: {e}", file=sys.stderr)
             return EXIT_ERROR
         os.environ["KSPEC_FAULT"] = args.fault
+    if args.resilient:
+        # before the model is built or a device resolved: the supervisor
+        # only re-runs this command as its child
+        return _run_resilient(args, argv)
     model = _model(args, tlc_cfg)
     if model is None:
         return EXIT_ERROR
     from .engine.bfs import check
+    from .resilience.integrity import shadow_rate
 
     # every check gets a run directory: manifest, stats, spans and metrics
     # under one run_id (`cli report` renders it, live or post-mortem)
@@ -231,6 +253,13 @@ def _check(args) -> int:
         spill_defaulted = True
     print(f"[obs] run dir: {run_ctx.dir} (run {run_ctx.run_id})", file=sys.stderr)
     kw = {} if args.chunk_size is None else {"chunk_size": args.chunk_size}
+    try:
+        shadow_rate(args.integrity_shadow)
+    except ValueError as e:
+        # the JAX package's CLI lets this escape check() as a crash: its
+        # exit code (1) and its last line
+        print(f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 1
     prof = None
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -257,6 +286,7 @@ def _check(args) -> int:
             run=run_ctx,
             overlap=args.overlap,
             device="cpu" if args.cpu else args.device,
+            integrity_shadow=args.integrity_shadow,
             **kw,
         )
     except IntegrityError as e:
@@ -318,6 +348,54 @@ def _check(args) -> int:
     else:
         _print_result(res, model.meta)
     return verdict_exit_code(rec)
+
+
+def _run_resilient(args, argv) -> int:
+    """`check --resilient`: re-run this command under the supervisor.
+
+    The child is this same CLI minus --resilient; the engine resumes from
+    --checkpoint by itself, so a restart is just a re-run.  This process
+    opens the run directory and hands it to every child attempt: one
+    run_id correlates the supervisor's events with each attempt's stats
+    and spans (a restart reopens the run, appending to its lineage)."""
+    from .resilience.supervisor import SupervisorConfig, supervise
+
+    # strip the flag AND its argparse prefix abbreviations ("--resil" also
+    # sets args.resilient; letting it through would make every child spawn
+    # its own supervisor)
+    child_argv = [a for a in argv if not (a.startswith("--re") and "--resilient".startswith(a))]
+    run_ctx = RunContext(args.run_dir)
+    if args.run_dir is None:
+        child_argv += ["--run-dir", run_ctx.dir]
+    if not args.stats:
+        # the heartbeat lives in the run directory by default: the stall
+        # detector always has a stream to watch
+        args.stats = run_ctx.stats_path
+        child_argv += ["--stats", args.stats]
+    if not args.checkpoint:
+        print("warning: --resilient without --checkpoint — a restarted run starts over from "
+              "the initial states", file=sys.stderr)
+    events = args.events or run_ctx.events_path
+    run_ctx.record_config(module=_module(args), cfg=args.cfg, supervised=True,
+                          stall_timeout=args.stall_timeout, max_restarts=args.max_restarts)
+    if args.checkpoint:
+        os.makedirs(args.checkpoint, exist_ok=True)
+    print(f"[obs] run dir: {run_ctx.dir} (run {run_ctx.run_id})", file=sys.stderr)
+    cfg = SupervisorConfig(
+        cmd=[sys.executable, "-m", "kafka_specification_tpu_torch.cli"] + child_argv,
+        heartbeat=args.stats,
+        events=events,
+        log_dir=run_ctx.log_dir,
+        stall_timeout=args.stall_timeout,
+        max_restarts=args.max_restarts,
+        env=dict(os.environ),
+        run_id=run_ctx.run_id,
+        # resource-exit policy: halt with a verdict, or prune and retry
+        # once under --reclaim (never restart into a full disk)
+        reclaim=bool(args.reclaim),
+        reclaim_dirs=tuple(d for d in (args.checkpoint, args.spill_dir) if d),
+    )
+    return supervise(cfg)
 
 
 def _print_verify_checkpoint(rep: dict) -> None:
@@ -627,6 +705,53 @@ def main(argv=None) -> int:
         "not wire is refused)",
     )
     pc.add_argument(
+        "--integrity-shadow",
+        type=float,
+        metavar="RATE",
+        help="sampled shadow re-execution rate in [0,1] "
+        "(KSPEC_INTEGRITY_SHADOW is the env twin): deterministically "
+        "sampled chunks have their emitted rows fingerprinted again on the "
+        "host (the numpy twin of the fingerprint kernel) and held against "
+        "the kernel's result bit for bit; a mismatch exits typed "
+        f"INTEGRITY_VIOLATION (code {EXIT_INTEGRITY}).  The per-level "
+        "digest chain and storage read-side checksums are always on "
+        "regardless (KSPEC_INTEGRITY=0 disables both)",
+    )
+    pc.add_argument(
+        "--resilient",
+        action="store_true",
+        help="run under the auto-resume supervisor: spawn the check as a "
+        "child, watch the --stats heartbeat, kill on stall, restart from "
+        "--checkpoint with a bounded budget (scripts/torch_resilient_run.py "
+        "is the standalone form)",
+    )
+    pc.add_argument(
+        "--stall-timeout",
+        type=float,
+        default=1800.0,
+        help="[--resilient] kill the child after this many seconds "
+        "without heartbeat growth (default 1800)",
+    )
+    pc.add_argument(
+        "--max-restarts",
+        type=int,
+        default=8,
+        help="[--resilient] restart budget (default 8)",
+    )
+    pc.add_argument(
+        "--events",
+        help="[--resilient] supervisor JSONL event log (default: "
+        "<run dir>/events.jsonl)",
+    )
+    pc.add_argument(
+        "--reclaim",
+        action="store_true",
+        help="[--resilient] on a RESOURCE_EXHAUSTED child exit, prune "
+        "stale tmp files + rotated checkpoint generations and retry "
+        "exactly once (default: halt with an actionable verdict; the "
+        "supervisor never restarts into an unreclaimed full disk)",
+    )
+    pc.add_argument(
         "--profile",
         metavar="DIR",
         help="wrap the run in a torch.profiler trace (CPU, and CUDA on the "
@@ -740,6 +865,8 @@ def main(argv=None) -> int:
                      help="also print INFO findings (suppressions, skips)")
     pan.add_argument("--json", action="store_true",
                      help="machine-readable kspec-analysis/1 record")
+    if argv is None:
+        argv = sys.argv[1:]
     args = p.parse_args(argv)
     if args.cmd == "oracle":
         return _oracle(args)
@@ -753,7 +880,7 @@ def main(argv=None) -> int:
         return _report(args)
     if args.cmd == "faults":
         return _faults(args)
-    return _simulate(args) if args.cmd == "simulate" else _check(args)
+    return _simulate(args) if args.cmd == "simulate" else _check(args, argv)
 
 
 if __name__ == "__main__":

@@ -59,6 +59,14 @@ time at every level boundary, and ``$KSPEC_FAULT`` (``resilience/
 faults.py``) injects crashes, full disks, stalls and bit flips at the same
 sites as the JAX engine.
 
+Chunk failures follow the JAX package's ladder (``resilience/retry.py``,
+``engine/pipeline.py``): a transient error re-runs the chunk's dispatch (or
+the device level), an escalated attempt's failure degrades it a rung, and
+a device allocation failure of a per-chunk dispatch re-dispatches the
+chunk as its two halves and halves the chunk size from the next level
+(``stats["degradations"]``); a CUDA runtime error is sticky and raises,
+for the supervisor's restart (``resilience/supervisor.py``) to take.
+
 The overlap layer (``overlap.py``; ``check(overlap=)``, ``$KSPEC_OVERLAP``,
 default on, as in the JAX package) changes when work runs, never what it
 computes: the per-chunk loop stages two chunks (chunk k+1 dispatched
@@ -100,12 +108,14 @@ from ..resilience.checkpoints import CheckpointStore
 from ..resilience.faults import WIRED, FaultPlan, corrupt_file
 from ..resilience.integrity import IntegrityError
 from ..resilience.resources import ResourceExhausted, ResourceGovernor, is_disk_full
+from ..resilience.retry import ChunkRetryHandler
 from ..storage import DEFAULT_MEM_BUDGET, DiskTierStore, parse_mem_budget, resolve_store
 from ..storage.frontier import FrontierReader, SegmentCorrupt
 from ..storage.parent_log import ParentLogCorrupt
 from ..storage.runs import RunCorrupt
-from .pipeline import (DevicePipeline, HostSlots, compacts, fp_stage, grow_visited, invariant_stage,
-                       next_pow2, run_chunk, sorted_dedup_stage)
+from .pipeline import (ChunkPipeline, DevicePipeline, HostSlots, compacts, fp_stage, grow_visited,
+                       invariant_stage, next_pow2, release_device_memory, run_chunk,
+                       sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
@@ -547,6 +557,7 @@ def check(
     governor: Optional[ResourceGovernor] = None,
     overlap: Optional[bool] = None,
     device=None,
+    integrity_shadow: Optional[float] = None,
 ) -> CheckResult:
     """Breadth-first exhaustive check of `model`; stops at the first
     violation.  Arguments mean what they mean for the JAX engine's check(),
@@ -639,6 +650,29 @@ def check(
     their serial twins' typed exits.  No worker thread outlives the call.
     stats["overlap"] holds the layer's accounting (JAX's keys).
 
+    integrity_shadow: sampled shadow re-execution rate in [0, 1]
+    ($KSPEC_INTEGRITY_SHADOW is the env twin; default 0 = off; 0 too when
+    the chain is off).  A deterministically sampled chunk
+    (``integrity.sample_chunk`` of its depth and start) has its emitted
+    rows fingerprinted again on the host (``integrity.fingerprint_rows``,
+    K1's numpy twin) at its commit, before the visited insert, and held
+    against K1's (hi, lo) for them; a mismatch raises IntegrityError
+    ("shadow"; CLI exit 76).  Each check adds one to
+    ``kspec_integrity_shadow_total`` and writes a ``shadow`` chunk span
+    (mode ``host-oracle``).  The JAX package's second oracle, the
+    ``legacy-cross`` re-run of a fused chunk through the legacy programs,
+    has no counterpart: the port's ``fused`` and ``legacy`` are one
+    implementation.  With a rate above 0, pipeline="device" runs the
+    per-chunk path from the first level (stats["device"]["fallback"]).
+
+    Chunk failures (``resilience/retry.py``): $KSPEC_RETRY_MAX,
+    $KSPEC_RETRY_BASE_DELAY and $KSPEC_RETRY_MAX_DELAY set the transient
+    retries' budget and backoff.  stats["transient_retries"] counts the
+    retries, stats["degradations"] records each degradation (JAX's
+    ``chunk_degrade`` and ``compile_fallback`` records),
+    stats["pipeline_fallback"] says that the ``fused`` rung degraded and
+    stats["adaptive_compile_fallback"] that a ``legacy`` chunk did.
+
     $KSPEC_FAULT (``resilience/faults.py``) arms fault injection; a plan
     naming a site this engine does not wire is refused (ValueError).
     """
@@ -664,6 +698,9 @@ def check(
             f"this engine (it wires {', '.join(sorted(f'{k}@{p}' for k, p in WIRED))})"
         )
     pipe_name = resolve_pipeline(pipeline)
+    # the rate's range is checked before anything runs; the chain's switch
+    # turns the shadow off
+    shadow_rate = integrity.shadow_rate(integrity_shadow) if integrity.enabled() else 0.0
     dev = resolve_device(device)
     # the async overlap layer ($KSPEC_OVERLAP, default on): kspec-io carries
     # the background spill-run merges, kspec-ckpt the checkpoint writes; the
@@ -686,7 +723,7 @@ def check(
             compact_gate=compact_gate, mem_budget=mem_budget, spill_dir=spill_dir,
             disk_budget=disk_budget, run=run, governor=governor, use_disk=use_disk,
             fault=fault, pipe_name=pipe_name, dev=dev, io_worker=io_worker,
-            ckpt_worker=ckpt_worker,
+            ckpt_worker=ckpt_worker, shadow_rate=shadow_rate,
         )
     finally:
         # no worker outlives the call: a completed run drained and closed
@@ -700,7 +737,7 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
            check_deadlock, stats_path, visited_backend, chunk_size, visited_capacity_hint,
            visited_capacity_exact, compact_shift, compact_gate, mem_budget, spill_dir,
            disk_budget, run, governor, use_disk, fault, pipe_name, dev, io_worker,
-           ckpt_worker) -> CheckResult:
+           ckpt_worker, shadow_rate) -> CheckResult:
     """check() past its argument checks, with the overlap layer's workers
     (None where the layer is off, or for kspec-ckpt without checkpoints)."""
     overlap_on = io_worker is not None
@@ -721,9 +758,18 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
         ckpt_depth = 0
         checkpoint_every = max(1, int(checkpoint_every))
     chain = integrity.LevelDigestChain() if integrity.enabled() else None
+    chunk_retry = ChunkRetryHandler.from_env("[engine]")
+    # the per-chunk dispatch under the failure ladder; "fused" is also the
+    # device pipeline's per-chunk rung
+    chunk_pipe = ChunkPipeline("legacy" if pipe_name == "legacy" else "fused", chunk_retry,
+                               fault, compact_shift, compact_gate)
     pipe = (DevicePipeline(model, visited_backend, check_invariants, check_deadlock,
-                           compact_shift, compact_gate)
+                           compact_shift, compact_gate, chunk_retry=chunk_retry, fault=fault)
             if pipe_name == "device" else None)
+    if pipe is not None and shadow_rate > 0 and pipe.fallback is None:
+        # a shadowed chunk is checked at its own commit, which a device
+        # level does not have: shadowed runs take the per-chunk path
+        pipe.fallback = "integrity shadow re-execution needs per-chunk replay"
     collect_stats = obs_.collect
     stats_levels = []
     visited = None
@@ -805,6 +851,13 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
             # how many levels ran device-resident, and why (if ever) the
             # run left the device path for the per-chunk one
             stats["device"] = {"levels": pipe.levels, "fallback": pipe.fallback}
+        # the failure ladder's account, under the JAX package's names
+        stats.update(
+            pipeline_fallback=chunk_pipe.fallback,
+            adaptive_compile_fallback=chunk_pipe.compile_fallback,
+            transient_retries=chunk_retry.retries_total,
+            degradations=chunk_retry.degradations,
+        )
         if governor is not None:
             stats["governor"] = governor.stats()
         # the overlap layer's accounting: the staged-chunk bound is
@@ -863,6 +916,7 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
         return errs
 
     chunk = next_pow2(max(min_bucket, chunk_size))
+    chunk_floor = next_pow2(max(32, min_bucket))
     depth = 0
     ckpt_store = None
     loaded = None
@@ -1054,13 +1108,33 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
     step_s = host_s = 0.0
     act_en = None
 
+    def shadow_check(out, start: int, rows_n: int) -> None:
+        """The host fingerprint oracle on a sampled chunk, before its
+        visited insert: K1's numpy twin over the emitted rows against K1's
+        (hi, lo) for them (the host copies the commit reads)."""
+        t_sh = time.perf_counter()
+        main_fps = out.keys.view(np.uint64)
+        oracle = integrity.fingerprint_rows(out.rows_h, spec.exact64)
+        if not np.array_equal(oracle, main_fps):
+            bad = int(np.argmax(oracle != main_fps))
+            raise IntegrityError(
+                "shadow",
+                f"host fingerprint oracle mismatch at depth {depth} chunk start {start} row "
+                f"{bad}: recomputed {int(oracle[bad]):#x} != emitted {int(main_fps[bad]):#x}",
+                depth=depth,
+            )
+        _met.inc("kspec_integrity_shadow_total")
+        integrity.count_check()
+        obs_.chunk_span("shadow", time.perf_counter() - t_sh, depth=depth, start=start,
+                        rows=rows_n, mode="host-oracle")
+
     def commit(st) -> bool:
         """Commit one staged chunk, strictly in chunk order: wait for its
         host copies, take its verdict, or insert its candidates into the
         visited set, fold the chain and append the new states.  -> True
         when a verdict ends the level."""
         nonlocal verdict, lvl_new, lvl_launches, step_s, host_s
-        start, rows_n, bucket, handle, dispatch_s, t_staged = st
+        start, rows_n, bucket, handle, dispatch_s, t_staged, shadowed = st
         queued_s = time.perf_counter() - t_staged
         if visited_backend == "device":
             # the sorted set grows on its size after the previous chunk's
@@ -1082,6 +1156,8 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
             bucket=bucket, launches=1, dispatch_ms=round(dispatch_s * 1e3, 2),
             wait_ms=round(wait_s * 1e3, 2), queued_ms=round(queued_s * 1e3, 2),
         )
+        if shadowed:
+            shadow_check(out, start, rows_n)
         t_host = time.perf_counter()
         if collect_stats:
             act_en.add_(out.act_en)
@@ -1171,8 +1247,16 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
                 # its serial offset.  Not staged: its one read blocks on the
                 # span (the workers go on meanwhile)
                 t_step = time.perf_counter()
-                out = pipe.run_level(source.read_all(), plan, visited)
+                out = pipe.run_level(source.read_all(), plan, visited, depth=depth)
                 t_host = time.perf_counter()
+            if plan is not None and out is None:
+                # the level degraded (pipe.fallback says why): it re-runs on
+                # the per-chunk path below from the pre-level visited state,
+                # once the failed attempt's buffers are given back
+                plan = out = None
+                source = frontier
+                release_device_memory(dev)
+            if plan is not None:
                 step_s += t_host - t_step
                 dev_handled = plan[2]
                 launches = plan[1] * out.reads
@@ -1230,21 +1314,44 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
             # which is this loop with the layer off (each dispatch followed
             # by its commit).  A verdict is known at dispatch (its host
             # reads): that chunk is committed before another is dispatched,
-            # so no chunk is launched that the serial path would not launch
+            # so no chunk is launched that the serial path would not launch.
+            # A chunk whose dispatch the failure ladder degrades is never
+            # staged: its two halves take its place, in order
             staged = None
-            for start, piece in source.chunks(chunk, dev_handled):
+            pieces = iter(source.chunks(chunk, dev_handled))
+            halves = []  # a degraded chunk's halves, next first
+            while True:
+                nxt = halves.pop() if halves else next(pieces, None)
+                if nxt is None:
+                    break
+                start, piece = nxt
                 governor.poll(depth)  # the deadline watchdog
                 bucket = next_pow2(max(piece.shape[0], min_bucket))
                 if visited_backend == "device-hash":
                     # the table grows before a chunk is dispatched, as the
                     # JAX engine's does: ahead of the staged chunk's commit
                     visited.reserve(bucket * C)
+                shadowed = shadow_rate > 0 and integrity.sample_chunk(depth, start, shadow_rate)
+                host = host_copies + (("rows",) if shadowed and "rows" not in host_copies
+                                      else ())
                 t_step = time.perf_counter()
-                handle = run_chunk(model, piece, compacts(bucket, compact_shift, compact_gate),
-                                   check_deadlock, check_invariants, collect_stats,
-                                   host_copies, slots)
+                handle = chunk_pipe.dispatch(
+                    lambda piece=piece, bucket=bucket, host=host: run_chunk(
+                        model, piece, compacts(bucket, compact_shift, compact_gate),
+                        check_deadlock, check_invariants, collect_stats, host, slots),
+                    bucket, piece.shape[0], depth)
+                if handle is None:
+                    # a device allocation failure: the chunk again as its
+                    # two halves, and half the chunk size from the next
+                    # level (the JAX package's floor), with the failed
+                    # attempt's buffers given back first
+                    chunk = max(chunk_floor, chunk >> 1)
+                    half = (piece.shape[0] + 1) // 2
+                    halves += [(start + half, piece[half:]), (start, piece[:half])]
+                    release_device_memory(dev)
+                    continue
                 cur = (start, piece.shape[0], bucket, handle, time.perf_counter() - t_step,
-                       time.perf_counter())
+                       time.perf_counter(), shadowed)
                 if not overlap_on:
                     if commit(cur):
                         break

@@ -60,6 +60,16 @@ lattice ranks after packing.
 The third pipeline, "device" (``DevicePipeline``, below), runs every
 gated chunk of a level at fixed shapes with no host read between chunks;
 it reads the host once a level and gives the same result.
+
+Failures follow the JAX package's ladder (``resilience/retry.py``):
+``ChunkPipeline.dispatch`` runs a chunk's dispatch, and
+``DevicePipeline.run_level`` a level's queue and read, under the
+``ChunkRetryHandler``.  A transient error re-runs the attempt; an
+escalated attempt's failure (a ``fused`` chunk above the compact gate, a
+device level) degrades it a rung (``fused`` → ``legacy``, ``device`` →
+the per-chunk path); a device allocation failure of a non-escalated chunk
+splits the chunk in two and halves the chunk size.  A CUDA runtime error
+is sticky and raises.
 """
 
 from __future__ import annotations
@@ -305,9 +315,13 @@ def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadl
     hi, lo = fp_stage(model.spec, rows)
     copies = {}
     if host:
+        # every allocation on the card comes before the slot is taken: an
+        # allocation failure degrades the dispatch, and a degraded attempt
+        # must not have used up the slot of the chunk still staged
+        keys = dedup.pair_key(hi, lo) if "keys" in host else None
         slot = slots.take()
-        if "keys" in host:
-            copies["keys"] = HostSlots.copy(slot, "keys", dedup.pair_key(hi, lo))
+        if keys is not None:
+            copies["keys"] = HostSlots.copy(slot, "keys", keys)
         if "rows" in host:
             for name, t in (("rows_h", rows), ("parent_h", parent), ("act_h", act)):
                 copies[name] = HostSlots.copy(slot, name, t)
@@ -316,6 +330,72 @@ def run_chunk(model: Model, piece: torch.Tensor, action_major: bool, check_deadl
         event = torch.cuda.Event()
         event.record()
     return StagedChunk(Chunk(None, rows, parent, act, hi, lo, act_en, **copies), event)
+
+
+def release_device_memory(dev) -> None:
+    """Give the caching allocator's free blocks back after a failed attempt
+    (its tensors already released: the exception and its traceback, which
+    pins every local of the failed frames, are gone)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+class ChunkPipeline:
+    """The per-chunk pipelines, "fused" and "legacy" (one implementation,
+    ``run_chunk``), under the JAX package's chunk failure ladder.  Also the
+    per-chunk path of the "device" pipeline, which is "fused" there.
+
+    An attempt is escalated, as in the JAX package, where the ``fused``
+    programs would run: a ``fused`` chunk above the compact gate, until a
+    fallback.  Below the gate, on ``legacy`` and after a fallback, the JAX
+    package runs its legacy programs at uniform widths, which are not
+    escalated (the port has no ``AdaptiveCompact``, so its ``legacy``
+    never escalates).  ``compile_oom`` fires only on escalated attempts."""
+
+    def __init__(self, name: str, chunk_retry, fault, compact_shift: int, compact_gate: int):
+        self.name = name
+        self.chunk_retry = chunk_retry
+        self.fault = fault
+        self.compact_shift, self.compact_gate = compact_shift, compact_gate
+        self.fallback = False  # sticky: fused degraded to legacy (stats["pipeline_fallback"])
+        # a legacy attempt degraded (stats["adaptive_compile_fallback"])
+        self.compile_fallback = False
+
+    def escalated(self, bucket: int) -> bool:
+        return (self.name == "fused" and not self.fallback
+                and compacts(bucket, self.compact_shift, self.compact_gate))
+
+    def dispatch(self, run, bucket: int, rows: int, depth: int) -> Optional[StagedChunk]:
+        """`run()` (one chunk's ``run_chunk``) under the handler: the
+        injected fault first, before anything is queued on the card, and
+        the retry around the dispatch alone (an error surfacing later, at
+        ``StagedChunk.finalize``, is sticky).  -> the staged chunk, or None
+        when the handler degraded the chunk's work shape: the caller
+        re-dispatches it as its two halves."""
+        self.chunk_retry.reset_chunk()
+        while True:
+            esc = self.escalated(bucket)
+            try:
+                injected = self.fault.chunk_error(escalated=esc)
+                if injected is not None:
+                    raise injected
+                return run()
+            except Exception as e:  # noqa: BLE001 -- the failure ladder decides
+                action = self.chunk_retry.handle(e, escalated=esc, depth=depth)
+                if action == "retry":
+                    continue
+                if action == "degrade_chunk":
+                    if rows < 2:
+                        raise  # nothing left to halve
+                    self.compile_fallback = True
+                    return None
+                # "degrade": the fused programs' rung, legacy for the rest
+                # of the run (the same implementation here)
+                self.fallback = True
+                from ..obs import tracer as _obs
+
+                _obs.event("pipeline-fallback", depth=depth,
+                           error=f"{type(e).__name__}: {e}"[:200])
 
 
 # kspec: traced
@@ -524,21 +604,32 @@ class DevicePipeline:
     the exact per-action maxima it measured and the safe level-new
     bound, which cannot overflow.
 
-    Divergence from the JAX package: it degrades to ``fused`` on ANY
-    exception in a level (a compile failure, an allocation failure).  The
-    port degrades only for reasons decided before anything is launched:
-    the backend, unproven field hulls (``device_hull_fallback``), and a
-    sub-gate tail chunk (``plan_level``).  A CUDA or kernel error inside a
-    level raises.
+    Degradation.  Before anything is launched: for the backend, unproven
+    field hulls (``device_hull_fallback``), a shadow sample rate above 0
+    (set by ``check()``), and a sub-gate tail chunk (``plan_level``).  At
+    run time, as in the JAX package, a level's queue and its read run
+    under the ``ChunkRetryHandler`` as an escalated attempt
+    (``run_level``): an injected transient re-runs the level; whatever the
+    handler turns into ``degrade`` (the injected ``compile_oom``, a
+    ``torch.OutOfMemoryError`` while the level is staged, any other
+    non-CUDA error) calls ``mark_fallback`` with the error's text, and the
+    level re-runs on the per-chunk path from the pre-level visited state
+    (the level merges nothing before its read).  A CUDA runtime error is
+    sticky (the context is lost) and raises.
     """
 
     name = "device"
 
     def __init__(self, model: Model, visited_backend: str, check_invariants: bool,
-                 check_deadlock: bool, compact_shift: int, compact_gate: int):
+                 check_deadlock: bool, compact_shift: int, compact_gate: int,
+                 chunk_retry=None, fault=None):
         from ..pipeline_registry import backend_fallback_reason
+        from ..resilience.faults import FaultPlan
+        from ..resilience.retry import ChunkRetryHandler
 
         self.model = model
+        self.chunk_retry = chunk_retry or ChunkRetryHandler.from_env("[engine]")
+        self.fault = fault if fault is not None else FaultPlan()
         self.check_invariants = check_invariants and bool(model.invariants)
         self.check_deadlock = check_deadlock
         self.compact_shift, self.compact_gate = compact_shift, compact_gate
@@ -693,11 +784,14 @@ class DevicePipeline:
         keys = got[8 + 2 * A : 8 + 2 * A + on] if self.host_mode else None
         return bool(ovf), vkind, vinv, vidx, on, agmax, act_en, digest, keys
 
-    def run_level(self, frontier: torch.Tensor, plan: tuple, visited) -> LevelOut:
+    def run_level(self, frontier: torch.Tensor, plan: tuple, visited,
+                  depth: int = 0) -> Optional[LevelOut]:
         """Run one level (a prefix of `frontier`, as `plan` says) with at
         most one re-dispatch on overflow.  In device mode the sorted
         visited set (`visited`, read-only here) is grown first by the JAX
-        package's rule, so its capacity follows the JAX package's."""
+        package's rule, so its capacity follows the JAX package's.  The
+        queue and the read run under the failure ladder (class docstring):
+        -> None when the level degraded to the per-chunk path."""
         B, nc, handled = plan
         NCp = next_pow2(nc)
         widths = self.widths(B)
@@ -705,13 +799,23 @@ class DevicePipeline:
         LN = devlevel.level_new_capacity(T, self.ln_hw, NCp * T)
         exact = False
         reads = 0
+        self.chunk_retry.reset_chunk()
         while True:
-            vkeys = None
-            if not self.host_mode:
-                visited.reserve(min(NCp * T, LN + T))
-                vkeys = visited.keys
-            st = self.queue_level(frontier, handled, B, nc, widths, LN, vkeys)
-            ovf, vkind, vinv, vidx, on, agmax, act_en, digest, keys = self.read_level(st)
+            try:
+                injected = self.fault.chunk_error(escalated=True)
+                if injected is not None:
+                    raise injected
+                vkeys = None
+                if not self.host_mode:
+                    visited.reserve(min(NCp * T, LN + T))
+                    vkeys = visited.keys
+                st = self.queue_level(frontier, handled, B, nc, widths, LN, vkeys)
+                ovf, vkind, vinv, vidx, on, agmax, act_en, digest, keys = self.read_level(st)
+            except Exception as e:  # noqa: BLE001 -- the failure ladder decides
+                if self.chunk_retry.handle(e, escalated=True, depth=depth) == "retry":
+                    continue
+                self.mark_fallback(f"{type(e).__name__}: {e}"[:200], depth)
+                break
             reads += 1
             if ovf and vkind == 0:
                 if exact:
@@ -724,6 +828,8 @@ class DevicePipeline:
                 exact = True
                 continue
             break
+        if self.fallback is not None:
+            return None
         self.pool.hw = np.maximum(self.pool.hw, agmax.astype(np.float64) / max(B, 1))
         self.levels += 1
         self.ln_hw = max(self.ln_hw, on)

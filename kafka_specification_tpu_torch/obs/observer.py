@@ -144,8 +144,6 @@ class RunObserver:
             return
         m = self.run.metrics
         s = result.stats or {}
-        # the port has no transient retries or degradations: JAX's
-        # counters, at 0
         m.inc("kspec_transient_retries_total", s.get("transient_retries", 0))
         m.set_gauge("kspec_degradations", len(s.get("degradations", ())))
         sp = s.get("spill")

@@ -13,9 +13,9 @@ current directory or ``$KSPEC_RUNS_ROOT``):
       spans.jsonl      nested spans + point events (obs/tracer)
       metrics.jsonl    metric snapshots (obs/metrics)
       metrics.prom     Prometheus textfile export (atomic, scrapable)
-      events.jsonl     supervisor events (resilient runs; not written by
-                       the port yet)
-      logs/            per-attempt child logs (likewise)
+      events.jsonl     supervisor events (`cli check --resilient`,
+                       scripts/torch_resilient_run.py)
+      logs/            per-attempt child logs of a supervised run
       spill/           disk-tier default when --mem-budget is set
       xprof/           torch.profiler windows (KSPEC_OBS_XPROF)
 
@@ -117,6 +117,8 @@ class RunContext:
         self.spans_path = os.path.join(self.dir, "spans.jsonl")
         self.metrics_jsonl = os.path.join(self.dir, "metrics.jsonl")
         self.metrics_prom = os.path.join(self.dir, "metrics.prom")
+        self.events_path = os.path.join(self.dir, "events.jsonl")
+        self.log_dir = os.path.join(self.dir, "logs")
         self.spill_dir = os.path.join(self.dir, "spill")
 
         self.tracer = SpanTracer(self.spans_path, self.run_id)

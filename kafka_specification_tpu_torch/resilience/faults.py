@@ -20,6 +20,12 @@ that names any other (``FaultPlan.unwired``), never ignoring it:
     enospc@ckpt:N          the same mid-checkpoint-write at level N
     enospc@plog:N          the same publishing the level-N parent-log segment
     stall@level:N          the level deadline watchdog reports level N stalled
+    compile_oom            the next escalated chunk step (a `fused` chunk
+                           above the compact gate, a device level) raises
+                           an LLVM-OOM-shaped error once
+    transient_device_err:N the next N chunk steps (a per-chunk dispatch, a
+                           device level) raise a transient-classified
+                           backend error
     flip@frontier:N        flip one bit of the frontier at the level-N
                            boundary (a spilled frontier: bytes of its first
                            segment file)
@@ -33,7 +39,11 @@ that names any other (``FaultPlan.unwired``), never ignoring it:
                            (caught by the post-save chain read-back)
 
 Resource faults end in the typed RESOURCE_EXHAUSTED exit (75), bit flips
-in INTEGRITY_VIOLATION (76), crashes in InjectedCrash and an exact resume.
+in INTEGRITY_VIOLATION (76), crashes in InjectedCrash and an exact resume,
+the two chunk faults in the retry ladder (``resilience/retry.py``): a
+retry, or a degradation recorded in ``stats["degradations"]``.  They fire
+before anything of the step is queued on the card, and are consumed in
+process (a restarted process starts with its budget whole).
 Shard scopes (`crash@shard2:level:N`, `corrupt_ckpt@shard1`, ...) parse and,
 in a single-device run, fire as their unscoped forms.
 
@@ -53,6 +63,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 ENV_VAR = "KSPEC_FAULT"
+
+# markers chosen so retry.classify() routes the injected error down the
+# same branch a real backend error of that family would take
+TRANSIENT_MARKER = "DATA_LOSS: injected transient device error (KSPEC_FAULT)"
+OOM_MARKER = "LLVM ERROR: out of memory (injected by KSPEC_FAULT=compile_oom)"
 
 
 class InjectedFault(RuntimeError):
@@ -153,6 +168,7 @@ WIRED = frozenset({
     ("corrupt_ckpt", "ckpt"),
     ("enospc", "spill"), ("enospc", "merge"), ("enospc", "ckpt"), ("enospc", "plog"),
     ("stall", "level"),
+    ("transient_device_err", None), ("compile_oom", None),
     ("flip", "frontier"), ("flip", "fpset"), ("flip", "spill"), ("flip", "ckpt"),
 })
 
@@ -368,6 +384,21 @@ class FaultPlan:
                 s.budget -= 1
                 return True
         return False
+
+    def chunk_error(self, escalated: bool) -> Optional[Exception]:
+        """Error to inject into the next chunk step, or None.
+
+        compile_oom fires only on escalated attempts, matching the real
+        failure mode it rehearses and the only attempt shape for which
+        the engine has a fallback."""
+        for s in self.specs:
+            if s.kind == "transient_device_err" and s.budget > 0:
+                s.budget -= 1
+                return RuntimeError(TRANSIENT_MARKER)
+            if s.kind == "compile_oom" and s.budget > 0 and escalated:
+                s.budget -= 1
+                return RuntimeError(OOM_MARKER)
+        return None
 
     def flip(self, site: str, n: int, ckpt_depth=None):
         """The matching `flip@<site>:N` spec (truthy), once per spec, else

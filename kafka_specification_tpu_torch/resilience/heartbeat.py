@@ -17,12 +17,14 @@ import json
 import time
 
 from .. import durable_io as _dio
+from ..utils import clock as _clk
 
 
 def heartbeat_record(kind: str, t: float = None, **fields) -> dict:
-    """Envelope a record; `t` overrides the stamped time (default: now)."""
+    """Envelope a record; `t` overrides the stamped time (default: now,
+    from the installed clock, ``utils/clock.py``)."""
     if t is None:
-        t = time.time()
+        t = _clk.now()
     return {
         "kind": kind,
         "ts": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(t)),

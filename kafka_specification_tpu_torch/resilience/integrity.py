@@ -28,13 +28,20 @@ accept each other's checkpoints:
   :func:`record_violation` stamps it into the run's spans and metrics, and
   :func:`count_check` counts each check made (``obs/``).
 
-``KSPEC_INTEGRITY=0`` turns the chain off.  Sampled shadow re-execution
-(``--integrity-shadow``) is not ported.  Numpy only.
+- :func:`shadow_rate` and :func:`sample_chunk` drive sampled shadow
+  re-execution (``check(integrity_shadow=)``, ``--integrity-shadow``,
+  ``$KSPEC_INTEGRITY_SHADOW``): a sampled chunk's emitted rows are
+  fingerprinted again on the host (:func:`fingerprint_rows`) and held
+  against K1's output before they reach the visited set.
+
+``KSPEC_INTEGRITY=0`` turns the chain off, and the shadow with it.  Numpy
+only.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -43,6 +50,7 @@ import numpy as np
 EXIT_INTEGRITY = 76
 
 ENV_DISABLE = "KSPEC_INTEGRITY"  # "0" disables the chain
+ENV_SHADOW = "KSPEC_INTEGRITY_SHADOW"  # sampled shadow re-execution rate
 
 _U64 = np.uint64
 
@@ -52,7 +60,7 @@ class IntegrityError(RuntimeError):
     (not its progress) can no longer be trusted."""
 
     def __init__(self, site: str, detail: str = "", depth=None):
-        self.site = site  # frontier | fpset | ckpt | chain | storage
+        self.site = site  # frontier | fpset | ckpt | chain | storage | shadow
         self.detail = detail
         self.depth = depth
         super().__init__(
@@ -65,6 +73,30 @@ class IntegrityError(RuntimeError):
 def enabled() -> bool:
     """Always on unless ``$KSPEC_INTEGRITY`` is "0"."""
     return os.environ.get(ENV_DISABLE, "1") != "0"
+
+
+def shadow_rate(arg: Optional[float] = None) -> float:
+    """Resolve the shadow re-execution sample rate: explicit arg >
+    $KSPEC_INTEGRITY_SHADOW > 0 (off)."""
+    if arg is not None:
+        rate = float(arg)
+    else:
+        rate = float(os.environ.get(ENV_SHADOW) or "0")
+    if not (0.0 <= rate <= 1.0):
+        raise ValueError(f"integrity shadow rate must be in [0, 1], got {rate}")
+    return rate
+
+
+def sample_chunk(depth: int, start: int, rate: float) -> bool:
+    """Deterministic chunk sampler: the same (depth, chunk-start) is
+    sampled identically on every run and after every resume, so shadow
+    re-execution never perturbs bit-identity contracts."""
+    if rate <= 0.0:
+        return False
+    if rate >= 1.0:
+        return True
+    h = ((depth * 1000003 ^ start * 2654435761) * 0x9E3779B9) & 0xFFFFFFFF
+    return h < rate * 4294967296.0
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,8 @@ exception:
   :data:`EXIT_RESOURCE_EXHAUSTED` — resumable after the operator frees
   space, never a torn crash.
 
-Not ported yet: ``reclaim_disk`` (the supervisor's filename-level sweep)
-and the telemetry events and gauges (the obs layer).
+- :func:`reclaim_disk` — the supervisor's ``--reclaim`` sweep: stale
+  tmp files and rotated checkpoint generations, by file name.
 
 Budgets parse like ``--mem-budget`` (``512M``/``4G``); environment knobs:
 ``KSPEC_DISK_BUDGET``, ``KSPEC_RSS_BUDGET``, ``KSPEC_LEVEL_DEADLINE``
@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import errno
 import os
+import re
 import time
 from typing import Optional
 
@@ -315,3 +316,38 @@ class ResourceGovernor:
             "reclaims": self.reclaims,
             "pressure_events": self.pressure_events,
         }
+
+
+# rotated checkpoint generations: <stem>.<gen>.npz[.<part>] with gen >= 1
+_GEN_RE = re.compile(r"^.+\.(\d+)\.npz(\..+)?$")
+
+
+def _is_tmp_name(name: str) -> bool:
+    return name.endswith(".tmp") or ".tmp." in name
+
+
+def reclaim_disk(dirs, keep_gens: int = 1) -> list:
+    """Operator-grade reclamation for the supervisor's ``--reclaim``
+    policy: sweep stale ``.tmp`` files and prune rotated checkpoint
+    generations past `keep_gens` (filename-level: never touches the
+    newest generation or the disk tier's referenced run files, so the
+    surviving chain still passes ``cli verify-checkpoint``).  Returns the
+    removed paths.  Standard library only: it runs in the supervisor's
+    parent, which imports no torch, before its single reclaim-retry."""
+    removed = []
+    for d in dirs:
+        if not d or not os.path.isdir(d):
+            continue
+        for dirpath, _dirs, files in os.walk(d):
+            for name in files:
+                m = _GEN_RE.match(name)
+                old_gen = m is not None and int(m.group(1)) >= keep_gens
+                if not (_is_tmp_name(name) or old_gen):
+                    continue
+                p = os.path.join(dirpath, name)
+                try:
+                    os.unlink(p)
+                    removed.append(p)
+                except OSError:
+                    pass
+    return removed

@@ -253,8 +253,9 @@ def test_spill_files_and_manifest_equal_jax_and_resume_across_packages(tmp_path)
 
 
 def test_unwired_fault_sites_are_refused(monkeypatch):
-    for plan in ("compile_oom", "transient_device_err:2", "flip@exchange:3", "enospc@cache:1",
-                 "crash@daemon0:1", "kill@host1:2", "crash@level:3,flip@cache:1"):
+    for plan in ("flip@exchange:3", "enospc@cache:1", "crash@daemon0:1", "kill@host1:2",
+                 "crash@level:3,flip@cache:1", "compile_oom,flip@exchange:3",
+                 "transient_device_err:2,kill@host1:2"):
         monkeypatch.setenv("KSPEC_FAULT", plan)
         bad = FaultPlan(plan).unwired()
         assert bad

@@ -82,7 +82,8 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "resilience.resources", "obs", "obs.atomicio", "obs.tracer",
                      "obs.metrics", "obs.runctx", "obs.observer", "obs.report",
                      "overlap", "analysis.ownership", "oracle", "oracle.interp",
-                     "engine.decode"):
+                     "engine.decode", "resilience.retry", "resilience.supervisor",
+                     "utils.clock"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -128,12 +129,14 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "obs/atomicio.py", "obs/tracer.py", "obs/metrics.py", "obs/runctx.py",
             "obs/observer.py", "obs/report.py", "overlap.py", "analysis/ownership.py",
             "oracle/__init__.py", "oracle/interp.py", "engine/decode.py",
-            "pipeline_registry.py"} <= names
+            "pipeline_registry.py", "resilience/retry.py", "resilience/supervisor.py",
+            "utils/clock.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
         "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
-        "torch_slice_walls.py", "torch_gate_cost.py", "torch_overlap_walls.py")]
+        "torch_slice_walls.py", "torch_gate_cost.py", "torch_overlap_walls.py",
+        "torch_resilient_run.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)
@@ -176,3 +179,31 @@ def test_the_oracle_and_the_ast_checker_are_stdlib_only():
     assert set(_imported_roots(pkg / "analysis" / "ownership.py")) <= {
         "__future__", "ast", "os", "re", "threading", "typing"}
     assert set(_imported_roots(pkg / "pipeline_registry.py")) <= {"__future__", "os"}
+
+
+def test_the_supervisor_and_the_clock_import_no_torch():
+    """The supervisor's parent must never hold a CUDA context: the clock is
+    stdlib only, the retry ladder looks torch up only once it is loaded,
+    and a fresh interpreter that imports the supervisor (or the standalone
+    runner) has no torch in sys.modules."""
+    pkg = REPO / "kafka_specification_tpu_torch"
+    assert set(_imported_roots(pkg / "utils" / "clock.py")) <= {"__future__", "time"}
+    assert "torch" not in set(_imported_roots(pkg / "resilience" / "retry.py"))
+    assert "torch" not in set(_imported_roots(pkg / "resilience" / "supervisor.py"))
+    code = textwrap.dedent(
+        """
+        import runpy, sys
+        import kafka_specification_tpu_torch.resilience.supervisor
+        import kafka_specification_tpu_torch.resilience.retry
+        runpy.run_path("scripts/torch_resilient_run.py", run_name="not_main")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("torch", "jax", "jaxlib", "kafka_specification_tpu"))
+        assert not bad, bad
+        print("clean")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+

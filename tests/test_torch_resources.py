@@ -161,10 +161,10 @@ def test_hooks_fire_as_jax_hooks_fire():
 
 
 def test_unwired_sites_are_named():
-    assert tfaults.FaultPlan(",".join(TOKENS[:5] + TOKENS[7:11] + TOKENS[12:15]
+    assert tfaults.FaultPlan(",".join(TOKENS[:11] + TOKENS[12:15]
                                       + TOKENS[16:18])).unwired() == []
     assert tfaults.FaultPlan("compile_oom,flip@exchange:2,kill@host1:2").unwired() == [
-        "compile_oom", "flip@exchange", "kill@host"]
+        "flip@exchange", "kill@host"]
 
 
 # --- the governor -----------------------------------------------------------
