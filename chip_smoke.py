@@ -198,6 +198,29 @@ print no result:
          beside (a)-(f): two stall-kills, each of a child that logged that it
          held the card, and a last give-up; then a Kip320 3r check() here
          runs to 737,794 states
+  serve  the serving plane (service/), in-process daemons on the card:
+         (a) configs/Kip320.cfg --max-depth 12, cold: KIP320_LEVELS[:13],
+         its boundary published to the state-space cache with the JAX
+         package's chain; (b) unbounded, seeded from (a)'s boundary
+         (from_depth 12): 737,794 states, diameter 25, KIP320_LEVELS and
+         KIP320_CHAIN, K1's launches beside the 69 of the cold default
+         path; (c) (b) again: a verified hit, no engine run, no launch;
+         (d) (b) on a second daemon with visited_backend="device-hash" on a
+         copy of the cache taken after (a): the same counts and chain, K2
+         launched (table_from_pairs included); (e) batched groups with no
+         state cache: three Kip320 jobs (all four invariants; StrongIsr
+         LeaderInIsr; all four at depth 12) and two trace-model jobs
+         (StrongIsr: the pinned depth-8 trace; WeakIsr), each equal to its
+         solo check(), the peak device memory of the Kip320 group's
+         collected levels; (f) flip@cache:1 armed for a fresh daemon's own
+         cache: (a) publishes a flipped artifact, (b)'s lookup rejects it
+         (cache-fallback, artifact-corrupt) and runs cold to (b)'s counts
+         and chain; (g) `cli serve DIR --max-jobs 1` on the card and `cli
+         submit configs/Kip320.cfg --wait --json` in subprocesses (exit 0,
+         737,794 states), then `cli result` (exit 0).  Seconds a job (cold,
+         seeded, hit) and launches per path on a line of their own; K1 (and
+         K2) held against the plain versions at (b)'s, (d)'s and (f)'s
+         largest launches
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
@@ -2339,6 +2362,249 @@ def _resilience_parts(stall):
     return {"line": "; ".join(parts), "counts": counts}
 
 
+# --- phase serve: the serving plane (service/) on the card -----------------
+
+KIP_ALL = "INVARIANTS TypeOk LeaderInIsr WeakIsr StrongIsr"
+
+
+@contextlib.contextmanager
+def _chain_spy():
+    """The digest chain of the next check() in this process (a run without
+    a checkpoint saves none): -> the list of the chain objects that sealed
+    a level, in the order they first did."""
+    from kafka_specification_tpu_torch.resilience import integrity
+
+    seen = []
+    real = integrity.LevelDigestChain.seal
+
+    def seal(chain, depth, count):
+        if not seen or seen[-1] is not chain:
+            seen.append(chain)
+        return real(chain, depth, count)
+
+    integrity.LevelDigestChain.seal = seal
+    try:
+        yield seen
+    finally:
+        integrity.LevelDigestChain.seal = real
+
+
+def _served(daemon, q, job, path_kernels):
+    """One drain of `daemon` serving `job`, counted from 0 (K1, K2 by
+    `path_kernels`), with the chain its check sealed (the first one sealed
+    in the drain: a publish after it folds its own): (record, wall, counts,
+    chain array or None)."""
+    _reset_counts()
+    with _chain_spy() as seen:
+        t0 = time.perf_counter()
+        n = daemon.drain_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if n != 1:
+        raise AssertionError(f"the daemon wrote {n} verdicts for one job")
+    counts = _read_counts(path_kernels)
+    rec = q.result(job)
+    return rec, wall, counts, (seen[0].to_array() if seen else None)
+
+
+def _full_kip320(rec, chain, what):
+    if (rec["distinct_states"], rec["diameter"], rec["levels"], rec["exit_code"]) != (
+            737_794, 25, KIP320_LEVELS, 0):
+        raise AssertionError(f"{what}: record {dict(rec, levels='...')}")
+    if chain is not None and not np.array_equal(chain, np.array(KIP320_CHAIN, np.uint64)):
+        raise AssertionError(f"{what}: the digest chain is not the JAX package's")
+
+
+def phase_serve():
+    """The serving daemon on the card (service/): (a) Kip320 3r cut at 12,
+    cold, publishing its boundary; (b) unbounded, seeded from it; (c) the
+    same job again, a verified hit with no launch; (d) (b) on device-hash
+    from a copy of the cache after (a); (e) a batched group of three
+    Kip320 jobs and one of two trace-model jobs, each equal to its solo
+    check(); (f) flip@cache:1 on a fresh daemon: the artifact is rejected
+    and (b) runs cold; (g) `cli serve` and `cli submit --wait`, `cli
+    result` in subprocesses."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.models import variants
+    from kafka_specification_tpu_torch.models.kafka_replication import Config
+    from kafka_specification_tpu_torch.service import state_cache
+    from kafka_specification_tpu_torch.service.daemon import Daemon, ServeConfig
+    from kafka_specification_tpu_torch.service.queue import JobQueue
+
+    root = WORK / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    kip = Path("configs/Kip320.cfg").read_text()
+    thw = Path("configs/KafkaTruncateToHighWatermark.cfg").read_text()
+    parts, counts, walls = [], {}, {}
+    q = JobQueue(str(root / "svc"))
+    d = Daemon(ServeConfig(q.dir, linger_s=0.0))
+    # (a) cold, cut at 12: publishes the boundary
+    job = q.submit(kip, "Kip320", max_depth=12)["job_id"]
+    rec, walls["a"], counts["cold d12"], _ = _served(d, q, job, ("fingerprint",))
+    if rec["levels"] != KIP320_LEVELS[:13] or rec.get("cache") is not None:
+        raise AssertionError(f"(a): levels {rec['levels']}, cache {rec.get('cache')}")
+    entry = next(state_cache.iter_corpus(d.state_cache.root))
+    if entry["artifact"]["chain"] != [list(row) for row in KIP320_CHAIN[:13]]:
+        raise AssertionError("(a): the published chain is not the JAX package's")
+    shutil.copytree(d.state_cache.root, root / "cache-after-a")
+    parts.append(f"(a) cold d12: {rec['distinct_states']} states, levels as pinned, the "
+                 f"artifact's chain the JAX package's; {walls['a']:.3f} s; launches "
+                 f"{counts['cold d12']}")
+    # (b) unbounded, seeded from (a)'s boundary
+    job = q.submit(kip, "Kip320")["job_id"]
+    rec, walls["b"], counts["seeded"], chain = _served(d, q, job, ("fingerprint",))
+    _full_kip320(rec, chain, "(b)")
+    if rec.get("cache") != {"state_cache": "seed", "from_depth": 12}:
+        raise AssertionError(f"(b): cache {rec.get('cache')}")
+    held_b = _hold_path_shapes(_largest(), 737_794)
+    parts.append(f"(b) seeded from depth 12: 737794 states, diameter 25, levels and chain as "
+                 f"pinned; {walls['b']:.3f} s; launches {counts['seeded']} (69 on the cold "
+                 f"default path); {held_b}")
+    # (c) the same job again: a verified hit, no engine run
+    job = q.submit(kip, "Kip320")["job_id"]
+    runs0 = d.groups_run
+    rec, walls["c"], counts["hit"], _ = _served(d, q, job, ())
+    _full_kip320(rec, None, "(c)")
+    if rec["cache"]["state_cache"] != "hit" or d.groups_run != runs0:
+        raise AssertionError(f"(c): cache {rec['cache']}, groups {d.groups_run - runs0}")
+    parts.append(f"(c) hit: {rec['cache']['reason']}, no engine run; {walls['c']:.3f} s; "
+                 f"launches {counts['hit']}")
+    # (d) (b) on device-hash, from the cache as (a) left it
+    q2 = JobQueue(str(root / "svc-hash"))
+    d2 = Daemon(ServeConfig(q2.dir, linger_s=0.0, visited_backend="device-hash",
+                            state_cache_dir=str(root / "cache-after-a")))
+    job = q2.submit(kip, "Kip320")["job_id"]
+    rec, walls["d"], counts["seeded device-hash"], chain = _served(
+        d2, q2, job, ("fingerprint", "hash_probe_insert"))
+    _full_kip320(rec, chain, "(d)")
+    if rec.get("cache") != {"state_cache": "seed", "from_depth": 12}:
+        raise AssertionError(f"(d): cache {rec.get('cache')}")
+    held_d = _hold_path_shapes(_largest(), 737_794)
+    parts.append(f"(d) seeded on device-hash: 737794 states, levels and chain as pinned; "
+                 f"{walls['d']:.3f} s; launches {counts['seeded device-hash']}; {held_d}")
+    # (e) batched groups (no state cache: every job runs), each member equal
+    # to its own solo check() on the card
+    q3 = JobQueue(str(root / "svc-batch"))
+    d3 = Daemon(ServeConfig(q3.dir, linger_s=0.0, state_cache=False))
+    kip_jobs = [
+        (q3.submit(kip, "Kip320")["job_id"], ("TypeOk", "LeaderInIsr", "WeakIsr", "StrongIsr"),
+         None),
+        (q3.submit(kip.replace(KIP_ALL, "INVARIANTS StrongIsr LeaderInIsr"), "Kip320")["job_id"],
+         ("StrongIsr", "LeaderInIsr"), None),
+        (q3.submit(kip, "Kip320", max_depth=12)["job_id"],
+         ("TypeOk", "LeaderInIsr", "WeakIsr", "StrongIsr"), 12),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counts()
+    t0 = time.perf_counter()
+    if d3.drain_once() != 3:
+        raise AssertionError("(e): the Kip320 group wrote other than 3 verdicts")
+    walls["e kip"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts["batched Kip320 x3"] = _read_counts(("fingerprint",))
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    for job, invs, md in kip_jobs:
+        cfg = load_config("configs/Kip320.cfg")
+        cfg.invariants = list(invs)
+        solo = check(build_model("Kip320", cfg), device=DEV, max_depth=md)
+        rec = q3.result(job)
+        if (rec["distinct_states"], rec["levels"], rec["violation"]) != (
+                solo.total, solo.levels, None) or rec["batch"]["group_size"] != 3:
+            raise AssertionError(f"(e): {job} {invs} differs from its solo run")
+    thw_jobs = [(q3.submit(thw.replace("INVARIANTS TypeOk WeakIsr StrongIsr",
+                                       f"INVARIANTS {inv}"),
+                           "KafkaTruncateToHighWatermark")["job_id"], inv)
+                for inv in ("StrongIsr", "WeakIsr")]
+    _reset_counts()
+    t0 = time.perf_counter()
+    if d3.drain_once() != 2:
+        raise AssertionError("(e): the trace-model group wrote other than 2 verdicts")
+    walls["e thw"] = time.perf_counter() - t0
+    counts["batched trace model x2"] = _read_counts(("fingerprint",))
+    for job, inv in thw_jobs:
+        solo = check(variants.make_model("KafkaTruncateToHighWatermark", Config(3, 2, 2, 2),
+                                         invariants=(inv,)), device=DEV)
+        rec = q3.result(job)
+        v = solo.violation
+        want = None if v is None else {"invariant": v.invariant, "depth": v.depth,
+                                       "trace_len": len(v.trace)}
+        if (rec["distinct_states"], rec["levels"], rec["violation"]) != (
+                solo.total, solo.levels, want):
+            raise AssertionError(f"(e): the trace-model job {inv} differs from its solo run")
+        if inv == "StrongIsr":
+            if v is None or (v.depth, [a for a, _ in v.trace], canon(v.state)) != (
+                    8, THW_DEFAULT_ACTIONS, THW_DEFAULT_STATE):
+                raise AssertionError("(e): StrongIsr's solo trace is not the pinned one")
+    # the derived member's own trace: the shared exploration walked again
+    from kafka_specification_tpu_torch.service.batch import Member, run_group
+
+    res, _shared = run_group(variants.make_model(
+        "KafkaTruncateToHighWatermark", Config(3, 2, 2, 2), invariants=("StrongIsr", "WeakIsr")),
+        [Member("s", ("StrongIsr",)), Member("w", ("WeakIsr",))], device=DEV)
+    v = res["s"].violation
+    if (v.depth, [a for a, _ in v.trace], canon(v.state)) != (
+            8, THW_DEFAULT_ACTIONS, THW_DEFAULT_STATE):
+        raise AssertionError("(e): the batched StrongIsr trace is not the pinned one")
+    parts.append(f"(e) batched: Kip320 x3 (all four; StrongIsr LeaderInIsr; all four d12) "
+                 f"{walls['e kip']:.3f} s, launches {counts['batched Kip320 x3']}, peak "
+                 f"{peak / 1e6:.1f} MB over the start (the collected levels and trace); the "
+                 f"trace model x2 (StrongIsr, WeakIsr) {walls['e thw']:.3f} s, launches "
+                 f"{counts['batched trace model x2']}; every member equal to its solo check(), "
+                 f"StrongIsr at depth 8 with the pinned trace (the derived member's too)")
+    # (f) flip@cache:1 on the daemon's own cache: the artifact (a) publishes
+    # is rejected at (b)'s lookup, and (b) runs cold
+    state_cache._publish_ordinal["n"] = 0  # the fault counts this process's publishes
+    os.environ["KSPEC_FAULT"] = "flip@cache:1"
+    try:
+        q4 = JobQueue(str(root / "svc-flip"))
+        d4 = Daemon(ServeConfig(q4.dir, linger_s=0.0))
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    job = q4.submit(kip, "Kip320", max_depth=12)["job_id"]
+    _served(d4, q4, job, ("fingerprint",))
+    job = q4.submit(kip, "Kip320")["job_id"]
+    rec, walls["f"], counts["flipped cache, cold"], chain = _served(
+        d4, q4, job, ("fingerprint",))
+    _full_kip320(rec, chain, "(f)")
+    evs = [e for e in _jsonl(Path(q4.dir) / "service" / "events.jsonl")
+           if e.get("event") == "cache-fallback"]
+    if rec.get("cache") is not None or len(evs) != 1 or not evs[0]["reason"].startswith(
+            "artifact-corrupt"):
+        raise AssertionError(f"(f): cache {rec.get('cache')}, fallbacks {evs}")
+    held_f = _hold_path_shapes(_largest(), 737_794)
+    parts.append(f"(f) flip@cache:1: cache-fallback ({evs[0]['reason'][:60]}), then cold: "
+                 f"737794 states, levels and chain as pinned; {walls['f']:.3f} s; launches "
+                 f"{counts['flipped cache, cold']}; {held_f}")
+    # (g) the CLI: `serve` on the card in a subprocess, `submit --wait`, `result`
+    svc = root / "svc-cli"
+    serve = subprocess.Popen([sys.executable, "-m", "kafka_specification_tpu_torch.cli",
+                              "serve", str(svc), "--max-jobs", "1", "--idle-exit", "120"],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, walls["g submit"] = _run_cli("submit", ["configs/Kip320.cfg", "--service-dir",
+                                                     str(svc), "--wait", "--json",
+                                                     "--timeout", "150"], 0)
+        rec = json.loads(out.splitlines()[-1])
+        _full_kip320(rec, None, "(g)")
+        if serve.wait(timeout=60) != 0:
+            raise AssertionError(f"(g): serve exited {serve.returncode}")
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+        serve_err = serve.communicate()[1]
+    out, walls["g result"] = _run_cli("result", [rec["job_id"], "--service-dir", str(svc)], 0)
+    parts.append(f"(g) cli serve --max-jobs 1 + submit --wait --json: exit 0, 737794 states, "
+                 f"{walls['g submit']:.2f} s process wall (job wall {rec['timing']['wall_s']} s, "
+                 f"latency {rec['timing']['latency_s']} s); cli result exit 0 "
+                 f"({walls['g result']:.2f} s); serve's stderr {serve_err.strip()[-80:]!r}")
+    print(f"[serve] seconds a job: cold d12 {walls['a']:.3f}, seeded {walls['b']:.3f}, "
+          f"seeded device-hash {walls['d']:.3f}, hit {walls['c']:.3f}, cold (flipped cache) "
+          f"{walls['f']:.3f}; launches {json.dumps(counts)}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"line": "; ".join(parts), "counts": counts}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2375,6 +2641,7 @@ def main() -> int:
     overlap = ph.run("overlap", phase_overlap)
     oracle = ph.run("oracle", phase_oracle)
     resilience = ph.run("resilience", phase_resilience)
+    serve = ph.run("serve", phase_serve)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -2390,7 +2657,8 @@ def main() -> int:
                **{f"obs {p}": c for p, c in obs["counts"].items()},
                **{f"overlap {p}": c for p, c in overlap["counts"].items()},
                **{f"oracle {p}": c for p, c in oracle["counts"].items()},
-               **{f"resilience {p}": c for p, c in resilience["counts"].items()}}
+               **{f"resilience {p}": c for p, c in resilience["counts"].items()},
+               **{f"serve {p}": c for p, c in serve["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

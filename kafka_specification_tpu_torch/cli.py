@@ -96,6 +96,23 @@ engine sources.  It prints the findings (``--json``: the
 one, and 2 when a target cannot be analyzed or ``--module`` is given with
 other than one .cfg.  ``oracle``, ``pipelines`` and ``analyze`` touch no
 card.
+
+``serve [SERVICE_DIR]`` runs the serving daemon (``service/``): one warm
+process that drains the durable job queue on the card, with the JAX
+package's flags (``--cpu`` runs it on the CPU, ``--device`` names a card;
+without either, on a machine without CUDA it exits 2 before it claims a
+job).  ``--supervised`` runs it under the auto-restart supervisor, watching
+its heartbeat.  ``submit CFG`` queues a check (``--wait`` blocks for the
+verdict and exits with its code), ``status [JOB_ID]`` says where a job is
+(exit 1 for an unknown job), and ``result JOB_ID`` prints its
+``kspec-verdict/1`` record and exits with its code (2 when there is none).
+The service directory defaults to ``$KSPEC_SERVICE_DIR``, else
+``./service``.  The three client verbs import no torch; ``--router``
+(the routed fleet) is refused.
+
+    python -m kafka_specification_tpu_torch.cli serve svc --max-jobs 1 &
+    python -m kafka_specification_tpu_torch.cli submit configs/Kip320.cfg \
+        --service-dir svc --wait --json
 """
 
 from __future__ import annotations
@@ -107,10 +124,10 @@ import shutil
 import sys
 from pathlib import Path
 
-from .engine.bfs import VISITED_BACKENDS
 from .obs import RunContext
 from .obs.report import list_runs, render_report, render_run_index, report_data
 from .obs.tracer import start_profiler, stop_profiler
+from .pipeline_registry import BACKENDS as VISITED_BACKENDS
 from .pipeline_registry import PIPELINES
 from .resilience.checkpoints import CheckpointCorrupt
 from .resilience.faults import FaultPlan, InjectedFault, list_faults
@@ -610,6 +627,172 @@ def _analyze(args) -> int:
     return 0 if rec["ok"] else 1
 
 
+def _service_dir(given) -> str:
+    return given or os.environ.get("KSPEC_SERVICE_DIR", "service")
+
+
+def _serve(args, argv) -> int:
+    """`serve`: the daemon in this process, or (--supervised) this command
+    less --supervised as the supervisor's child."""
+    svc_dir = _service_dir(args.service_dir)
+    if args.supervised:
+        from .resilience.supervisor import daemon_supervisor_config, supervise
+
+        child_argv = [a for a in argv
+                      if not (a.startswith("--su") and "--supervised".startswith(a))]
+        cfg = daemon_supervisor_config(
+            svc_dir,
+            [sys.executable, "-m", "kafka_specification_tpu_torch.cli"] + child_argv,
+            stall_timeout=args.stall_timeout,
+            max_restarts=args.max_restarts,
+        )
+        return supervise(cfg)
+    from .service.daemon import Daemon, ServeConfig
+
+    try:
+        daemon = Daemon(ServeConfig(
+            service_dir=svc_dir,
+            poll_s=args.poll,
+            max_jobs=args.max_jobs,
+            idle_exit_s=args.idle_exit,
+            min_bucket=args.min_bucket,
+            chunk_size=args.chunk_size,
+            visited_backend=args.visited_backend,
+            device="cpu" if args.cpu else args.device,
+            cache_entries=args.cache_entries,
+            batching=not args.no_batching,
+            state_cache=not args.no_state_cache,
+            state_cache_dir=args.state_cache_dir,
+        ))
+    except (RuntimeError, ValueError) as e:
+        # no card (and no --cpu), or a daemon fault plan naming an unwired
+        # site: refused before any job is claimed
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    return daemon.serve()
+
+
+def _run_service_client(args) -> int:
+    """submit / status / result: the tenants' side of the service.  Only
+    torch-free imports here."""
+    from .service.queue import JobQueue
+    from .verdict import render_verdict
+
+    if args.router:
+        print("error: --router needs the routed fleet (service/router.py), which "
+              "the port does not have yet; pass --service-dir", file=sys.stderr)
+        return EXIT_ERROR
+    try:
+        # submit creates the tree (tenants may enqueue before the first
+        # daemon starts); status/result are read-only, so a mistyped
+        # --service-dir is an error, not a new empty service
+        q = JobQueue(_service_dir(args.service_dir), create=args.cmd == "submit")
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+
+    if args.cmd == "submit":
+        try:
+            cfg_text = Path(args.cfg).read_text()
+        except OSError as e:
+            print(f"error: cannot read {args.cfg}: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        module = args.module or Path(args.cfg).stem
+        try:
+            parse_cfg(cfg_text)  # validate before queueing
+        except ValueError as e:
+            print(f"error: cannot parse {args.cfg}: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        if args.hand and args.emitted:
+            print("error: --hand and --emitted are mutually exclusive", file=sys.stderr)
+            return EXIT_ERROR
+        if args.fault:
+            try:
+                FaultPlan(args.fault)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return EXIT_ERROR
+        # admission control: the tenant's max_pending cap (advisory: the
+        # check is client-side, so a racing burst can overshoot; the budget
+        # that matters, the resource governor, is the daemon's)
+        from .resilience.resources import budget_for_tenant, load_tenant_budgets
+
+        try:
+            budgets = load_tenant_budgets(q.tenants_path)
+        except (OSError, ValueError) as e:
+            print(f"error: bad tenants.json: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        b = budget_for_tenant(budgets, args.tenant)
+        if b is not None and b.max_pending is not None:
+            mine = q.pending_for_tenant(args.tenant, stop_at=b.max_pending)
+            if mine >= b.max_pending:
+                print(f"error: tenant {args.tenant!r} at max_pending={b.max_pending} "
+                      f"({mine} queued) — drain or raise the cap in tenants.json",
+                      file=sys.stderr)
+                return EXIT_ERROR
+        kernel_source = "emitted" if args.emitted else "hand" if args.hand else "auto"
+        try:
+            # transient queue-dir errors are retried with bounded backoff
+            # inside JobQueue.submit; only a persistent failure lands here
+            spec = q.submit(cfg_text, module, tenant=args.tenant, cfg_path=args.cfg,
+                            kernel_source=kernel_source, max_depth=args.max_depth,
+                            max_states=args.max_states, fault=args.fault)
+        except OSError as e:
+            print(f"error: cannot publish job to {q.dir!r} after retries: {e}",
+                  file=sys.stderr)
+            return EXIT_ERROR
+        if args.json and not args.wait:
+            print(json.dumps({"job_id": spec["job_id"], "service_dir": q.dir}))
+        else:
+            print(f"submitted {spec['job_id']} (tenant {args.tenant}) -> {q.dir}",
+                  file=sys.stderr)
+        if not args.wait:
+            if not args.json:
+                print(spec["job_id"])
+            return 0
+        rec = q.wait_result(spec["job_id"], timeout=args.timeout)
+        if rec is None:
+            print(f"error: no verdict for {spec['job_id']} within {args.timeout}s "
+                  f"(is the daemon up?  `cli serve {q.dir}`)", file=sys.stderr)
+            return EXIT_ERROR
+        print(json.dumps(rec) if args.json else render_verdict(rec))
+        return verdict_exit_code(rec)
+
+    if args.cmd == "status":
+        if args.job_id is None:
+            ov = q.overview()
+            if args.json:
+                print(json.dumps(ov))
+            else:
+                c = ov["counts"]
+                print(f"service {ov['dir']}: {c['pending']} pending, "
+                      f"{c['claimed']} in flight, {c['done']} done")
+                for jid in ov["recent_done"]:
+                    rec = q.result(jid) or {}
+                    print(f"  {jid}  {rec.get('status', '?')}")
+            return 0
+        st = q.status(args.job_id)
+        if args.json:
+            print(json.dumps(st))
+        else:
+            line = f"{st['job_id']}: {st['state']}"
+            rec = st.get("result")
+            if rec:
+                line += f" ({rec.get('status', '?')})"
+            print(line)
+        return 0 if st["state"] != "unknown" else 1
+
+    # result
+    rec = (q.wait_result(args.job_id, timeout=args.timeout) if args.wait
+           else q.result(args.job_id))
+    if rec is None:
+        print(f"error: no verdict for {args.job_id}"
+              + ("" if args.wait else " (yet — use --wait)"), file=sys.stderr)
+        return EXIT_ERROR
+    print(json.dumps(rec) if args.json else render_verdict(rec))
+    return verdict_exit_code(rec)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kafka_specification_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -865,9 +1048,127 @@ def main(argv=None) -> int:
                      help="also print INFO findings (suppressions, skips)")
     pan.add_argument("--json", action="store_true",
                      help="machine-readable kspec-analysis/1 record")
+
+    # --- checking-as-a-service (service/): the JAX package's verbs --------
+    svc_help = ("service directory (queue + results + run dirs; default: "
+                "$KSPEC_SERVICE_DIR or ./service)")
+    pserve = sub.add_parser(
+        "serve",
+        help="run the serving daemon: import torch once, hold built models in a "
+        "shape-keyed cache, drain the durable job queue on the card under "
+        "per-tenant resource budgets, coalesce jobs sharing a schema shape into "
+        "one batched engine run, and serve repeat checks from the state-space cache",
+    )
+    pserve.add_argument("service_dir", nargs="?", help=svc_help)
+    pserve.add_argument("--poll", type=float, default=0.2,
+                        help="queue poll interval seconds (default 0.2)")
+    pserve.add_argument("--max-jobs", type=int,
+                        help="exit after this many verdicts (benchmarks / tests)")
+    pserve.add_argument("--idle-exit", type=float,
+                        help="exit after this many seconds with an empty queue "
+                        "(default: serve forever)")
+    pserve.add_argument("--min-bucket", type=int, default=256)
+    pserve.add_argument(
+        "--chunk-size", type=int, default=32768,
+        help="engine streaming chunk (one value for the whole daemon: batched "
+        "verdict derivation depends on chunk boundaries)",
+    )
+    pserve.add_argument("--visited-backend", choices=list(VISITED_BACKENDS),
+                        default="device")
+    pserve.add_argument("--no-batching", action="store_true",
+                        help="disable multi-config coalescing (every job runs solo)")
+    pserve.add_argument("--cache-entries", type=int, default=32,
+                        help="model-cache LRU capacity (distinct schema shapes held "
+                        "warm; default 32)")
+    pserve.add_argument(
+        "--supervised", action="store_true",
+        help="run the daemon under the auto-restart supervisor (heartbeat "
+        "stall-kill + bounded restarts; resilience/supervisor.py)",
+    )
+    pserve.add_argument(
+        "--stall-timeout", type=float, default=120.0,
+        help="[--supervised] kill the daemon after this many seconds without a "
+        "heartbeat tick (default 120)",
+    )
+    pserve.add_argument("--max-restarts", type=int, default=8,
+                        help="[--supervised] restart budget (default 8)")
+    pserve.add_argument(
+        "--no-state-cache", action="store_true",
+        help="disable the persistent state-space cache (default on: repeat checks "
+        "of an unchanged config become chain-verified cache hits, config-delta "
+        "checks seed from the cached boundary; every artifact problem degrades "
+        "to a cold run with a typed cache-fallback event)",
+    )
+    pserve.add_argument(
+        "--state-cache-dir", metavar="DIR",
+        help="state-space cache root (default: <service_dir>/state-cache); "
+        "entries are content-addressed and verified on every read, so daemons "
+        "of either package may share one",
+    )
+    pserve.add_argument("--cpu", action="store_true",
+                        help="run the jobs on the CPU (the same as --device cpu)")
+    pserve.add_argument("--device", default=None,
+                        help="torch device for the jobs (default: the card, cuda)")
+
+    psub = sub.add_parser(
+        "submit",
+        help="submit a check to the service queue and print the job id; never "
+        "imports torch (the .cfg travels inline in the job spec)",
+    )
+    psub.add_argument("cfg")
+    psub.add_argument("--module", help="TLA+ module (default: cfg stem)")
+    psub.add_argument("--service-dir", help=svc_help)
+    psub.add_argument("--router", metavar="DIR",
+                      help="submit through a routed fleet's directory (not ported: refused)")
+    psub.add_argument("--tenant", default="default")
+    psub.add_argument("--max-depth", type=int)
+    psub.add_argument("--max-states", type=int)
+    psub.add_argument("--emitted", action="store_true", default=None,
+                      help="ask for the mechanically emitted kernels (a daemon of "
+                      "the port answers such a job with an error verdict)")
+    psub.add_argument("--hand", action="store_true",
+                      help="force the hand-written kernels")
+    psub.add_argument("--fault", metavar="PLAN",
+                      help="deterministic fault plan for THIS job (the daemon "
+                      "scopes it to the job's run)")
+    psub.add_argument("--wait", action="store_true",
+                      help="block until the verdict and exit with its exit code")
+    psub.add_argument("--timeout", type=float, default=300.0,
+                      help="[--wait] give up after this many seconds (default 300)")
+    psub.add_argument("--json", action="store_true")
+
+    pst = sub.add_parser(
+        "status",
+        help="job state (pending/claimed/done) or, with no job id, the queue "
+        "overview; never imports torch",
+    )
+    pst.add_argument("job_id", nargs="?")
+    pst.add_argument("--service-dir", help=svc_help)
+    pst.add_argument("--router", metavar="DIR",
+                     help="resolve the job through a routed fleet (not ported: refused)")
+    pst.add_argument("--json", action="store_true")
+
+    pres = sub.add_parser(
+        "result",
+        help="fetch a job's verdict (kspec-verdict/1, the record `cli check "
+        "--json` prints) and exit with its exit code; never imports torch",
+    )
+    pres.add_argument("job_id")
+    pres.add_argument("--service-dir", help=svc_help)
+    pres.add_argument("--router", metavar="DIR",
+                      help="fetch the verdict through a routed fleet (not ported: refused)")
+    pres.add_argument("--wait", action="store_true", help="block until the verdict exists")
+    pres.add_argument("--timeout", type=float, default=300.0)
+    pres.add_argument("--json", action="store_true")
     if argv is None:
         argv = sys.argv[1:]
     args = p.parse_args(argv)
+    if args.cmd in ("submit", "status", "result"):
+        # the tenants' side of the service: torch-free (clients never pay
+        # the cold start; tests pin it with a poisoned torch)
+        return _run_service_client(args)
+    if args.cmd == "serve":
+        return _serve(args, argv)
     if args.cmd == "oracle":
         return _oracle(args)
     if args.cmd == "pipelines":

@@ -1,9 +1,9 @@
 """Durable filesystem steps of the checkpoint store and the stats stream.
 
 The port's own copy of the parts of ``kafka_specification_tpu/durable_io.py``
-that checkpoints and the per-level stats lines need: ``replace``,
-``unlink``, ``fsync_dir``, ``write_text``, ``append_text`` and
-``sweep_tmp``.  Each is a direct call into ``os``; the JAX module's op
+that checkpoints, the per-level stats lines and the serving plane's job
+queue need: ``replace``, ``rename``, ``unlink``, ``fsync_dir``,
+``write_text``, ``append_text`` and ``sweep_tmp``.  Each is a direct call into ``os``; the JAX module's op
 recorder (its crash-consistency harness) and fault hook are not ported.
 
 Stdlib only.
@@ -14,9 +14,19 @@ from __future__ import annotations
 import os
 import time
 
+#: how old a ``.tmp`` in a directory many processes write (the job queue)
+#: must be before a janitor takes it for an orphan: a live writer promotes
+#: well within it
+TMP_SWEEP_GRACE_S = float(os.environ.get("KSPEC_TMP_SWEEP_GRACE_S", "60"))
+
 
 def replace(src: str, dst: str) -> None:
     os.replace(src, dst)
+
+
+def rename(src: str, dst: str) -> None:
+    """One state transition of the job queue (``service/queue.py``)."""
+    os.rename(src, dst)
 
 
 def unlink(path: str) -> None:

@@ -102,7 +102,7 @@ from ..obs.observer import RunObserver
 from ..ops import dedup, hashset
 from ..ops.cuda_hashset import probe_insert
 from ..overlap import AsyncWorker, close_workers, overlap_enabled, worker_counters
-from ..pipeline_registry import resolve_pipeline
+from ..pipeline_registry import BACKENDS, resolve_pipeline
 from ..resilience import integrity
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.faults import WIRED, FaultPlan, corrupt_file
@@ -113,14 +113,14 @@ from ..storage import DEFAULT_MEM_BUDGET, DiskTierStore, parse_mem_budget, resol
 from ..storage.frontier import FrontierReader, SegmentCorrupt
 from ..storage.parent_log import ParentLogCorrupt
 from ..storage.runs import RunCorrupt
-from .pipeline import (ChunkPipeline, DevicePipeline, HostSlots, compacts, fp_stage, grow_visited,
-                       invariant_stage, next_pow2, release_device_memory, run_chunk,
-                       sorted_dedup_stage)
+from .pipeline import (ChunkPipeline, DevicePipeline, HostSlots, compacts, device_hull_fallback,
+                       fp_stage, grow_visited, invariant_stage, next_pow2, release_device_memory,
+                       run_chunk, sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
 _HASH_MIN_CAP = 1 << 16
-VISITED_BACKENDS = ("device", "device-hash", "host")
+VISITED_BACKENDS = BACKENDS
 # what the JAX package reports as stats["visited_capacity"], and saves as a
 # checkpoint's `vcap`, for the backends that keep no sorted set: the shape
 # of its placeholder arrays
@@ -163,6 +163,69 @@ class CheckResult:
     @property
     def ok(self) -> bool:
         return self.violation is None
+
+
+class PreparedKernels:
+    """What check() otherwise redoes on every call for one model, kept for
+    the next: the serving daemon's unit of caching (``service/
+    kernel_cache.py``).  ``prepare(model)`` once, then ``check(model,
+    prepared=pk)`` any number of times.
+
+    The JAX package's unit is the jitted step, whose XLA compile dominates
+    a cold run.  The port compiles no step (its CUDA kernels are built once
+    a process, ``ops/build.py``), so what a warm run skips here is: the
+    encoding gate's pass (memoized on the model's structure, run now), the
+    field hulls of the device pipeline's precondition (``device_fallback``,
+    computed once), and the capacity ladder: ``capacity_hint`` is the last
+    run's final visited capacity, which the daemon passes back as
+    ``visited_capacity_exact``, so the second run of a shape starts where
+    the first ended (the JAX package's ``note_result`` fixed point, copied
+    as it is).
+    """
+
+    def __init__(self, model: Model):
+        self.model = model
+        require_encoding_sound(model)
+        self._device_fallback = None
+        self._hulls_done = False
+        # the last run's final visited capacity (the sorted set's, a power
+        # of two) or, for the backends that size from a state count, its
+        # total: a fixed point from the second run of a shape on
+        self.capacity_hint = None
+
+    def note_result(self, res: "CheckResult") -> None:
+        """Feed a finished run's visited sizing back into the hint."""
+        stats = res.stats or {}
+        cap = res.total
+        if stats.get("visited_backend") == "device":
+            cap = stats.get("visited_capacity") or res.total
+        self.capacity_hint = max(self.capacity_hint or 0, cap)
+
+    def device_fallback(self):
+        """The device pipeline's hull precondition for this model
+        (``pipeline.device_hull_fallback``), computed at the first ask."""
+        if not self._hulls_done:
+            self._device_fallback = device_hull_fallback(self.model)
+            self._hulls_done = True
+        return self._device_fallback
+
+    def rewarm(self) -> int:
+        """The JAX package recompiles here the step programs that a run
+        which grew the visited set evicted.  The port has no compiled
+        programs to evict: 0, always."""
+        return 0
+
+    @property
+    def compiled_steps(self) -> int:
+        """The JAX package counts its distinct compiled step programs; the
+        port compiles none (its kernels are built once a process): 0."""
+        return 0
+
+
+def prepare(model: Model) -> PreparedKernels:
+    """The reusable per-model preparation that ``check(..., prepared=)``
+    consumes."""
+    return PreparedKernels(model)
 
 
 def walk_trace(trace_store, actions, decode_row, inv_name, depth, idx) -> Violation:
@@ -448,9 +511,16 @@ class _RamLevels:
     with `keep_trace`, every level's rows, parents and actions for the
     trace walk."""
 
-    def __init__(self, init_packed: torch.Tensor, keep_trace: bool):
+    def __init__(self, init_packed: torch.Tensor, keep_trace: bool, store: Optional[list] = None):
+        """`store`: the caller's list to keep the trace in (emptied first;
+        it stays empty without `keep_trace`)."""
         none = torch.full((init_packed.shape[0],), -1, dtype=torch.int64, device=init_packed.device)
-        self.trace = [(init_packed, none, none)] if keep_trace else None
+        self.trace = None
+        if store is not None:
+            store.clear()
+        if keep_trace:
+            self.trace = store if store is not None else []
+            self.trace.append((init_packed, none, none))
         self.empty = (init_packed[:0], none[:0], none[:0])
         self.parts = []
 
@@ -558,6 +628,9 @@ def check(
     overlap: Optional[bool] = None,
     device=None,
     integrity_shadow: Optional[float] = None,
+    prepared: Optional[PreparedKernels] = None,
+    collect_trace: Optional[list] = None,
+    seed: Optional[dict] = None,
 ) -> CheckResult:
     """Breadth-first exhaustive check of `model`; stops at the first
     violation.  Arguments mean what they mean for the JAX engine's check(),
@@ -675,11 +748,39 @@ def check(
 
     $KSPEC_FAULT (``resilience/faults.py``) arms fault injection; a plan
     naming a site this engine does not wire is refused (ValueError).
+
+    prepared: a :class:`PreparedKernels` of this same model object
+    (``prepare``): the serving daemon's warm path, which skips the work
+    kept there.  collect_trace: a list that receives the per-level trace
+    store, ``(rows, parent, act)`` tensors a level (filled only while
+    store_trace is on): the batched runner (``service/batch.py``) walks
+    each member's counterexample through it.
+
+    seed: a warm start from a verified earlier exploration of the same
+    model (the service's state-space cache, ``service/state_cache.py``): a
+    dict of ``visited_fps`` (uint64, every visited fingerprint),
+    ``frontier`` (the boundary level's packed uint32 rows), ``levels``,
+    ``total``, ``depth`` and ``digest_chain`` (the [L, 4] chain).  The run
+    expands the boundary at ``depth`` next, as a checkpoint resume does:
+    the visited set is rebuilt from the fingerprints on each backend
+    (``device``: sorted, padded to the JAX package's capacity rule;
+    ``device-hash``: ``table_from_pairs``, K2 on the card; ``host``: the
+    native set), the level-boundary verify proves the seeded frontier
+    against the seeded chain before anything is expanded, and
+    ``store_trace`` is forced off (a violation past the seed reports its
+    state with an empty trace).  stats["seeded_from_depth"] records it.
+    Counts, levels, verdicts and the chain equal a cold run's with the
+    larger bound.  Refused (ValueError) with ``checkpoint_dir`` or with the
+    disk tier.
     """
     # the encoding gate (KSPEC_ANALYZE=0 disables): an action that can write
     # outside its declared field ranges would be masked by the packer, so
     # the model is refused before anything is explored
-    require_encoding_sound(model)
+    if prepared is not None:
+        if prepared.model is not model:
+            raise ValueError("prepared kernels wrap a different model object")
+    else:
+        require_encoding_sound(model)
     if visited_backend not in VISITED_BACKENDS:
         raise ValueError(
             f"visited_backend must be one of {', '.join(VISITED_BACKENDS)}, "
@@ -690,6 +791,17 @@ def check(
         # the disk tier spills the HOST level of the hierarchy; traces
         # ride the on-disk parent log instead of the in-RAM trace store
         visited_backend = "host"
+    if seed is not None:
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "seed= and checkpoint_dir are mutually exclusive (a seed "
+                "IS a resume; layering the two would race their chains)"
+            )
+        if use_disk:
+            raise ValueError("seed= requires the in-RAM store")
+        # as after a checkpoint resume: the parent pointers below the seed
+        # do not exist, so no trace can be walked
+        store_trace = False
     fault = FaultPlan.from_env()
     unwired = fault.unwired()
     if unwired:
@@ -723,7 +835,8 @@ def check(
             compact_gate=compact_gate, mem_budget=mem_budget, spill_dir=spill_dir,
             disk_budget=disk_budget, run=run, governor=governor, use_disk=use_disk,
             fault=fault, pipe_name=pipe_name, dev=dev, io_worker=io_worker,
-            ckpt_worker=ckpt_worker, shadow_rate=shadow_rate,
+            ckpt_worker=ckpt_worker, shadow_rate=shadow_rate, prepared=prepared,
+            collect_trace=collect_trace, seed=seed,
         )
     finally:
         # no worker outlives the call: a completed run drained and closed
@@ -737,7 +850,7 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
            check_deadlock, stats_path, visited_backend, chunk_size, visited_capacity_hint,
            visited_capacity_exact, compact_shift, compact_gate, mem_budget, spill_dir,
            disk_budget, run, governor, use_disk, fault, pipe_name, dev, io_worker,
-           ckpt_worker, shadow_rate) -> CheckResult:
+           ckpt_worker, shadow_rate, prepared, collect_trace, seed) -> CheckResult:
     """check() past its argument checks, with the overlap layer's workers
     (None where the layer is off, or for kspec-ckpt without checkpoints)."""
     overlap_on = io_worker is not None
@@ -764,7 +877,8 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
     chunk_pipe = ChunkPipeline("legacy" if pipe_name == "legacy" else "fused", chunk_retry,
                                fault, compact_shift, compact_gate)
     pipe = (DevicePipeline(model, visited_backend, check_invariants, check_deadlock,
-                           compact_shift, compact_gate, chunk_retry=chunk_retry, fault=fault)
+                           compact_shift, compact_gate, chunk_retry=chunk_retry, fault=fault,
+                           prepared=prepared)
             if pipe_name == "device" else None)
     if pipe is not None and shadow_rate > 0 and pipe.fallback is None:
         # a shadowed chunk is checked at its own commit, which a device
@@ -810,7 +924,7 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
     # frontier segments and parent log; in RAM a checkpointed run keeps no
     # trace (the trace store is not saved, so a resume could not walk it)
     sink = (_DiskLevels(disk, dev) if disk is not None
-            else _RamLevels(init_packed, store_trace and checkpoint_dir is None))
+            else _RamLevels(init_packed, store_trace and checkpoint_dir is None, collect_trace))
     if collect_levels is not None:
         collect_levels.append(init_packed)
 
@@ -860,6 +974,9 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
         )
         if governor is not None:
             stats["governor"] = governor.stats()
+        if seed is not None:
+            # the depth this run's frontier was seeded at instead of Init
+            stats["seeded_from_depth"] = int(seed["depth"])
         # the overlap layer's accounting: the staged-chunk bound is
         # structural (two slots)
         stats["overlap"] = {
@@ -935,7 +1052,37 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
         if ckpt_worker is not None:
             ckpt_store.attach_writer(ckpt_worker)
         loaded = ckpt_store.load()
-    if loaded is not None:
+    if seed is not None:
+        # a warm start from a verified cached exploration: the checkpoint
+        # resume's shape, from the portable artifact.  Every backend's
+        # visited set is a function of the fingerprint multiset; the
+        # boundary frontier is expanded next
+        seed_fps = np.sort(np.ascontiguousarray(np.asarray(seed["visited_fps"], np.uint64)))
+        s_hi = from_u32((seed_fps >> np.uint64(32)).astype(np.uint32), dev)
+        s_lo = from_u32((seed_fps & np.uint64(0xFFFFFFFF)).astype(np.uint32), dev)
+        n_seed = int(seed_fps.shape[0])
+        if visited_backend == "host":
+            visited = _HostVisited(seed_fps, max(64, 2 * n_seed))
+        elif visited_backend == "device-hash":
+            visited = _HashVisited(s_hi, s_lo, _HASH_MIN_CAP)
+        else:
+            # u64 order is (hi, lo) order: the order keys lie ascending
+            visited = _SortedVisited(dedup.order_key(s_hi, s_lo), next_pow2(max(
+                n_seed + chunk * C, min_bucket * C, 2, visited_capacity_exact or 0)))
+        frontier = _RamFrontier(from_u32(np.asarray(seed["frontier"], np.uint32).reshape(-1, K),
+                                         dev))
+        levels = [int(v) for v in seed["levels"]]
+        total = int(seed["total"])
+        depth = int(seed["depth"])
+        # faults at or below the seed level count as fired, as on a resume
+        fault.set_start_depth(depth)
+        if chain is not None:
+            # the cached chain is the continuation proof: the level-start
+            # verify proves the seeded frontier against its sealed entry
+            chain = (integrity.LevelDigestChain.from_array(seed["digest_chain"])
+                     if seed.get("digest_chain") is not None
+                     else integrity.LevelDigestChain.from_levels(levels))
+    elif loaded is not None:
         snap, _gen = loaded
         if disk is not None:
             visited = _TierVisited.resume(snap, disk)
@@ -1038,8 +1185,15 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
             if anchored:
                 integrity.readback_chain(path, depth=d_save)
 
-        arrays = dict(**frontier.save_arrays(), vcap=visited.capacity, levels=levels_arr,
-                      total=total, **extra, **stamp)
+        # the JAX package's member order, so the files are its byte for
+        # byte: in RAM the frontier, the counters, then the set; on the
+        # tier (which saves no frontier) its manifest and hot dump first
+        if disk is not None:
+            arrays = dict(**extra, vcap=visited.capacity, levels=levels_arr, total=total,
+                          **stamp)
+        else:
+            arrays = dict(**frontier.save_arrays(), vcap=visited.capacity, levels=levels_arr,
+                          total=total, **extra, **stamp)
         if run_async:
             if disk is not None:
                 ckpt_barrier_tokens.append(disk.fpset.deleter.mark())

@@ -622,7 +622,7 @@ class DevicePipeline:
 
     def __init__(self, model: Model, visited_backend: str, check_invariants: bool,
                  check_deadlock: bool, compact_shift: int, compact_gate: int,
-                 chunk_retry=None, fault=None):
+                 chunk_retry=None, fault=None, prepared=None):
         from ..pipeline_registry import backend_fallback_reason
         from ..resilience.faults import FaultPlan
         from ..resilience.retry import ChunkRetryHandler
@@ -639,7 +639,9 @@ class DevicePipeline:
         self.levels = 0  # levels run device-resident
         self.fallback = backend_fallback_reason("device", visited_backend)
         if self.fallback is None:
-            self.fallback = device_hull_fallback(model)
+            # a PreparedKernels (engine/bfs.py) keeps the hulls for the model
+            self.fallback = (prepared.device_fallback() if prepared is not None
+                             else device_hull_fallback(model))
 
     def _gate(self, bucket: int) -> bool:
         return compacts(bucket, self.compact_shift, self.compact_gate)

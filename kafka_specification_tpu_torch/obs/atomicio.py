@@ -49,6 +49,7 @@ def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
         _dio.fsync_dir(os.path.dirname(path))
 
 
-def atomic_write_json(path: str, obj: dict) -> None:
-    """Publish ``obj`` as JSON at ``path`` atomically and durably."""
-    atomic_write_text(path, json.dumps(obj, indent=1, default=str))
+def atomic_write_json(path: str, obj: dict, fsync: bool = True) -> None:
+    """Publish ``obj`` as JSON at ``path`` atomically (and durably, unless
+    ``fsync=False``)."""
+    atomic_write_text(path, json.dumps(obj, indent=1, default=str), fsync=fsync)

@@ -91,13 +91,16 @@ def git_describe(cwd: Optional[str] = None) -> Optional[str]:
 
 class RunContext:
     def __init__(self, run_dir: Optional[str] = None,
-                 run_id: Optional[str] = None):
+                 run_id: Optional[str] = None, durable: bool = True):
         """Open (creating if needed) a run directory.
 
         A fresh directory gets a new run_id + manifest; an existing one is
         *resumed*: its manifest's run_id is adopted and a lineage entry is
         appended (checkpoint lineage across resumes).  Every manifest
-        write is atomic and fsync'd."""
+        write is atomic, and fsync'd unless durable=False: the serving
+        daemon's per-job run directories, whose durable record is the
+        queue's verdict file."""
+        self.durable = durable
         existing = None
         if run_dir is not None and os.path.isfile(
             os.path.join(run_dir, MANIFEST)
@@ -149,7 +152,7 @@ class RunContext:
 
     # --- manifest ---------------------------------------------------------
     def write_manifest(self) -> None:
-        atomic_write_json(self.manifest_path, self.manifest)
+        atomic_write_json(self.manifest_path, self.manifest, fsync=self.durable)
 
     def update_manifest(self, **fields) -> None:
         self.manifest.update(fields)

@@ -2,9 +2,10 @@
 
 The port's own copy of ``kafka_specification_tpu/resilience/faults.py``.
 It parses the JAX package's whole grammar, token for token, so a plan
-means the same thing to both packages; the port's ``check()`` wires the
-sites of the single-device engine and its disk tier, and refuses a plan
-that names any other (``FaultPlan.unwired``), never ignoring it:
+means the same thing to both packages; the port wires the sites of the
+single-device engine, its disk tier and the one-host serving daemon, and
+``check()`` refuses a plan that names any other (``FaultPlan.unwired``:
+the routed fleet's host faults and ``flip@exchange``), never ignoring it:
 
     crash@level:N          raise InjectedCrash at the level-N boundary
     crash@ckpt:N           raise InjectedCrash mid-checkpoint-write at
@@ -37,6 +38,21 @@ that names any other (``FaultPlan.unwired``), never ignoring it:
     flip@ckpt:N            flip the `levels` array of the first checkpoint
                            past level N before its CRC manifest is built
                            (caught by the post-save chain read-back)
+
+and the serving daemon's (``service/``), which its own ``$KSPEC_FAULT``
+arms (a job's ``--fault`` plan reaches only that job's check()):
+
+    enospc@cache:N         OSError(ENOSPC) at the Nth state-space-cache
+                           publish of this process, before the entry's
+                           promote (the publish aborts; the verdict stands)
+    flip@cache:N           flip bytes of the Nth published cache artifact
+                           of this process after its promote (the next
+                           lookup rejects it and the job runs cold)
+    crash@daemon<i>:N      InjectedCrash in daemon instance i before it
+                           runs the group holding its Nth job (the claims
+                           stay leased; the next janitor requeues them)
+    stall@daemon<i>        daemon instance i wedges after its next claim
+                           sweep (``serve --supervised`` kills it)
 
 Resource faults end in the typed RESOURCE_EXHAUSTED exit (75), bit flips
 in INTEGRITY_VIOLATION (76), crashes in InjectedCrash and an exact resume,
@@ -162,8 +178,10 @@ def list_faults() -> list:
         for k, sites, g, d in FAULT_REGISTRY
     ]
 
-#: the (kind, site) pairs the port's single-device check() wires
+#: the (kind, site) pairs the port wires: its single-device check() and its
+#: serving daemon (the daemon and cache sites, which check() ignores)
 WIRED = frozenset({
+    ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
     ("crash", "level"), ("crash", "ckpt"), ("crash", "merge"),
     ("corrupt_ckpt", "ckpt"),
     ("enospc", "spill"), ("enospc", "merge"), ("enospc", "ckpt"), ("enospc", "plog"),
@@ -306,6 +324,11 @@ class FaultPlan:
     def __init__(self, spec: str = ""):
         self.spec = spec or ""
         self.start_depth = 0
+        # which serving-daemon instance (set_instance) and service host
+        # (set_host) this process is: daemon- and host-scoped faults fire
+        # only on an exact match, so None never fires them
+        self.instance: Optional[int] = None
+        self.host: Optional[int] = None
         self.specs = [_parse_token(t.strip()) for t in self.spec.split(",") if t.strip()]
 
     @classmethod
@@ -319,6 +342,51 @@ class FaultPlan:
         """The sites of this plan that the port's check() does not wire
         (it refuses the plan naming them)."""
         return sorted({s.site for s in self.specs if (s.kind, s.point) not in WIRED})
+
+    def set_instance(self, instance: int) -> None:
+        """Record which serving-daemon instance this process is
+        (``crash@daemon<i>``/``stall@daemon<i>`` fire only in instance i)."""
+        self.instance = int(instance)
+
+    def set_host(self, host: int) -> None:
+        """Record which service host this process serves (the host faults
+        are unwired: a plan naming one is refused before it gets here)."""
+        self.host = int(host)
+
+    def daemon_crash(self, lo: int, hi: Optional[int] = None) -> None:
+        """Raise InjectedCrash if a `crash@daemon<i>:N` fault targets this
+        instance and job ordinal N is in [lo, hi] (the 1-based ordinals of
+        the group the daemon is about to run), before any verdict of it."""
+        hi = lo if hi is None else hi
+        for s in self.specs:
+            if s.kind != "crash" or s.point != "daemon" or s.budget <= 0:
+                continue
+            if s.instance != self.instance or not lo <= s.arg <= hi:
+                continue
+            s.budget -= 1
+            raise InjectedCrash(
+                f"injected daemon crash on instance {s.instance} at job "
+                f"ordinal {s.arg} (KSPEC_FAULT)"
+            )
+
+    def daemon_stalled(self) -> bool:
+        """True once per `stall@daemon<i>` fault targeting this instance."""
+        for s in self.specs:
+            if (s.kind == "stall" and s.point == "daemon" and s.budget > 0
+                    and s.instance == self.instance):
+                s.budget -= 1
+                return True
+        return False
+
+    def host_partition(self) -> int:
+        """Jobs this host runs cache-partitioned (`partition@host<i>:N`),
+        once, else 0: always 0 in the port, the fault being unwired."""
+        for s in self.specs:
+            if (s.kind == "partition" and s.budget > 0 and self.host is not None
+                    and s.host == self.host):
+                s.budget -= 1
+                return int(s.arg)
+        return 0
 
     def set_start_depth(self, depth: int) -> None:
         """Record the depth a resumed run starts from: crash faults at or
@@ -356,7 +424,7 @@ class FaultPlan:
     def enospc(self, point: str, n: int) -> None:
         """Raise an injected OSError(ENOSPC) if an `enospc@<point>:N`
         fault matches.  `n` is the BFS level for ckpt/plog (resume-depth
-        relief applies) and a per-process ordinal for spill/merge."""
+        relief applies) and a per-process ordinal for spill/merge/cache."""
         for s in self.specs:
             if s.kind != "enospc" or s.point != point or s.budget <= 0:
                 continue
@@ -405,11 +473,13 @@ class FaultPlan:
         None; the caller then flips the bits at its site.  Level-keyed
         sites (frontier/fpset/ckpt): resume-depth relief applies, and with
         `ckpt_depth` given firing defers until a generation at or past N
-        exists.  `spill`: `n` is a per-process ordinal."""
+        exists.  `spill` and `cache`: `n` is a per-process ordinal."""
         for s in self.specs:
             if s.kind != "flip" or s.point != site or s.budget <= 0:
                 continue
-            if site == "spill":
+            if site in ("spill", "cache"):
+                # per-process ordinals: the Nth spill run, the Nth
+                # state-space-cache artifact published
                 if n != s.arg:
                     continue
             else:
@@ -431,6 +501,14 @@ class FaultPlan:
                     s.budget -= 1
                     return True
         return False
+
+
+def injected_skew_s() -> float:
+    """The wall-clock shift (seconds) that `skew@host<i>:SECS` injects into
+    the timestamps this process writes where other hosts read them (claim
+    leases, heartbeats, fleet-trace stamps): 0.0, the fault being unwired
+    (a plan naming it is refused)."""
+    return 0.0
 
 
 def corrupt_file(path: str, n_bytes: int = 64) -> None:

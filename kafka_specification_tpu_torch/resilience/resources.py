@@ -1,7 +1,7 @@
 """Resource-exhaustion governance: budgets, reclamation, typed clean exits.
 
 The port's own copy of ``kafka_specification_tpu/resilience/resources.py``
-(the per-tenant budgets of the serving plane are not ported yet).  Running
+with the per-tenant budgets of the serving plane.  Running
 out of disk, memory or time is a governed, checkpointed stop, not a torn
 exception:
 
@@ -16,6 +16,10 @@ exception:
   a typed :class:`ResourceExhausted`, which the CLI maps to exit code
   :data:`EXIT_RESOURCE_EXHAUSTED` — resumable after the operator frees
   space, never a torn crash.
+
+- :class:`TenantBudget` — one tenant's budgets from the service
+  directory's ``tenants.json``; the daemon runs each job under a fresh
+  governor of its tenant's.
 
 - :func:`reclaim_disk` — the supervisor's ``--reclaim`` sweep: stale
   tmp files and rotated checkpoint generations, by file name.
@@ -316,6 +320,89 @@ class ResourceGovernor:
             "reclaims": self.reclaims,
             "pressure_events": self.pressure_events,
         }
+
+
+# --- per-tenant budgets (the serving daemon's governance unit) -------------
+#
+# `cli serve` multiplexes many tenants' checks onto one process; each
+# tenant's jobs run under that tenant's OWN ResourceGovernor instance so a
+# budget breach exits *that job* typed (the same RESOURCE_EXHAUSTED / rc-75
+# contract as a solo run) without touching the daemon or sibling jobs.
+# Budgets load from the service directory's `tenants.json`:
+#
+#     {"acme": {"disk_budget": "64M", "rss_budget": null,
+#               "level_deadline": 30, "max_pending": 100},
+#      "*":    {"disk_budget": "256M"}}
+#
+# "*" is the default applied to tenants with no explicit entry.  RSS is
+# process-wide in an in-process daemon, so an RSS budget here is a coarse
+# backstop (the whole daemon's residency is charged to the breaching
+# tenant's job), documented in the JAX package's docs/service.md.
+
+
+class TenantBudget:
+    """Parsed per-tenant resource policy (all fields optional)."""
+
+    def __init__(self, disk_budget=None, rss_budget=None,
+                 level_deadline=None, max_pending=None, soft_frac=None):
+        self.disk_budget = (
+            None if disk_budget in (None, "") else parse_bytes(disk_budget)
+        )
+        self.rss_budget = (
+            None if rss_budget in (None, "") else parse_bytes(rss_budget)
+        )
+        self.level_deadline = (
+            None if level_deadline in (None, "") else float(level_deadline)
+        )
+        self.max_pending = (
+            None if max_pending in (None, "") else int(max_pending)
+        )
+        self.soft_frac = (
+            None if soft_frac in (None, "") else float(soft_frac)
+        )
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TenantBudget":
+        unknown = set(d) - {
+            "disk_budget", "rss_budget", "level_deadline", "max_pending",
+            "soft_frac",
+        }
+        if unknown:
+            raise ValueError(f"unknown tenant-budget keys: {sorted(unknown)}")
+        return cls(**d)
+
+    def governor(self, watch_dirs=(), fault_plan=None) -> ResourceGovernor:
+        """A fresh per-job governor under this tenant's budgets (fresh so
+        one job's deadline timer / pressure counters never leak into the
+        tenant's next job)."""
+        return ResourceGovernor(
+            disk_budget=self.disk_budget,
+            rss_budget=self.rss_budget,
+            level_deadline=self.level_deadline,
+            soft_frac=0.85 if self.soft_frac is None else self.soft_frac,
+            watch_dirs=watch_dirs,
+            fault_plan=fault_plan,
+        )
+
+
+def load_tenant_budgets(path: str) -> dict:
+    """Parse a tenants.json -> {tenant: TenantBudget}.  A missing file
+    means no budgets (every tenant unrestricted); a malformed one is an
+    error — silently ignoring a governance config would un-enforce it."""
+    import json
+
+    if not os.path.isfile(path):
+        return {}
+    with open(path) as fh:
+        raw = json.load(fh)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: expected an object of tenant -> budgets")
+    return {t: TenantBudget.from_dict(d or {}) for t, d in raw.items()}
+
+
+def budget_for_tenant(budgets: dict, tenant: str) -> Optional[TenantBudget]:
+    """Tenant's explicit budget, else the '*' default, else None."""
+    return budgets.get(tenant) or budgets.get("*")
 
 
 # rotated checkpoint generations: <stem>.<gen>.npz[.<part>] with gen >= 1

@@ -33,9 +33,10 @@ restart gives it a fresh process and a fresh CUDA context.
 
 Every timing decision goes through ``utils/clock.py``.  This module
 imports no torch, directly or through its imports: the parent must never
-hold a CUDA context that a wedged child could fight over.  (The JAX
-package's fleet half, ``FleetConfig``/``supervise_fleet`` and the serving
-daemon's ``daemon_supervisor_config``, is not ported yet.)
+hold a CUDA context that a wedged child could fight over.
+``daemon_supervisor_config`` points the same watchdog at the serving
+daemon's heartbeat (``cli serve --supervised``).  (The JAX package's fleet
+half, ``FleetConfig``/``supervise_fleet``, is not ported yet.)
 """
 
 from __future__ import annotations
@@ -292,3 +293,34 @@ def supervise(cfg: SupervisorConfig) -> int:
         file=sys.stderr,
     )
     return rc if rc not in (0, None) else 1
+
+
+# --- serving-daemon supervision (`cli serve --supervised`) -----------------
+
+
+def daemon_supervisor_config(
+    service_dir: str,
+    cmd: list,
+    stall_timeout: float = 120.0,
+    max_restarts: int = 8,
+    env: Optional[dict] = None,
+) -> SupervisorConfig:
+    """SupervisorConfig for the serving daemon (``service/daemon.py``): the
+    daemon appends a heartbeat line to ``<service-dir>/service/
+    heartbeat.jsonl`` every few seconds even when idle (and from a thread
+    while it runs a job), so a wedged daemon stalls the heartbeat and earns
+    the same kill and bounded-backoff restart as a check.  A restarted
+    daemon requeues the orphaned claims at startup (``service/queue.py``),
+    so in-flight work survives the bounce.  A job's RESOURCE_EXHAUSTED
+    exit is the job's (an exit-75 verdict), never the daemon's."""
+    svc = os.path.join(service_dir, "service")
+    os.makedirs(svc, exist_ok=True)
+    return SupervisorConfig(
+        cmd=cmd,
+        heartbeat=os.path.join(svc, "heartbeat.jsonl"),
+        events=os.path.join(svc, "events.jsonl"),
+        log_dir=os.path.join(svc, "logs"),
+        stall_timeout=stall_timeout,
+        max_restarts=max_restarts,
+        env=dict(env if env is not None else os.environ),
+    )

@@ -9,7 +9,11 @@ scripting against it can switch packages without changing its parser:
      "model": ..., "distinct_states": ..., "diameter": ..., "levels": [...],
      "states_per_sec": ..., "seconds": ...,
      "violation": null | {"invariant": ..., "depth": ..., "trace_len": ...},
-     "run_id": ..., "exit_code": 0|1|75|2|76}
+     "run_id": ..., "exit_code": 0|1|75|2|76,
+     ...service jobs add: job_id, tenant, status, timing, batch, cache}
+
+The serving plane's result files and ``cli result`` speak it too
+(``service/verdict.py`` is this module under the JAX package's name).
 
 Exit codes:
   0   exhaustive pass, no violation
@@ -78,3 +82,49 @@ def verdict_exit_code(rec: dict) -> int:
     """The process exit code a consumer of this record should use."""
     code = rec.get("exit_code")
     return EXIT_ERROR if code is None else int(code)
+
+
+def render_verdict(rec: dict) -> str:
+    """Human one-glance rendering (``cli result`` without --json)."""
+    lines = []
+    status = rec.get("status")
+    head = f"Job {rec['job_id']}" if rec.get("job_id") else "Verdict"
+    if status:
+        head += f"  [{status.upper()}]"
+    lines.append(head)
+    if rec.get("tenant"):
+        lines.append(f"  tenant: {rec['tenant']}")
+    if rec.get("run_id"):
+        lines.append(f"  run: {rec['run_id']}")
+    if rec.get("error"):
+        lines.append(f"  error: {rec['error']}")
+    if rec.get("model") is not None:
+        lines.append(
+            f"  {rec['model']}: {rec['distinct_states']} distinct states, "
+            f"diameter {rec['diameter']}, {rec['seconds']}s "
+            f"({rec['states_per_sec']:,.0f} states/sec)"
+        )
+    v = rec.get("violation")
+    if v:
+        lines.append(
+            f"  Invariant {v['invariant']} is VIOLATED at depth "
+            f"{v['depth']} (trace of {v['trace_len']} states in the run "
+            f"report)"
+        )
+    elif rec.get("model") is not None:
+        lines.append("  No invariant violations. Exhaustive check complete.")
+    t = rec.get("timing") or {}
+    if t:
+        lines.append(
+            f"  latency: wait {t.get('wait_s', '?')}s + "
+            f"run {t.get('wall_s', '?')}s = {t.get('latency_s', '?')}s "
+            f"submit->verdict"
+        )
+    b = rec.get("batch") or {}
+    if b.get("group_size", 0) > 1:
+        lines.append(
+            f"  batched: group of {b['group_size']} jobs sharing schema "
+            f"shape (leader run {b.get('leader_run_id')})"
+        )
+    lines.append(f"  exit code: {verdict_exit_code(rec)}")
+    return "\n".join(lines)

@@ -244,6 +244,7 @@ def test_spill_files_and_manifest_equal_jax_and_resume_across_packages(tmp_path)
         assert ta[k].dtype == ja[k].dtype and np.array_equal(ta[k], ja[k]), k
     assert str(ta["spill_manifest"]) == str(ja["spill_manifest"])
     assert str(ta["ident"]).endswith("|store=disk")
+    assert ckpt_files(tdir) == ckpt_files(jdir)  # member order and bytes
     kw.pop("max_depth")
     t = check(tthw(), checkpoint_dir=jdir, device="cpu", **kw)  # the port resumes JAX's
     j = jbfs.check(jthw(), checkpoint_dir=tdir, **kw)  # JAX (its default) resumes the port's
@@ -252,9 +253,41 @@ def test_spill_files_and_manifest_equal_jax_and_resume_across_packages(tmp_path)
     assert np.array_equal(chain_of(tdir), chain_of(jdir))
 
 
+def ckpt_files(ckpt_dir) -> dict:
+    """Every checkpoint generation's file, name -> bytes."""
+    out = {}
+    for name in sorted(os.listdir(ckpt_dir)):
+        if name.startswith("bfs_checkpoint") and name.endswith(".npz"):
+            with open(os.path.join(ckpt_dir, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["overlap-off", "overlap-on"])
+def test_tier_checkpoint_files_equal_jax_byte_for_byte(tmp_path, monkeypatch, overlap):
+    """The tier's checkpoint generations are the JAX package's files byte
+    for byte (members in its order: spill_manifest, host_fps, vcap, levels,
+    total, then the chain stamp), with the overlap layer's async writer and
+    without.  No merge runs here (a background merge's adoption time would
+    change the manifest), and a fault plan that never fires is armed, under
+    which both engines join the writer at every level start: the deletion
+    barrier, which the manifest records, then advances at the same points."""
+    monkeypatch.setenv("KSPEC_SPILL_RUNS_PER_MERGE", "1000")
+    monkeypatch.setenv("KSPEC_FAULT", "crash@level:99")
+    kw = dict(min_bucket=32, mem_budget=300, max_depth=6, overlap=overlap)
+    tdir, jdir = str(tmp_path / "t"), str(tmp_path / "j")
+    t = check(tthw(), checkpoint_dir=tdir, device="cpu", **kw)
+    j = jbfs.check(jthw(), checkpoint_dir=jdir, **kw)
+    assert verdict(t) == verdict(j)
+    tf, jf = ckpt_files(tdir), ckpt_files(jdir)
+    assert len(jf) == 3 and sorted(tf) == sorted(jf)
+    for name in jf:
+        assert tf[name] == jf[name], name
+
+
 def test_unwired_fault_sites_are_refused(monkeypatch):
-    for plan in ("flip@exchange:3", "enospc@cache:1", "crash@daemon0:1", "kill@host1:2",
-                 "crash@level:3,flip@cache:1", "compile_oom,flip@exchange:3",
+    for plan in ("flip@exchange:3", "partition@host0", "skew@host0:5", "kill@host1:2",
+                 "crash@level:3,partition@host0:2", "compile_oom,flip@exchange:3",
                  "transient_device_err:2,kill@host1:2"):
         monkeypatch.setenv("KSPEC_FAULT", plan)
         bad = FaultPlan(plan).unwired()

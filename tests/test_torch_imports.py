@@ -83,7 +83,9 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "obs.metrics", "obs.runctx", "obs.observer", "obs.report",
                      "overlap", "analysis.ownership", "oracle", "oracle.interp",
                      "engine.decode", "resilience.retry", "resilience.supervisor",
-                     "utils.clock"):
+                     "utils.clock", "obs.fleettrace", "service", "service.queue",
+                     "service.verdict", "service.kernel_cache", "service.scheduler",
+                     "service.batch", "service.state_cache", "service.daemon"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -130,7 +132,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "obs/observer.py", "obs/report.py", "overlap.py", "analysis/ownership.py",
             "oracle/__init__.py", "oracle/interp.py", "engine/decode.py",
             "pipeline_registry.py", "resilience/retry.py", "resilience/supervisor.py",
-            "utils/clock.py"} <= names
+            "utils/clock.py", "obs/fleettrace.py", "service/__init__.py", "service/queue.py",
+            "service/verdict.py", "service/kernel_cache.py", "service/scheduler.py",
+            "service/batch.py", "service/state_cache.py", "service/daemon.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
@@ -207,3 +211,29 @@ def test_the_supervisor_and_the_clock_import_no_torch():
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
 
+
+def test_the_service_client_path_imports_no_torch():
+    """`cli submit/status/result` never pay the torch import: a fresh
+    interpreter that imports the CLI and the torch-free half of service/
+    (the queue, the verdict, the scheduler, the model cache's keys, the
+    state-space cache) and the fleet-trace emitters has no torch, and
+    nothing of JAX, in sys.modules."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import kafka_specification_tpu_torch.cli
+        import kafka_specification_tpu_torch.obs.fleettrace
+        import kafka_specification_tpu_torch.service
+        import kafka_specification_tpu_torch.service.kernel_cache
+        import kafka_specification_tpu_torch.service.scheduler
+        import kafka_specification_tpu_torch.service.state_cache
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("torch", "jax", "jaxlib", "kafka_specification_tpu"))
+        assert not bad, bad
+        print("clean")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
