@@ -221,6 +221,36 @@ print no result:
          seeded, hit) and launches per path on a line of their own; K1 (and
          K2) held against the plain versions at (b)'s, (d)'s and (f)'s
          largest launches
+  fleet  the fleet, the router and sweeps (service/fleet.py, router.py,
+         sweep/, obs/fleettrace.py): (a) `cli serve-fleet --daemons 2 --min
+         1` on the card under crash@daemon0:1,crash@daemon1:1 with a
+         Kip320 3r job and two small ones queued: the crashed slots
+         restart, each job finished once (its verdict file alone, the
+         takeovers dead-pid), the Kip320 levels and its published
+         artifact's chain the pinned ones, then an idle slot drained by
+         its marker (exit 0, fleet-scale-down) and SIGTERM exit 0; (b) two
+         hosts, a one-daemon fleet each (`--host-instance`), behind an
+         in-process router under kill@host0:1,partition@host1:1: a Kip320
+         3r job pinned to host 0 kills it (its fleet gives up), the router
+         declares it dead and re-routes the job exactly once to host 1,
+         which runs it cold inside its partition window (fallback
+         partition, deferred publish, re-published at the heal with the
+         pinned chain), the verdict equal to (a)'s; (c) in this process,
+         while (a) and (b) boot: a warm-up sweep of TypeOk-only twins (the
+         cost model's corpus), then a sweep of FRL Replicas x LogSize and
+         Kip320 max_depth 8, 12 and null on a daemon on the card (the
+         unbounded point solo, the others in groups; every row equal to a
+         solo check() here), K1 counted; a repeat sweep: every point a
+         verified hit, no launch; the Kip320 sheet on device-hash (K1 and
+         K2, rows equal); a TruncateToHW StrongIsr sheet at max_depth 6, 8
+         and 10 whose frontier {max_depth: 8} `sweep bisect` witnesses;
+         (d) `cli trace` of (a)'s and (b)'s jobs (the latter through the
+         router, with route-place and route-reroute), `top`, `fleet-report`
+         and `report` of the router and the sweeps.  The walls of (a)-(d),
+         (c)'s launches, and each daemon's peak device memory (the
+         kspec_svc_device_peak_bytes gauge of its metrics-<i>.prom) on a
+         line of their own; (a)'s and (b)'s launches happen in the
+         daemons' processes and are not counted
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
@@ -2605,6 +2635,401 @@ def phase_serve():
     shutil.rmtree(root, ignore_errors=True)
     return {"line": "; ".join(parts), "counts": counts}
 
+
+def _fleet_argv(svc, *args):
+    """`cli serve-fleet SVC args`: the fleet parent (torch-free), each of
+    its daemons a `cli serve` child on the card."""
+    return [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "serve-fleet",
+            str(svc), "--poll", "0.2", "--stall-timeout", "120", *args]
+
+
+def _start_fleet(svc, log, fault, *args):
+    env = {**os.environ, "KSPEC_FAULT": fault}
+    fh = open(log, "w")
+    try:
+        return subprocess.Popen(_fleet_argv(svc, *args), stdout=fh, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+    finally:
+        fh.close()
+
+
+def _stop_fleet(proc, timeout=60):
+    """SIGTERM the fleet parent (it tears its daemons down) -> its exit
+    code; SIGKILL of its whole group if it does not stop in time."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"the fleet (pid {proc.pid}) did not stop on SIGTERM")
+
+
+def _wait_for(pred, timeout, what, poll=0.2):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        got = pred()
+        if got is not None and got is not False:
+            return got
+        time.sleep(poll)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def _daemon_peaks(svc):
+    """Each fleet daemon's peak device memory in MB (its last life), from
+    the kspec_svc_device_peak_bytes gauge of its metrics-<i>.prom, which a
+    daemon on the card exports with every snapshot and at its stop."""
+    out = {}
+    for f in sorted((Path(svc) / "service").glob("metrics-*.prom")):
+        for line in f.read_text().splitlines():
+            if line.startswith("kspec_svc_device_peak_bytes"):
+                out[f"daemon{f.stem.split('-')[1]}"] = round(
+                    float(line.rsplit(" ", 1)[1]) / 1e6, 1)
+    return out
+
+
+def _kip320_artifact_chain(cache_root):
+    """The digest chain of the unbounded Kip320 entry a daemon published,
+    or None when there is none."""
+    from kafka_specification_tpu_torch.service import state_cache
+
+    for entry in state_cache.iter_corpus(cache_root):
+        if entry["key"]["module"] == "Kip320" and entry.get("max_depth") is None:
+            return np.array(entry["artifact"]["chain"], np.uint64)
+    return None
+
+
+def _fleet_lattice(warmup=False):
+    """The sweep of part (c): FRL Replicas x LogSize and Kip320 3r with
+    max_depth 8, 12 and null.  The warm-up's twins are other cache keys
+    with the same features (Kip320 with TypeOk only, FRL with LogRecords =
+    {a}): their published runs are the cost model's corpus."""
+    frl = Path("configs/FiniteReplicatedLog.cfg").read_text()
+    kip = Path("configs/Kip320.cfg").read_text()
+    if warmup:
+        frl = frl.replace("LogRecords = {a, b}", "LogRecords = {a}")
+        kip = kip.replace(KIP_ALL, "INVARIANTS TypeOk")
+    return {
+        "schema": "kspec-sweep-lattice/1", "name": "fleet-warmup" if warmup else "fleet",
+        "on_vacuous": "skip",
+        "sheets": [
+            {"module": "FiniteReplicatedLog", "cfg_text": frl,
+             "axes": [{"name": "Replicas", "values": [2, 3]},
+                      {"name": "LogSize", "values": [1, 2]}]},
+            {"module": "Kip320", "cfg_text": kip,
+             "axes": [{"name": "max_depth", "kind": "bound", "values": [8, 12, None]}]},
+        ],
+    }
+
+
+def _bisect_lattice():
+    """A violating sheet for `sweep bisect`: TruncateToHW 3r with StrongIsr
+    only at max_depth 6, 8 and 10 (a lattice of its own: the frontier's
+    axis order is read by axis name across a lattice's sheets)."""
+    thw = Path("configs/KafkaTruncateToHighWatermark.cfg").read_text().replace(
+        "INVARIANTS TypeOk WeakIsr StrongIsr", "INVARIANTS StrongIsr")
+    return {"schema": "kspec-sweep-lattice/1", "name": "fleet-bisect", "on_vacuous": "skip",
+            "module": "KafkaTruncateToHighWatermark", "cfg_text": thw,
+            "axes": [{"name": "max_depth", "kind": "bound", "values": [6, 8, 10]}]}
+
+
+def _sweep_part(root):
+    """(c): the lattice against in-process daemons on the card."""
+    from kafka_specification_tpu_torch import build_model, check, cli
+    from kafka_specification_tpu_torch.service.daemon import Daemon, ServeConfig
+    from kafka_specification_tpu_torch.service.verdict import verdict_from_result
+    from kafka_specification_tpu_torch.sweep import (
+        SweepConfig, enumerate_points, load_lattice, load_manifest, refine_frontier, run_sweep)
+    from kafka_specification_tpu_torch.service.queue import JobQueue
+    from kafka_specification_tpu_torch.utils.cfg import parse_cfg
+
+    counts, walls = {}, {}
+    svc = root / "sweep-svc"
+    d = Daemon(ServeConfig(str(svc), linger_s=0.0, device=DEV.type))
+
+    def sweep(name, lattice, daemon, service, sw, path_kernels, **kw):
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = run_sweep(load_lattice(lattice), SweepConfig(
+            sweep_dir=str(root / sw), service_dir=str(service), drive=daemon.drain_once,
+            wait_timeout_s=300.0, **kw))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = _read_counts(path_kernels)
+        bad = [r["point_id"] for r in rec["points"].values() if r["status"] != "done"]
+        if bad:
+            raise AssertionError(f"(c) {name}: points not done: {bad}")
+        return rec
+
+    # the warm-up: TypeOk-only twins of the lattice, whose published runs
+    # are the cost model's corpus (the same features, other cache keys)
+    sweep("sweep warm-up", _fleet_lattice(warmup=True), d, svc, "sw-warmup", ("fingerprint",))
+    lattice = _fleet_lattice()
+    rec = sweep("sweep", lattice, d, svc, "sw1", ("fingerprint",))
+    held = _hold_path_shapes(_largest(), 737_794)
+    rows = rec["points"]
+    solo_pts = sorted(r["point_id"] for r in rows.values() if r["solo"])
+    kip_null = [p.point_id for p in enumerate_points(load_lattice(lattice))
+                if p.module == "Kip320" and p.max_depth is None]
+    if solo_pts != kip_null:
+        raise AssertionError(f"(c): solo points {solo_pts}, expected only {kip_null}; "
+                             f"predictions { {k: r['predicted'] for k, r in rows.items()} }")
+    q = JobQueue(str(svc))
+    batched = [r for r in rows.values()
+               if ((q.result(r["job_id"]) or {}).get("batch") or {}).get("group_size", 1) > 1]
+    rec_b = sweep("sweep bisect", _bisect_lattice(), d, svc, "sw-bisect", ("fingerprint",))
+    # every row against a solo check() of the same point, here on the card
+    rows_all = {**rows, **rec_b["points"]}
+    for p in (enumerate_points(load_lattice(lattice))
+              + enumerate_points(load_lattice(_bisect_lattice()))):
+        cfg = parse_cfg(p.cfg_text)
+        res = check(build_model(p.module, cfg), device=DEV, max_depth=p.max_depth)
+        solo = verdict_from_result(res)
+        got = rows_all[p.point_id]["verdict"]
+        for k in ("distinct_states", "diameter", "violation", "exit_code"):
+            if got.get(k) != solo.get(k):
+                raise AssertionError(f"(c) {p.point_id} {k}: sweep {got.get(k)} "
+                                     f"solo {solo.get(k)}")
+    if rows[kip_null[0]]["verdict"]["distinct_states"] != 737_794:
+        raise AssertionError("(c): the unbounded Kip320 point is not 737,794 states")
+    # a repeat sweep: every point a verified hit, no engine run, no launch
+    rec2 = sweep("sweep repeat", lattice, d, svc, "sw2", ())
+    miss = [r["point_id"] for r in rec2["points"].values()
+            if (r.get("cache") or {}).get("state_cache") != "hit"]
+    if miss:
+        raise AssertionError(f"(c) repeat: not cache hits: {miss}")
+    # the Kip320 sheet on device-hash (a fresh service: no cache)
+    kip_only = dict(lattice, name="fleet-hash", sheets=[lattice["sheets"][1]])
+    svc_h = root / "sweep-svc-hash"
+    dh = Daemon(ServeConfig(str(svc_h), linger_s=0.0, visited_backend="device-hash",
+                            device=DEV.type))
+    rec3 = sweep("sweep device-hash", kip_only, dh, svc_h, "sw-hash",
+                 ("fingerprint", "hash_probe_insert"))
+    held_h = _hold_path_shapes(_largest(), 737_794)
+    for pid, r in rec3["points"].items():
+        for k in ("distinct_states", "diameter", "violation"):
+            if r["verdict"][k] != rows[pid]["verdict"][k]:
+                raise AssertionError(f"(c) device-hash {pid} {k} differs from `device`")
+    # the frontier of the violating TruncateToHW sheet, witnessed
+    man = load_manifest(str(root / "sw-bisect"))
+    front = refine_frontier(man, lambda coords: {})
+    strong = front.get("StrongIsr") or {}
+    got_front = [dict(r.get("coords") or []) for r in strong.get("frontier", [])]
+    if got_front != [{"max_depth": 8}] or [w["violates"] for w in strong["witnesses"]] != [
+            False] or strong["demoted"]:
+        raise AssertionError(f"(c) bisect: frontier {got_front}, {strong}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["sweep", "bisect", str(root / "sw-bisect")])
+    if rc != 0 or "StrongIsr: frontier of 1 minimal violating configs (1 neighbors witnessed" \
+            not in out.getvalue():
+        raise AssertionError(f"(c) cli sweep bisect: exit {rc}: {out.getvalue()[-300:]}")
+    line = (f"(c) sweep of {len(rows)} points (FRL 2x2, Kip320 d8/d12/null) on an in-process "
+            f"daemon: {walls['sweep']:.2f} s, K1 "
+            f"{counts['sweep']['fingerprint']} launches, {len(batched)} points in batched "
+            f"groups, the unbounded Kip320 point solo (predicted "
+            f"{rows[kip_null[0]]['predicted']['states']} states from the warm-up corpus, "
+            f"{walls['sweep warm-up']:.2f} s), every row equal to a solo check(); {held}; repeat: "
+            f"{len(rec2['points'])} verified hits, {walls['sweep repeat']:.3f} s, no launch; the "
+            f"Kip320 sheet on device-hash {walls['sweep device-hash']:.2f} s, launches "
+            f"{counts['sweep device-hash']}, rows equal; {held_h}; bisect sweep of "
+            f"TruncateToHW StrongIsr d6/d8/d10 {walls['sweep bisect']:.2f} s: the frontier "
+            f"{{max_depth: 8}}, its lower neighbour (6) witnessed clean")
+    return line, counts, walls
+
+
+def phase_fleet():
+    """The fleet, the router and sweeps (service/fleet.py, router.py,
+    sweep/, obs/fleettrace.py): (a) `cli serve-fleet --daemons 2` on the
+    card with crash@daemon<i>:1 for both daemons: a Kip320 3r job and two
+    small ones finished exactly once after the crashed slot restarts, the
+    Kip320 verdict's levels and its artifact's chain the pinned ones, then
+    an idle slot drained by its marker (exit 0); (b) two hosts, a fleet of
+    one daemon each, behind a router: kill@host0:1 kills host 0 under a
+    Kip320 3r job, the router declares it dead and re-routes the job
+    exactly once to host 1, whose partition@host1:1 makes it a cold run
+    (reason partition, deferred publish, re-published at the heal); (c)
+    a sweep against in-process daemons (launches counted); (d) `cli
+    trace`, `top`, `fleet-report` and `report` over (a)-(c)'s
+    directories.  (a) and (b) start first and boot while (c) runs."""
+    from kafka_specification_tpu_torch import cli
+    from kafka_specification_tpu_torch.service.queue import JobQueue
+    from kafka_specification_tpu_torch.service.router import Router
+
+    root = WORK / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    kip = Path("configs/Kip320.cfg").read_text()
+    ids = Path("configs/IdSequence.cfg").read_text()
+    thw = Path("configs/KafkaTruncateToHighWatermark.cfg").read_text()
+    parts, walls, peaks = [], {}, {}
+    procs = []
+    try:
+        # (a) the fleet: the jobs queued before it starts
+        t_a = time.perf_counter()
+        svc = root / "svc"
+        q = JobQueue(str(svc))
+        kjob = q.submit(kip, "Kip320")["job_id"]
+        small = [q.submit(ids, "IdSequence")["job_id"],
+                 q.submit(thw, "KafkaTruncateToHighWatermark", max_depth=6)["job_id"]]
+        fa = _start_fleet(svc, root / "fleet-a.log", "crash@daemon0:1,crash@daemon1:1",
+                          "--daemons", "2", "--min", "1", "--max", "2", "--backoff-base", "0.5",
+                          "--scale-interval", "1", "--scale-down-idle", "4")
+        procs.append(fa)
+        # (b) two hosts, one daemon each, behind a router
+        hosts = [root / "h0", root / "h1"]
+        for h in hosts:
+            JobQueue(str(h))
+        router = Router(str(root / "rt"), hosts=[str(h) for h in hosts], dead_after_s=5.0,
+                        skew_s=1.0)
+        fb = [_start_fleet(h, root / f"fleet-h{i}.log", "kill@host0:1,partition@host1:1",
+                           "--daemons", "1", "--host-instance", str(i), "--max-restarts",
+                           "0" if i == 0 else "2", "--backoff-base", "0.5")
+              for i, h in enumerate(hosts)]
+        procs += fb
+        # (c) the sweep, in this process, while the fleets boot
+        t_c = time.perf_counter()
+        line_c, counts, walls_c = _sweep_part(root)
+        walls["c"] = time.perf_counter() - t_c
+        # (a), continued
+        _wait_for(lambda: all(q.result(j) for j in [kjob, *small]), 300, "(a)'s verdicts")
+        rec = q.result(kjob)
+        # a solo run publishes its artifact after its verdict
+        chain_a = _wait_for(lambda: _kip320_artifact_chain(str(svc / "state-cache")), 60,
+                            "(a)'s published artifact")
+        _full_kip320(rec, chain_a, "(a)")
+        if [q.result(j)["exit_code"] for j in small] != [0, 0]:
+            raise AssertionError(f"(a): small jobs {[q.result(j) for j in small]}")
+        results = sorted(os.listdir(svc / "results"))
+        if len([n for n in results if n.endswith(".json")]) != 3:
+            raise AssertionError(f"(a): verdict files {results}")
+        ev = lambda: _jsonl(svc / "service" / "fleet-events.jsonl")  # noqa: E731
+        _wait_for(lambda: any(e.get("event") == "fleet-scale-down" for e in ev()), 90,
+                  "(a)'s graceful drain")
+        walls["a"] = time.perf_counter() - t_a
+        rc_a = _stop_fleet(fa)
+        peaks["a"] = _daemon_peaks(svc)
+        events_a = ev()
+        restarts = [e for e in events_a if e.get("event") == "daemon-restart"]
+        drained = [e for e in events_a if e.get("event") == "daemon-exit" and e.get("draining")]
+        if rc_a != 0 or not restarts or any(e["why"] != "crash" for e in restarts) or [
+                e["rc"] for e in drained] != [0]:
+            raise AssertionError(f"(a): fleet exit {rc_a}, events "
+                                 f"{[(e.get('event'), e.get('instance')) for e in events_a]}")
+        takeovers = {j: [t["reason"] for t in json.load(open(
+            svc / "queue" / "done" / f"{j}.json")).get("takeovers", [])]
+            for j in [kjob, *small]}
+        fired = sorted(os.listdir(svc / "service" / "faults-fired"))
+        parts.append(
+            f"(a) serve-fleet --daemons 2: {len(restarts)} crashed slot(s) restarted "
+            f"({fired}), 3 verdicts once each (takeovers {takeovers}), Kip320 737794 states, "
+            f"levels and artifact chain as pinned, then fleet-drain of instance "
+            f"{drained[0]['instance']} (exit 0) and SIGTERM exit 0; {walls['a']:.1f} s; "
+            f"launches: in the daemons' processes (not counted here); peak device memory "
+            f"(MB, each slot's last life) {peaks['a']}")
+        # (b), continued: both hosts seen alive, then the job pinned to host 0
+        _wait_for(lambda: all(h["state"] == "ok" for h in router.healths()), 180,
+                  "(b)'s hosts alive")
+        t_b = time.perf_counter()  # (b)'s wall: from the submit to the healed publish
+        bjob = router.submit(kip, "Kip320", host=0)["job_id"]
+        rc0 = fb[0].wait(timeout=180)
+        moved = []
+
+        def rerouted():
+            out = router.sweep()
+            moved.extend(out["rerouted"].get(0, []))
+            return (router.read_route(bjob) or {}).get("host") == 1
+
+        _wait_for(rerouted, 120, "(b)'s re-route", poll=0.5)
+        brec = router.wait_result(bjob, timeout=300)
+        if brec is None:
+            raise AssertionError("(b): no verdict for the re-routed job")
+        _full_kip320(brec, None, "(b)")
+        if brec["levels"] != rec["levels"] or brec["distinct_states"] != rec["distinct_states"]:
+            raise AssertionError("(b): the re-routed verdict differs from (a)'s")
+        hist = [h["why"] for h in router.read_route(bjob)["history"]]
+        spec = json.load(open(hosts[1] / "queue" / "done" / f"{bjob}.json"))
+        if moved != [bjob] or hist != ["submit", "reroute:host-dead"] or len(
+                spec.get("reroutes", [])) != 1 or rc0 == 0:
+            raise AssertionError(f"(b): moved {moved}, history {hist}, reroutes "
+                                 f"{spec.get('reroutes')}, host 0's fleet exit {rc0}")
+        # the heal re-publishes the deferred artifact after the verdict
+        ev1 = lambda: _jsonl(hosts[1] / "service" / "events.jsonl")  # noqa: E731
+        _wait_for(lambda: any(e.get("event") == "cache-partition-heal" for e in ev1()), 60,
+                  "(b)'s heal")
+        kinds = [(e.get("event"), e.get("reason")) for e in ev1()
+                 if str(e.get("event")).startswith("cache-")]
+        heal = [e for e in ev1() if e.get("event") == "cache-partition-heal"]
+        if kinds[:3] != [("cache-partition-injected", None), ("cache-fallback", "partition"),
+                         ("cache-publish-deferred", "partition")] or [
+                e["republished"] for e in heal] != [1] or brec.get("cache") is not None:
+            raise AssertionError(f"(b): host 1's cache events {kinds}")
+        if not np.array_equal(_kip320_artifact_chain(str(hosts[1] / "state-cache")),
+                              np.array(KIP320_CHAIN, np.uint64)):
+            raise AssertionError("(b): the healed artifact's chain is not the JAX package's")
+        walls["b"] = time.perf_counter() - t_b
+        rc1 = _stop_fleet(fb[1])
+        if rc1 != 0:
+            raise AssertionError(f"(b): host 1's fleet exit {rc1}")
+        peaks["b"] = {f"host{i} {k}": v for i, h in enumerate(hosts)
+                      for k, v in _daemon_peaks(h).items()}
+        parts.append(
+            f"(b) router over two one-daemon fleets: kill@host0:1 (host 0's fleet gave up, "
+            f"exit {rc0}), host 0 declared dead and the Kip320 job re-routed once (history "
+            f"{hist}), host 1 ran it cold inside partition@host1:1 (fallback partition, "
+            f"deferred publish, heal republished 1, the artifact's chain the JAX "
+            f"package's), verdict equal to (a)'s; {walls['b']:.1f} s; launches: in the "
+            f"daemons' processes; peak device memory (MB) {peaks['b']}")
+        parts.append(line_c + f"; {walls['c']:.1f} s")
+        # (d) the renderings
+        t_d = time.perf_counter()
+        shows = {}
+        for name, args, needles in (
+                ("trace (a)", ["trace", kjob, "--service-dir", str(svc)],
+                 ("job-submit", "queue-claim", "svc-run", "verdict-publish", "stages:")),
+                ("trace (b)", ["trace", bjob, "--router", str(root / "rt")],
+                 ("job-submit", "route-place", "route-reroute", "queue-claim", "svc-run",
+                  "verdict-publish")),
+                ("top", ["top", "--once", "--router", str(root / "rt")], ("kspec top",)),
+                ("fleet-report", ["fleet-report", "--router", str(root / "rt")],
+                 ("Fleet report",)),
+                ("report router", ["report", str(root / "rt")], ("Router",)),
+                ("report sweep", ["report", str(root / "sw1")], ("Sweep fleet", "scaling law")),
+                ("report bisect", ["report", str(root / "sw-bisect")],
+                 ("minimal violating configs — StrongIsr",)),
+                ("top sweep", ["top", "--once", "--service-dir", str(root / "sweep-svc")],
+                 ("sweep:",))):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(args)
+            text = out.getvalue()
+            missing = [n for n in needles if n not in text]
+            if rc != 0 or missing:
+                raise AssertionError(f"(d) {name}: exit {rc}, missing {missing}: {text[-400:]}")
+            shows[name] = len(text.splitlines())
+        walls["d"] = time.perf_counter() - t_d
+        parts.append(f"(d) cli trace (a) and (b) (the re-routed job's waterfall with "
+                     f"route-place and route-reroute), top, fleet-report, report of the router "
+                     f"and the sweep: exit 0, lines {shows}; {walls['d']:.2f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    _stop_fleet(p, timeout=30)
+                except AssertionError:
+                    pass
+    walls_c = {k: round(v, 3) for k, v in walls_c.items()}
+    print(f"[fleet] walls (a) {walls['a']:.1f} s, (b) {walls['b']:.1f} s, (c) "
+          f"{walls['c']:.1f} s ({json.dumps(walls_c)}), (d) {walls['d']:.2f} s; launches "
+          f"{json.dumps(counts)}; the daemons' peak device memory (MB) "
+          f"{json.dumps(peaks)}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"line": "; ".join(parts), "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2642,6 +3067,7 @@ def main() -> int:
     oracle = ph.run("oracle", phase_oracle)
     resilience = ph.run("resilience", phase_resilience)
     serve = ph.run("serve", phase_serve)
+    fleet = ph.run("fleet", phase_fleet)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -2658,7 +3084,8 @@ def main() -> int:
                **{f"overlap {p}": c for p, c in overlap["counts"].items()},
                **{f"oracle {p}": c for p, c in oracle["counts"].items()},
                **{f"resilience {p}": c for p, c in resilience["counts"].items()},
-               **{f"serve {p}": c for p, c in serve["counts"].items()}}
+               **{f"serve {p}": c for p, c in serve["counts"].items()},
+               **{f"fleet {p}": c for p, c in fleet["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

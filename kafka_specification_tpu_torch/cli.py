@@ -107,12 +107,29 @@ verdict and exits with its code), ``status [JOB_ID]`` says where a job is
 (exit 1 for an unknown job), and ``result JOB_ID`` prints its
 ``kspec-verdict/1`` record and exits with its code (2 when there is none).
 The service directory defaults to ``$KSPEC_SERVICE_DIR``, else
-``./service``.  The three client verbs import no torch; ``--router``
-(the routed fleet) is refused.
+``./service``.  The three client verbs import no torch, and with
+``--router DIR`` they go through a routed fleet.
+
+``serve-fleet [SERVICE_DIR]`` runs N ``serve`` children over one service
+directory under the fleet supervisor (``service/fleet.py``; the device
+flags pass through, the parent imports no torch).  ``route ROUTER_DIR
+--hosts DIR...`` fronts several hosts' service directories
+(``service/router.py``).  ``trace JOB_ID``, ``top`` and ``fleet-report``
+render the fleet traces (``obs/fleettrace.py``), and ``report`` of a
+router or sweep directory renders its rollup.  ``sweep
+plan|run|report|bisect`` drives a config lattice through the service
+(``sweep/``).  All of these are the JAX package's verbs, with its records,
+text and exit codes.
 
     python -m kafka_specification_tpu_torch.cli serve svc --max-jobs 1 &
     python -m kafka_specification_tpu_torch.cli submit configs/Kip320.cfg \
         --service-dir svc --wait --json
+    python -m kafka_specification_tpu_torch.cli serve-fleet svc --daemons 2 &
+    python -m kafka_specification_tpu_torch.cli route rt --hosts h0 h1 &
+    python -m kafka_specification_tpu_torch.cli submit configs/Kip320.cfg --router rt
+    python -m kafka_specification_tpu_torch.cli trace JOB_ID --router rt
+    python -m kafka_specification_tpu_torch.cli sweep run lattice.json --sweep-dir sw \
+        --service-dir svc
 """
 
 from __future__ import annotations
@@ -449,8 +466,21 @@ def _verify_checkpoint(args) -> int:
 
 
 def _report(args) -> int:
-    """`cli report`: one run directory, or the index of a runs root."""
+    """`cli report`: one run directory, a router or sweep directory (their
+    rollups), or the index of a runs root."""
     run_dir = args.run_dir
+    if run_dir is not None and os.path.isfile(os.path.join(run_dir, "router.json")):
+        from .obs.report import render_router_report, router_report_data
+
+        data = router_report_data(run_dir)
+        print(json.dumps(data) if args.json else render_router_report(data))
+        return 0
+    if run_dir is not None and os.path.isfile(os.path.join(run_dir, "sweep.json")):
+        from .obs.report import render_sweep_report, sweep_report_data
+
+        data = sweep_report_data(run_dir)
+        print(json.dumps(data) if args.json else render_sweep_report(data))
+        return 0
     if run_dir is None:
         root = args.root or os.environ.get("KSPEC_RUNS_ROOT", "runs")
         if args.latest:
@@ -606,6 +636,18 @@ def _analyze(args) -> int:
     if not args.no_engine:
         targets.append("engine sources (ownership + purity)")
         findings.extend(analyze_engine_sources())
+        # the trace vocabulary (obs/fleettrace registries): every span or
+        # event kind the port emits must be registered and documented
+        targets.append("trace vocabulary (obs/fleettrace registries)")
+        from .obs.fleettrace import lint_trace_vocabulary
+
+        for prob in lint_trace_vocabulary():
+            findings.append(Finding(
+                kind="trace-vocab", severity="HIGH",
+                target=f"{prob['path']}:{prob['line']}",
+                message=prob["problem"],
+                data=dict(prob),
+            ))
     rec = analysis_record(findings, targets=targets)
     if args.json:
         print(json.dumps(rec))
@@ -673,23 +715,33 @@ def _serve(args, argv) -> int:
 
 
 def _run_service_client(args) -> int:
-    """submit / status / result: the tenants' side of the service.  Only
+    """submit / status / result: the tenants' side of the service, on one
+    service directory or (``--router``) through a routed fleet.  Only
     torch-free imports here."""
     from .service.queue import JobQueue
     from .verdict import render_verdict
 
-    if args.router:
-        print("error: --router needs the routed fleet (service/router.py), which "
-              "the port does not have yet; pass --service-dir", file=sys.stderr)
-        return EXIT_ERROR
-    try:
-        # submit creates the tree (tenants may enqueue before the first
-        # daemon starts); status/result are read-only, so a mistyped
-        # --service-dir is an error, not a new empty service
-        q = JobQueue(_service_dir(args.service_dir), create=args.cmd == "submit")
-    except FileNotFoundError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return EXIT_ERROR
+    router = None
+    q = None
+    if getattr(args, "router", None):
+        # the cross-host router (torch-free): placement and the tenant's
+        # fleet-wide max_pending cap live inside Router.submit
+        from .service.router import Router
+
+        try:
+            router = Router(args.router)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+    else:
+        try:
+            # submit creates the tree (tenants may enqueue before the
+            # first daemon starts); status/result are read-only, so a
+            # mistyped --service-dir is an error, not a new empty service
+            q = JobQueue(_service_dir(args.service_dir), create=args.cmd == "submit")
+        except FileNotFoundError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
 
     if args.cmd == "submit":
         try:
@@ -712,57 +764,81 @@ def _run_service_client(args) -> int:
             except ValueError as e:
                 print(f"error: {e}", file=sys.stderr)
                 return EXIT_ERROR
-        # admission control: the tenant's max_pending cap (advisory: the
-        # check is client-side, so a racing burst can overshoot; the budget
-        # that matters, the resource governor, is the daemon's)
-        from .resilience.resources import budget_for_tenant, load_tenant_budgets
+        if router is None:
+            # admission control: the tenant's max_pending cap (advisory:
+            # the check is client-side, so a racing burst can overshoot;
+            # the budget that matters, the resource governor, is the
+            # daemon's).  With --router it is Router.submit's, fleet-wide
+            from .resilience.resources import budget_for_tenant, load_tenant_budgets
 
-        try:
-            budgets = load_tenant_budgets(q.tenants_path)
-        except (OSError, ValueError) as e:
-            print(f"error: bad tenants.json: {e}", file=sys.stderr)
-            return EXIT_ERROR
-        b = budget_for_tenant(budgets, args.tenant)
-        if b is not None and b.max_pending is not None:
-            mine = q.pending_for_tenant(args.tenant, stop_at=b.max_pending)
-            if mine >= b.max_pending:
-                print(f"error: tenant {args.tenant!r} at max_pending={b.max_pending} "
-                      f"({mine} queued) — drain or raise the cap in tenants.json",
-                      file=sys.stderr)
+            try:
+                budgets = load_tenant_budgets(q.tenants_path)
+            except (OSError, ValueError) as e:
+                print(f"error: bad tenants.json: {e}", file=sys.stderr)
                 return EXIT_ERROR
+            b = budget_for_tenant(budgets, args.tenant)
+            if b is not None and b.max_pending is not None:
+                mine = q.pending_for_tenant(args.tenant, stop_at=b.max_pending)
+                if mine >= b.max_pending:
+                    print(f"error: tenant {args.tenant!r} at max_pending={b.max_pending} "
+                          f"({mine} queued) — drain or raise the cap in tenants.json",
+                          file=sys.stderr)
+                    return EXIT_ERROR
         kernel_source = "emitted" if args.emitted else "hand" if args.hand else "auto"
         try:
             # transient queue-dir errors are retried with bounded backoff
             # inside JobQueue.submit; only a persistent failure lands here
-            spec = q.submit(cfg_text, module, tenant=args.tenant, cfg_path=args.cfg,
-                            kernel_source=kernel_source, max_depth=args.max_depth,
-                            max_states=args.max_states, fault=args.fault)
+            spec = (router or q).submit(cfg_text, module, tenant=args.tenant,
+                                        cfg_path=args.cfg, kernel_source=kernel_source,
+                                        max_depth=args.max_depth,
+                                        max_states=args.max_states, fault=args.fault)
         except OSError as e:
-            print(f"error: cannot publish job to {q.dir!r} after retries: {e}",
+            where = router.dir if router is not None else q.dir
+            print(f"error: cannot publish job to {where!r} after retries: {e}",
                   file=sys.stderr)
             return EXIT_ERROR
+        except RuntimeError as e:
+            # AdmissionDenied: the router's fleet-wide tenant cap
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        where = (f"host{spec['host']} ({router.hosts[spec['host']]})"
+                 if router is not None else q.dir)
         if args.json and not args.wait:
-            print(json.dumps({"job_id": spec["job_id"], "service_dir": q.dir}))
+            out = {"job_id": spec["job_id"]}
+            if router is not None:
+                out["host"] = spec["host"]
+                out["service_dir"] = router.hosts[spec["host"]]
+            else:
+                out["service_dir"] = q.dir
+            print(json.dumps(out))
         else:
-            print(f"submitted {spec['job_id']} (tenant {args.tenant}) -> {q.dir}",
+            print(f"submitted {spec['job_id']} (tenant {args.tenant}) -> {where}",
                   file=sys.stderr)
         if not args.wait:
             if not args.json:
                 print(spec["job_id"])
             return 0
-        rec = q.wait_result(spec["job_id"], timeout=args.timeout)
+        rec = (router or q).wait_result(spec["job_id"], timeout=args.timeout)
         if rec is None:
+            hint = (f"`cli route {router.dir} --status`" if router is not None
+                    else f"`cli serve {q.dir}`")
             print(f"error: no verdict for {spec['job_id']} within {args.timeout}s "
-                  f"(is the daemon up?  `cli serve {q.dir}`)", file=sys.stderr)
+                  f"(is the daemon up?  {hint})", file=sys.stderr)
             return EXIT_ERROR
         print(json.dumps(rec) if args.json else render_verdict(rec))
         return verdict_exit_code(rec)
 
     if args.cmd == "status":
         if args.job_id is None:
-            ov = q.overview()
+            ov = (router or q).overview()
             if args.json:
                 print(json.dumps(ov))
+            elif router is not None:
+                print(f"router {ov['dir']}: {len(ov['hosts'])} hosts, "
+                      f"{ov['routes']} routed jobs")
+                for h in ov["hosts"]:
+                    print(f"  host{h['host']} [{h['state']:>6}] {h['dir']}: "
+                          f"{h['pending']} pending, {h['claimed']} in flight")
             else:
                 c = ov["counts"]
                 print(f"service {ov['dir']}: {c['pending']} pending, "
@@ -771,11 +847,13 @@ def _run_service_client(args) -> int:
                     rec = q.result(jid) or {}
                     print(f"  {jid}  {rec.get('status', '?')}")
             return 0
-        st = q.status(args.job_id)
+        st = (router or q).status(args.job_id)
         if args.json:
             print(json.dumps(st))
         else:
             line = f"{st['job_id']}: {st['state']}"
+            if st.get("host") is not None:
+                line += f" @ host{st['host']}"
             rec = st.get("result")
             if rec:
                 line += f" ({rec.get('status', '?')})"
@@ -783,14 +861,305 @@ def _run_service_client(args) -> int:
         return 0 if st["state"] != "unknown" else 1
 
     # result
-    rec = (q.wait_result(args.job_id, timeout=args.timeout) if args.wait
-           else q.result(args.job_id))
+    rec = ((router or q).wait_result(args.job_id, timeout=args.timeout) if args.wait
+           else (router or q).result(args.job_id))
     if rec is None:
         print(f"error: no verdict for {args.job_id}"
               + ("" if args.wait else " (yet — use --wait)"), file=sys.stderr)
         return EXIT_ERROR
     print(json.dumps(rec) if args.json else render_verdict(rec))
     return verdict_exit_code(rec)
+
+
+def _serve_fleet(args) -> int:
+    """`serve-fleet`: the torch-free fleet parent over N `cli serve`
+    children (service/fleet.py).  The device flags pass through."""
+    from .service.fleet import FleetServeConfig, serve_fleet_daemons
+
+    serve_args = [
+        "--min-bucket", str(args.min_bucket),
+        "--chunk-size", str(args.chunk_size),
+        "--visited-backend", args.visited_backend,
+        "--cache-entries", str(args.cache_entries),
+    ]
+    if args.no_batching:
+        serve_args.append("--no-batching")
+    if args.no_state_cache:
+        serve_args.append("--no-state-cache")
+    if args.cpu:
+        serve_args.append("--cpu")
+    elif args.device:
+        serve_args += ["--device", args.device]
+    daemons = max(1, args.daemons)
+    return serve_fleet_daemons(FleetServeConfig(
+        service_dir=_service_dir(args.service_dir),
+        daemons=daemons,
+        min_daemons=daemons if args.min_daemons is None else max(1, args.min_daemons),
+        max_daemons=args.max_daemons,
+        poll_s=args.poll,
+        stall_timeout=args.stall_timeout,
+        max_restarts=args.max_restarts,
+        backoff_base=args.backoff_base,
+        scale_interval_s=args.scale_interval,
+        scale_up_pending=args.scale_up_pending,
+        scale_down_idle_s=args.scale_down_idle,
+        serve_args=tuple(serve_args),
+        state_cache_dir=args.state_cache_dir,
+        host_instance=args.host_instance,
+    ))
+
+
+def _run_router(args) -> int:
+    """`cli route`: cross-host placement and dead-host recovery, torch-free
+    (it runs on the operator's box, often while a host is down)."""
+    from .service.router import Router
+
+    try:
+        router = Router(args.router_dir, hosts=args.hosts, dead_after_s=args.dead_after)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+
+    if args.status:
+        ov = router.overview()
+        if args.json:
+            print(json.dumps(ov))
+        else:
+            print(f"router {ov['dir']}: {len(ov['hosts'])} hosts, "
+                  f"{ov['routes']} routed jobs, dead after "
+                  f"{ov['dead_after_s']}s (+{ov['clock_skew_s']}s skew)")
+            for h in ov["hosts"]:
+                age = h["hb_age_s"]
+                age_s = "never" if age is None else f"{age:.1f}s ago"
+                print(f"  host{h['host']} [{h['state']:>6}] {h['dir']}: "
+                      f"{h['pending']} pending, {h['claimed']} in flight, "
+                      f"heartbeat {age_s}")
+        return 0
+
+    if args.once:
+        out = router.sweep()
+        if args.json:
+            print(json.dumps(out))
+        else:
+            dead = [h["host"] for h in out["hosts"] if h["state"] == "dead"]
+            took = sum(len(v) for v in out["takeover"].values())
+            moved = sum(len(v) for v in out["rerouted"].values())
+            print(f"sweep: {len(dead)} dead hosts"
+                  + (f" ({', '.join(f'host{i}' for i in dead)})" if dead else "")
+                  + f", {took} claims taken over, {moved} pending jobs re-routed")
+        return 0
+
+    print(f"router serving {len(router.hosts)} hosts from {router.dir} "
+          f"(poll {args.poll}s)", file=sys.stderr)
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: router.request_stop())
+    try:
+        router.serve(poll_s=args.poll)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_fleet_obs(args) -> int:
+    """`cli trace|top|fleet-report`: the fleet trace plane's read side
+    (obs/fleettrace.py), torch-free: everything renders from side-channel
+    files."""
+    import time
+
+    from .obs import fleettrace as ft
+
+    router_dir = getattr(args, "router", None)
+    if router_dir:
+        from .service.router import Router
+
+        try:
+            router = Router(router_dir)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        roots = [router.dir] + [q.dir for q in router.queues]
+        host_roots = [q.dir for q in router.queues]
+    else:
+        host_roots = [os.path.normpath(d)
+                      for d in (getattr(args, "service_dir", None) or [_service_dir(None)])]
+        roots = host_roots
+
+    if args.cmd == "trace":
+        recs = ft.load_trace(roots, args.job_id)
+        if not recs:
+            print(f"no trace for job {args.job_id} under " + ", ".join(roots),
+                  file=sys.stderr)
+            return 1
+        data = ft.assemble(recs, job_id=args.job_id)
+        print(json.dumps(data, default=str) if args.json else ft.render_trace(data))
+        return 0
+
+    if args.cmd == "fleet-report":
+        data = ft.fleet_report_data(roots, exemplars=args.exemplars)
+        print(json.dumps(data, default=str) if args.json
+              else ft.render_fleet_report(data))
+        return 0
+
+    # top: one frame under --once/--json, else redraw until interrupted
+    if args.json:
+        print(json.dumps(ft.top_data(host_roots, router_dir=router_dir), default=str))
+        return 0
+    try:
+        while True:
+            frame = ft.render_top(ft.top_data(host_roots, router_dir=router_dir))
+            if args.once:
+                print(frame)
+                return 0
+            # whole-frame redraw: clear + home, then the frame
+            sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+            sys.stdout.flush()
+            time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _run_sweep(args) -> int:
+    """`cli sweep plan|run|report|bisect` (sweep/): a queue/router client;
+    the daemons do the engine work.  Only `plan` imports torch (its
+    vacuity pass, on the CPU)."""
+    from .sweep.lattice import load_lattice
+    from .sweep.portfolio import SweepConfig, load_manifest
+
+    if args.sweep_cmd == "plan":
+        from .sweep.portfolio import plan_sweep
+
+        try:
+            lattice = load_lattice(args.lattice)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        cfg = SweepConfig(
+            sweep_dir=".",  # plan never writes
+            service_dir=_service_dir(getattr(args, "service_dir", None)),
+            state_cache_dir=args.state_cache_dir,
+        )
+        plan = plan_sweep(lattice, cfg)
+        if args.json:
+            print(json.dumps({
+                "lattice": lattice.record(),
+                "points": len(plan["points"]),
+                "runnable": len(plan["runnable"]),
+                "deferred": len(plan["deferred"]),
+                "skipped": [{"point": p.record(), "findings": p.vacuous}
+                            for p in plan["skipped"]],
+                "cost_model": plan["model"].to_dict(),
+                "predictions": plan["predictions"],
+            }))
+            return 0
+        m = plan["model"]
+        total_states = sum(plan["predictions"][p.point_id]["states"]
+                           for p in plan["runnable"] + plan["deferred"])
+        total_s = sum(plan["predictions"][p.point_id]["seconds"] or 0.0
+                      for p in plan["runnable"] + plan["deferred"])
+        print(f"lattice {lattice.name}: {len(plan['points'])} points "
+              f"({len(plan['runnable'])} runnable, "
+              f"{len(plan['deferred'])} deferred, "
+              f"{len(plan['skipped'])} skipped as statically vacuous)")
+        print(f"cost model: {m.n_records} corpus records, predicted "
+              f"~{total_states} states, ~{total_s:.1f}s engine wall "
+              "(flat-throughput; honesty limits in docs/sweep.md)")
+        for p in plan["skipped"][:8]:
+            acts = ", ".join(f.get("target", "?") for f in p.vacuous[:3])
+            print(f"  skipped: vacuous {dict(p.coords)} [{acts}]")
+        if len(plan["skipped"]) > 8:
+            print(f"  ... and {len(plan['skipped']) - 8} more")
+        return 0
+
+    if args.sweep_cmd == "run":
+        from .sweep.portfolio import run_sweep
+
+        try:
+            lattice = load_lattice(args.lattice)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        cfg = SweepConfig(
+            sweep_dir=args.sweep_dir,
+            service_dir=None if args.router else _service_dir(args.service_dir),
+            router_dir=args.router,
+            tenant=args.tenant,
+            max_inflight=args.max_inflight,
+            solo_threshold_states=args.solo_threshold,
+            wait_timeout_s=args.timeout,
+            state_cache_dir=args.state_cache_dir,
+        )
+        rec = run_sweep(lattice, cfg, log=lambda s: print(s))
+        if args.json:
+            print(json.dumps(rec))
+        incomplete = sum(1 for row in rec["points"].values()
+                         if row.get("status") in ("pending", "submitted"))
+        errors = sum(1 for row in rec["points"].values() if row.get("status") == "error")
+        return 1 if errors else (EXIT_RESOURCE_EXHAUSTED if incomplete else 0)
+
+    if args.sweep_cmd == "report":
+        from .obs.report import render_sweep_report, sweep_report_data
+
+        try:
+            data = sweep_report_data(args.sweep_dir)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return EXIT_ERROR
+        print(json.dumps(data) if args.json else render_sweep_report(data))
+        return 0
+
+    # bisect: witness the frontier (runs neighbors through the service)
+    from .sweep.bisect import refine_frontier
+    from .sweep.lattice import enumerate_points
+    from .sweep.portfolio import Dispatcher
+
+    try:
+        man = load_manifest(args.sweep_dir)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    if args.service_dir or args.router:
+        dispatch = Dispatcher(SweepConfig(
+            sweep_dir=args.sweep_dir,
+            service_dir=None if args.router else _service_dir(args.service_dir),
+            router_dir=args.router,
+            tenant=args.tenant,
+        ))
+
+        def runner(coords):
+            # synthesize the probe point by re-enumerating the lattice
+            # restricted to these coordinates: the same canonical keys,
+            # so the probe may itself be a state-cache hit
+            want = dict(coords)
+            for p in enumerate_points(load_lattice(dict(man["lattice"]))):
+                if dict(p.coords) == want:
+                    jid = (f"probe-{man['sweep_id']}-"
+                           f"{p.point_id.replace(':', '-')}-{os.urandom(2).hex()}")
+                    dispatch.submit(p, jid, solo=True)
+                    return dispatch.backend.wait_result(jid, timeout=args.timeout) or {}
+            return {}
+    else:
+
+        def runner(coords):
+            return {}  # manifest-only mode: unknown neighbors stay unrun
+
+    out = refine_frontier(man, runner, log=lambda s: print(s, file=sys.stderr),
+                          invariant=args.invariant, max_probes=args.max_probes)
+    if args.json:
+        print(json.dumps(out))
+        return 0
+    if not out:
+        print("no violating points in the manifest — nothing to bisect")
+        return 0
+    for inv in sorted(out):
+        rep = out[inv]
+        print(f"{inv}: frontier of {len(rep['frontier'])} minimal "
+              f"violating configs ({len(rep['witnesses'])} neighbors "
+              f"witnessed, {len(rep['demoted'])} claims demoted)")
+        for r in rep["frontier"]:
+            coords = r.get("coords")
+            print(f"  {dict(coords) if coords else r.get('_indices')}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1118,8 +1487,11 @@ def main(argv=None) -> int:
     psub.add_argument("cfg")
     psub.add_argument("--module", help="TLA+ module (default: cfg stem)")
     psub.add_argument("--service-dir", help=svc_help)
-    psub.add_argument("--router", metavar="DIR",
-                      help="submit through a routed fleet's directory (not ported: refused)")
+    psub.add_argument(
+        "--router", metavar="DIR",
+        help="submit through a cross-host router directory (`cli route`) instead "
+        "of a single service dir: the router places the job on the healthiest "
+        "live host and enforces the tenant's max_pending cap fleet-wide")
     psub.add_argument("--tenant", default="default")
     psub.add_argument("--max-depth", type=int)
     psub.add_argument("--max-states", type=int)
@@ -1144,8 +1516,10 @@ def main(argv=None) -> int:
     )
     pst.add_argument("job_id", nargs="?")
     pst.add_argument("--service-dir", help=svc_help)
-    pst.add_argument("--router", metavar="DIR",
-                     help="resolve the job through a routed fleet (not ported: refused)")
+    pst.add_argument(
+        "--router", metavar="DIR",
+        help="resolve the job through a router directory (locates the host it "
+        "was routed to, following reroutes)")
     pst.add_argument("--json", action="store_true")
 
     pres = sub.add_parser(
@@ -1155,11 +1529,215 @@ def main(argv=None) -> int:
     )
     pres.add_argument("job_id")
     pres.add_argument("--service-dir", help=svc_help)
-    pres.add_argument("--router", metavar="DIR",
-                      help="fetch the verdict through a routed fleet (not ported: refused)")
+    pres.add_argument(
+        "--router", metavar="DIR",
+        help="fetch the verdict through a router directory (the routed host "
+        "first, then every host: a rerouted job's verdict is found wherever it "
+        "landed)")
     pres.add_argument("--wait", action="store_true", help="block until the verdict exists")
     pres.add_argument("--timeout", type=float, default=300.0)
     pres.add_argument("--json", action="store_true")
+
+    pfleet = sub.add_parser(
+        "serve-fleet",
+        help="run an N-daemon serving fleet over one service directory: "
+        "per-daemon heartbeat supervision (death/wedge/rc-75/rc-76 taxonomy, "
+        "bounded jittered restarts), queue-depth autoscaling between "
+        "--min/--max with graceful drain, lease-based takeover of a dead or "
+        "wedged daemon's claims.  The parent never imports torch; each daemon "
+        "runs on the card unless --cpu",
+    )
+    pfleet.add_argument("service_dir", nargs="?", help=svc_help)
+    pfleet.add_argument("--daemons", type=int, default=2,
+                        help="initial fleet size (default 2)")
+    pfleet.add_argument("--min", type=int, default=None, dest="min_daemons",
+                        help="autoscale floor (default: --daemons)")
+    pfleet.add_argument("--max", type=int, default=None, dest="max_daemons",
+                        help="autoscale ceiling (default: --daemons)")
+    pfleet.add_argument("--poll", type=float, default=0.5)
+    pfleet.add_argument(
+        "--stall-timeout", type=float, default=120.0,
+        help="kill + restart a daemon whose own heartbeat file freezes for this "
+        "long (an idle daemon still ticks every few seconds, so frozen means "
+        "wedged; default 120)",
+    )
+    pfleet.add_argument("--max-restarts", type=int, default=8,
+                        help="per-daemon restart budget (default 8)")
+    pfleet.add_argument("--backoff-base", type=float, default=1.0)
+    pfleet.add_argument("--scale-up-pending", type=int, default=4,
+                        help="pending jobs per live daemon that triggers a "
+                        "scale-up (default 4)")
+    pfleet.add_argument("--scale-interval", type=float, default=5.0)
+    pfleet.add_argument(
+        "--scale-down-idle", type=float, default=60.0,
+        help="seconds of empty queue before one daemon is gracefully drained "
+        "(finishes claimed jobs, takes no new ones, exits 0; default 60)",
+    )
+    pfleet.add_argument("--min-bucket", type=int, default=256)
+    pfleet.add_argument("--chunk-size", type=int, default=32768)
+    pfleet.add_argument("--visited-backend", choices=list(VISITED_BACKENDS),
+                        default="device")
+    pfleet.add_argument("--no-batching", action="store_true")
+    pfleet.add_argument("--cache-entries", type=int, default=32)
+    pfleet.add_argument("--no-state-cache", action="store_true")
+    pfleet.add_argument(
+        "--state-cache-dir", metavar="DIR",
+        help="shared state-space cache root for every daemon (see `serve "
+        "--state-cache-dir`; point several hosts' fleets at one directory to "
+        "federate the cache)",
+    )
+    pfleet.add_argument(
+        "--host-instance", type=int, metavar="I",
+        help="this fleet's host index in a cross-host deployment (exported as "
+        "KSPEC_HOST_INSTANCE to every daemon; scopes host-targeted faults like "
+        "kill@host<i> and skew@host<i>)",
+    )
+    pfleet.add_argument("--cpu", action="store_true",
+                        help="run every daemon on the CPU (the same as --device cpu)")
+    pfleet.add_argument("--device", default=None,
+                        help="torch device for every daemon (default: the card, cuda)")
+
+    proute = sub.add_parser(
+        "route",
+        help="run the cross-host router over N per-host service directories: "
+        "health-aware placement (heartbeat freshness, queue depth), fleet-wide "
+        "tenant admission, dead-host detection with exactly-once re-routing of "
+        "pending jobs to survivors; never imports torch",
+    )
+    proute.add_argument("router_dir",
+                        help="router state directory (created on first run; holds "
+                        "router.json, route records, and the router event log)")
+    proute.add_argument("--hosts", nargs="+", metavar="DIR",
+                        help="per-host service directories to front (required on "
+                        "first run; persisted in router.json and optional afterwards)")
+    proute.add_argument("--dead-after", type=float, default=None,
+                        help="seconds without a daemon heartbeat before a host is "
+                        "declared dead and its pending jobs re-route (default 30; "
+                        "the comparison tolerates KSPEC_CLOCK_SKEW)")
+    proute.add_argument("--poll", type=float, default=1.0,
+                        help="sweep interval seconds (default 1.0)")
+    proute.add_argument("--once", action="store_true",
+                        help="run a single sweep (takeover + re-route pass) and exit")
+    proute.add_argument("--status", action="store_true",
+                        help="print per-host health and queue depths, run no sweep")
+    proute.add_argument("--json", action="store_true")
+
+    ptr = sub.add_parser(
+        "trace",
+        help="render one job's fleet-wide trace (submit -> placement -> claim "
+        "-> run -> publish) as a skew-normalized cross-host span waterfall with "
+        "the typed stage decomposition; never imports torch",
+    )
+    ptr.add_argument("job_id")
+    ptr.add_argument("--service-dir", action="append", metavar="DIR",
+                     help="service root(s) whose traces/ to read (repeatable; "
+                     "default: $KSPEC_SERVICE_DIR or ./service)")
+    ptr.add_argument("--router", metavar="DIR",
+                     help="read the router dir's traces/ plus every fronted host's "
+                     "(a re-routed job's spans live on both sides)")
+    ptr.add_argument("--json", action="store_true")
+
+    ptop = sub.add_parser(
+        "top",
+        help="live fleet view from on-disk state only: queue depths, daemon "
+        "heartbeats, per-stage p50/p95, cache hit ratio, sweep progress; never "
+        "imports torch",
+    )
+    ptop.add_argument("--service-dir", action="append", metavar="DIR",
+                      help="service root(s) to watch (repeatable)")
+    ptop.add_argument("--router", metavar="DIR",
+                      help="watch every host behind a router directory")
+    ptop.add_argument("--once", action="store_true", help="print one frame and exit")
+    ptop.add_argument("--interval", type=float, default=2.0,
+                      help="refresh seconds (default 2.0)")
+    ptop.add_argument("--json", action="store_true",
+                      help="print one JSON frame and exit (implies --once)")
+
+    pfr = sub.add_parser(
+        "fleet-report",
+        help="SLO artifact over every completed trace: per-stage latency "
+        "percentiles (p50/p95), cache hit ratio, slowest-job exemplars, chaos "
+        "annotations (re-routes, requeues); never imports torch",
+    )
+    pfr.add_argument("--service-dir", action="append", metavar="DIR",
+                     help="service root(s) whose traces/ to aggregate")
+    pfr.add_argument("--router", metavar="DIR",
+                     help="aggregate the router dir plus every fronted host")
+    pfr.add_argument("--exemplars", type=int, default=5,
+                     help="slowest-job exemplar count (default 5)")
+    pfr.add_argument("--json", action="store_true")
+
+    psw = sub.add_parser(
+        "sweep",
+        help="coverage sweeps over a config lattice (kspec-sweep-lattice/1): "
+        "enumerate canonical points, skip statically-vacuous configs, predict "
+        "cost from the standing corpus, schedule the portfolio through the "
+        "service queue or a router (cheap points batch, expensive points run "
+        "solo, repeats are cache hits), and report coverage / violation "
+        "frontiers / scaling laws",
+    )
+    swsub = psw.add_subparsers(dest="sweep_cmd", required=True)
+    swp = swsub.add_parser(
+        "plan",
+        help="enumerate + annotate + predict, dispatch nothing (the vacuity "
+        "pass runs the interval analyser on the CPU)",
+    )
+    swp.add_argument("lattice", help="kspec-sweep-lattice/1 JSON file")
+    swp.add_argument("--state-cache-dir", metavar="DIR",
+                     help="corpus root for the cost-model fit (default: "
+                     "$KSPEC_STATE_CACHE_DIR or <service>/state-cache)")
+    swp.add_argument("--service-dir", help=svc_help)
+    swp.add_argument("--json", action="store_true")
+    swr = swsub.add_parser(
+        "run",
+        help="run (or crash-resume: only incomplete points re-submit) one sweep "
+        "to completion against a live daemon/fleet; the durable kspec-sweep/1 "
+        "manifest lands in --sweep-dir",
+    )
+    swr.add_argument("lattice", help="kspec-sweep-lattice/1 JSON file")
+    swr.add_argument("--sweep-dir", required=True,
+                     help="sweep state directory (sweep.json manifest; reuse to "
+                     "crash-resume, use a fresh one to re-run)")
+    swr.add_argument("--service-dir", help=svc_help)
+    swr.add_argument("--router", metavar="DIR",
+                     help="dispatch through a cross-host router directory instead "
+                     "of one service dir")
+    swr.add_argument("--tenant", default="sweep")
+    swr.add_argument("--max-inflight", type=int, default=64,
+                     help="portfolio submit-window width (default 64; clamped "
+                     "under the tenant's max_pending cap)")
+    swr.add_argument("--solo-threshold", type=int, default=200_000,
+                     help="predicted distinct-states at/past which a point submits "
+                     "solo instead of joining a batched group (default 200000)")
+    swr.add_argument("--timeout", type=float, default=900.0,
+                     help="give up after this many seconds without a verdict "
+                     "landing (default 900; resume later)")
+    swr.add_argument("--state-cache-dir", metavar="DIR")
+    swr.add_argument("--json", action="store_true", help="print the final manifest record")
+    swrep = swsub.add_parser(
+        "report",
+        help="render a sweep directory's manifest: coverage, the typed "
+        "vacuous-skip rows, the minimal-violating-config frontier per "
+        "invariant, scaling-law curves, estimator accuracy",
+    )
+    swrep.add_argument("sweep_dir")
+    swrep.add_argument("--json", action="store_true")
+    swb = swsub.add_parser(
+        "bisect",
+        help="witness the minimal-violating-config frontier: check every "
+        "frontier point's lower neighbors from the manifest, and (with "
+        "--service-dir/--router) run the neighbors the sweep never ran",
+    )
+    swb.add_argument("sweep_dir")
+    swb.add_argument("--invariant", help="restrict to one invariant")
+    swb.add_argument("--service-dir", help=svc_help)
+    swb.add_argument("--router", metavar="DIR")
+    swb.add_argument("--tenant", default="sweep")
+    swb.add_argument("--max-probes", type=int, default=64,
+                     help="budget of neighbor runs (default 64)")
+    swb.add_argument("--timeout", type=float, default=300.0,
+                     help="per-probe verdict timeout (default 300)")
+    swb.add_argument("--json", action="store_true")
     if argv is None:
         argv = sys.argv[1:]
     args = p.parse_args(argv)
@@ -1169,6 +1747,14 @@ def main(argv=None) -> int:
         return _run_service_client(args)
     if args.cmd == "serve":
         return _serve(args, argv)
+    if args.cmd == "serve-fleet":
+        return _serve_fleet(args)
+    if args.cmd == "route":
+        return _run_router(args)
+    if args.cmd in ("trace", "top", "fleet-report"):
+        return _run_fleet_obs(args)
+    if args.cmd == "sweep":
+        return _run_sweep(args)
     if args.cmd == "oracle":
         return _oracle(args)
     if args.cmd == "pipelines":

@@ -12,6 +12,11 @@ loss publishing an empty manifest mints a new run_id on reopen).
 ``fsync=False`` is for scrape artifacts; the parent-dir fsync is tied to
 the same flag.
 
+``tmp_nonce`` privatises the tmp name (``path.<nonce>.tmp``) for writers
+that race each other to the same final path (router route records, sweep
+manifests): with the shared ``path.tmp`` one racer could replace or unlink
+the other's half-written tmp.  Nonce'd names still match ``sweep_tmp``.
+
 Stdlib only.
 """
 
@@ -23,7 +28,8 @@ import os
 from .. import durable_io as _dio
 
 
-def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
+def atomic_write_text(path: str, text: str, fsync: bool = True,
+                      tmp_nonce: str = None) -> None:
     """Publish ``text`` at ``path`` atomically (tmp + replace + dir
     fsync).
 
@@ -31,7 +37,7 @@ def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
     failed write (ENOSPC mid-dump, KeyboardInterrupt) never leaves a
     stray ``.tmp`` behind; with ``fsync=True`` the publish survives a
     power loss (data fsync before the promote, directory fsync after)."""
-    tmp = path + ".tmp"
+    tmp = path + ".tmp" if tmp_nonce is None else f"{path}.{tmp_nonce}.tmp"
     try:
         with open(tmp, "w") as fh:
             fh.write(text)
@@ -49,7 +55,9 @@ def atomic_write_text(path: str, text: str, fsync: bool = True) -> None:
         _dio.fsync_dir(os.path.dirname(path))
 
 
-def atomic_write_json(path: str, obj: dict, fsync: bool = True) -> None:
+def atomic_write_json(path: str, obj: dict, fsync: bool = True,
+                      tmp_nonce: str = None) -> None:
     """Publish ``obj`` as JSON at ``path`` atomically (and durably, unless
     ``fsync=False``)."""
-    atomic_write_text(path, json.dumps(obj, indent=1, default=str), fsync=fsync)
+    atomic_write_text(path, json.dumps(obj, indent=1, default=str), fsync=fsync,
+                      tmp_nonce=tmp_nonce)

@@ -49,8 +49,13 @@ def _key(name: str, labels: dict) -> str:
 
 
 class MetricsRegistry:
-    def __init__(self, run_id: str = ""):
+    def __init__(self, run_id: str = "",
+                 const_labels: Optional[dict] = None):
+        """``const_labels`` ride on every exported sample beside ``run_id``:
+        the serving daemon stamps ``instance``/``host``, so N fleet daemons'
+        scraped series never collide on one name."""
         self.run_id = run_id
+        self.const_labels = dict(const_labels or {})
         self.counters: dict = {}
         self.gauges: dict = {}
         self.hists: dict = {}  # name -> {buckets, counts[], sum, count}
@@ -110,13 +115,19 @@ class MetricsRegistry:
 
     def write_jsonl(self, path: str) -> None:
         rec = heartbeat_record("metrics", run_id=self.run_id,
+                               **({"labels": self.const_labels}
+                                  if self.const_labels else {}),
                                **self.snapshot())
         _dio.append_text(path, json.dumps(rec) + "\n")
 
     def write_prom(self, path: str) -> None:
         """Atomic Prometheus textfile export (tmp + rename: a scraper
         re-reading the path mid-write never sees a torn file)."""
-        rid = f'run_id="{self.run_id}"'
+        rid = ",".join(
+            [f'run_id="{self.run_id}"']
+            + [f'{k}="{self.const_labels[k]}"'
+               for k in sorted(self.const_labels)]
+        )
         with self._lock:  # consistent copies: no size-change mid-iteration
             counters = dict(self.counters)
             gauges = dict(self.gauges)

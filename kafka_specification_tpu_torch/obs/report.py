@@ -3,8 +3,8 @@
 The port's own copy of the single-run part of
 ``kafka_specification_tpu/obs/report.py``: the same sections, text and
 ``--json`` record, so either package's ``cli report`` renders either
-package's run directory alike.  The router, sweep and host-rollup reports
-are not ported yet.
+package's run directory alike, and so do its router, sweep and
+host-rollup reports (``router_report_data``, ``sweep_report_data``).
 
 Works on any run directory — completed, still live, or crashed mid-level:
 every input is optional and every JSONL stream is read torn-final-line
@@ -252,19 +252,12 @@ def eta(levels: list, window: int = 5) -> dict:
             else 1
         )
         if rate:
-            out["eta_seconds"] = _flat_time_estimate(remaining, rate)
+            from ..sweep.cost import flat_time_estimate
+
+            out["eta_seconds"] = flat_time_estimate(remaining, rate)
     else:
         out["note"] = "frontier not yet decaying; ETA unbounded"
     return out
-
-
-def _flat_time_estimate(states: Optional[float],
-                        states_per_sec: Optional[float]) -> Optional[float]:
-    """The flat-throughput wall estimate (seconds, 1 decimal), the JAX
-    package's ``sweep/cost.py::flat_time_estimate``."""
-    if states is None or not states_per_sec or states_per_sec <= 0:
-        return None
-    return round(float(states) / float(states_per_sec), 1)
 
 
 def _spark(vals: list) -> str:
@@ -650,6 +643,278 @@ def _parse_prom(path: str) -> dict:
     return out
 
 
+# gauges describe the ONE shared queue every daemon of a host sees, so a
+# per-host rollup takes the max across daemons instead of summing
+_ROLLUP_GAUGES = (
+    "kspec_svc_queue_pending",
+    "kspec_svc_queue_claimed",
+)
+
+
+def host_metrics_rollup(service_dir: str) -> dict:
+    """Sum every daemon's ``metrics*.prom`` under one host's service dir
+    (counters summed, shared-queue gauges maxed) — the per-host row of
+    the router report."""
+    try:
+        names = sorted(
+            n for n in os.listdir(service_dir)
+            if n.startswith("metrics") and n.endswith(".prom")
+        )
+    except OSError:
+        names = []
+    rolled: dict = {}
+    for name in names:
+        for key, value in _parse_prom(
+            os.path.join(service_dir, name)
+        ).items():
+            base = key.partition("{")[0]
+            if base in _ROLLUP_GAUGES:
+                rolled[key] = max(rolled.get(key, 0.0), value)
+            else:
+                rolled[key] = rolled.get(key, 0.0) + value
+    return rolled
+
+
+def router_report_data(router_dir: str) -> dict:
+    """The cross-host rollup for a router directory: per-host health +
+    queue depths (the router's own view) joined with each host's summed
+    daemon metrics, plus fleet-wide totals and the router event tally.
+    Torch-free like everything in obs."""
+    from ..service.router import Router
+
+    router = Router(router_dir)
+    data = router.overview()
+    totals: dict = {}
+    for h in data["hosts"]:
+        rolled = host_metrics_rollup(os.path.join(h["dir"], "service"))
+        h["metrics"] = rolled
+        for key, value in rolled.items():
+            # summing is right even for the queue gauges here: across
+            # HOSTS they describe distinct queues
+            totals[key] = totals.get(key, 0.0) + value
+    data["totals"] = totals
+    events: dict = {}
+    for rec in read_jsonl_tolerant(router.events_path):
+        kind = rec.get("event")  # records are kind="router", event=<what>
+        if kind:
+            events[kind] = events.get(kind, 0) + 1
+    data["events"] = events
+    return data
+
+
+def render_router_report(data: dict) -> str:
+    out = [
+        f"Router {data['dir']}: {len(data['hosts'])} hosts, "
+        f"{data['routes']} routed jobs, dead after "
+        f"{data['dead_after_s']}s (+{data['clock_skew_s']}s skew "
+        "allowance)"
+    ]
+    for h in data["hosts"]:
+        age = h["hb_age_s"]
+        m = h.get("metrics") or {}
+        jobs = sum(
+            v for k, v in m.items()
+            if k.startswith("kspec_svc_jobs_total")
+        )
+        hits = m.get("kspec_svc_state_cache_hits_total", 0)
+        falls = m.get("kspec_svc_state_cache_fallbacks_total", 0)
+        out.append(
+            f"  host{h['host']} [{h['state']:>6}] {h['dir']}: "
+            f"{h['pending']} pending, {h['claimed']} in flight, "
+            f"{jobs:.0f} verdicts, cache {hits:.0f} hits/"
+            f"{falls:.0f} fallbacks, heartbeat "
+            + ("never" if age is None else f"{age:.1f}s ago")
+        )
+    ev = data.get("events") or {}
+    if ev:
+        out.append(
+            "  router events: "
+            + ", ".join(f"{k}={ev[k]}" for k in sorted(ev))
+        )
+    t = data.get("totals") or {}
+    done = sum(
+        v for k, v in t.items() if k.startswith("kspec_svc_jobs_total")
+    )
+    out.append(
+        f"  fleet totals: {done:.0f} verdicts, "
+        f"{t.get('kspec_svc_state_cache_hits_total', 0):.0f} cache hits, "
+        f"{t.get('kspec_svc_takeovers_total', 0):.0f} takeovers"
+    )
+    return "\n".join(out)
+
+
+def sweep_report_data(sweep_dir: str) -> dict:
+    """The sweep rollup for a sweep directory (``sweep.json``,
+    kspec-sweep/1): coverage, the per-invariant minimal-violating-config
+    frontier, scaling-law curves (states vs axis value), and estimator
+    accuracy.  Torch-free like everything in obs."""
+    from ..sweep.bisect import frontier_from_manifest
+    from ..sweep.portfolio import load_manifest
+
+    man = load_manifest(sweep_dir)
+    points = man.get("points", {})
+    counts = {"done": 0, "skipped": 0, "error": 0, "pending": 0,
+              "submitted": 0, "hit": 0, "seeded": 0, "violations": 0}
+    skipped_rows = []
+    residuals = []
+    ratios = []
+    for row in points.values():
+        st = row.get("status", "pending")
+        counts[st] = counts.get(st, 0) + 1
+        cache = row.get("cache") or {}
+        if cache.get("state_cache") == "hit":
+            counts["hit"] += 1
+        elif cache.get("state_cache") == "seed":
+            counts["seeded"] += 1
+        if (row.get("verdict") or {}).get("violation"):
+            counts["violations"] += 1
+        if st == "skipped":
+            skipped_rows.append({
+                "point_id": row.get("point_id"),
+                "coords": row.get("coords"),
+                "skip": row.get("skip"),
+            })
+        if row.get("residual") is not None:
+            residuals.append(float(row["residual"]))
+            pred = (row.get("predicted") or {}).get("states")
+            act = (row.get("actual") or {}).get("states")
+            if pred and act:
+                ratios.append(act / pred)
+    # scaling laws: for each axis, median states among DONE clean rows
+    # per axis value (in declared order) — the states-vs-config-size
+    # curve the lattice exists to measure
+    curves: dict = {}
+    axis_order: dict = {}
+    for sheet in (man.get("lattice") or {}).get("sheets", []):
+        for axis in sheet.get("axes", []):
+            axis_order.setdefault(axis["name"], list(axis["values"]))
+    for name, values in axis_order.items():
+        per_value: dict = {}
+        for row in points.values():
+            v = row.get("verdict") or {}
+            if row.get("status") != "done" or v.get("violation"):
+                continue
+            if v.get("distinct_states") is None:
+                continue
+            for cname, cval in row.get("coords", []):
+                if cname == name:
+                    key = json.dumps(cval)
+                    per_value.setdefault(key, []).append(
+                        int(v["distinct_states"])
+                    )
+        curve = []
+        for val in values:
+            samples = sorted(per_value.get(json.dumps(val), []))
+            if samples:
+                curve.append({
+                    "value": val,
+                    "median_states": samples[len(samples) // 2],
+                    "n": len(samples),
+                })
+        if len(curve) >= 2:
+            curves[name] = curve
+    acc = None
+    if residuals:
+        mean = sum(residuals) / len(residuals)
+        acc = {
+            "n": len(residuals),
+            "mean_log_residual": round(mean, 3),
+            "mean_abs_log_residual": round(
+                sum(abs(r) for r in residuals) / len(residuals), 3
+            ),
+            # the operator-facing phrasing: actual = predicted * factor
+            "median_actual_over_predicted": round(
+                sorted(ratios)[len(ratios) // 2], 2
+            ) if ratios else None,
+        }
+    return {
+        "dir": sweep_dir,
+        "schema": man.get("schema"),
+        "sweep_id": man.get("sweep_id"),
+        "name": man.get("name"),
+        "points": len(points),
+        "counts": counts,
+        "skipped": skipped_rows,
+        "frontiers": {
+            inv: [
+                {
+                    "point_id": r.get("point_id"),
+                    "coords": r.get("coords"),
+                    "indices": r.get("_indices"),
+                    "depth": (
+                        (r.get("verdict") or {}).get("violation") or {}
+                    ).get("depth"),
+                }
+                for r in rows
+            ]
+            for inv, rows in frontier_from_manifest(man).items()
+        },
+        "curves": curves,
+        "estimator": acc,
+        "cost_model": man.get("cost_model"),
+    }
+
+
+def render_sweep_report(data: dict) -> str:
+    c = data["counts"]
+    out = [
+        f"Sweep {data['name']} ({data['sweep_id']}) — {data['points']} "
+        f"points: {c['done']} done ({c['hit']} cache hits, "
+        f"{c['seeded']} seeded), {c['skipped']} skipped, "
+        f"{c['error']} errors, {c['pending'] + c['submitted']} pending, "
+        f"{c['violations']} violations"
+    ]
+    if data["skipped"]:
+        out.append("  skipped (statically vacuous — auditable, typed):")
+        for row in data["skipped"][:8]:
+            finds = (row.get("skip") or {}).get("findings") or []
+            acts = ", ".join(
+                f.get("target", "?") for f in finds[:3]
+            )
+            out.append(
+                f"    {dict(row.get('coords') or [])}: "
+                f"skipped: vacuous [{acts}]"
+            )
+        if len(data["skipped"]) > 8:
+            out.append(f"    ... and {len(data['skipped']) - 8} more")
+    for inv, rows in sorted((data.get("frontiers") or {}).items()):
+        out.append(f"  minimal violating configs — {inv}:")
+        for r in rows:
+            out.append(
+                f"    {dict(r.get('coords') or [])}"
+                + (
+                    f" (violates at depth {r['depth']})"
+                    if r.get("depth") is not None
+                    else ""
+                )
+            )
+    for name, curve in sorted((data.get("curves") or {}).items()):
+        states = [pt["median_states"] for pt in curve]
+        out.append(
+            f"  scaling law — states vs {name}: "
+            f"{_spark(states)}  "
+            + " ".join(
+                f"{pt['value']}→{pt['median_states']}" for pt in curve
+            )
+        )
+    acc = data.get("estimator")
+    if acc:
+        out.append(
+            f"  estimator: {acc['n']} residuals, mean log error "
+            f"{acc['mean_log_residual']:+.3f} (abs "
+            f"{acc['mean_abs_log_residual']:.3f}), median actual/"
+            f"predicted {acc['median_actual_over_predicted']}"
+        )
+    cm = data.get("cost_model") or {}
+    if cm.get("n_records"):
+        out.append(
+            f"  cost model: fit over {cm['n_records']} corpus records, "
+            f"throughput {cm.get('states_per_sec')}/s, recalibration "
+            f"shift {cm.get('residual_shift', 0):+.3f}"
+        )
+    return "\n".join(out)
+
+
 def _fmt_bytes(n) -> str:
     if n is None:
         return "?"
@@ -669,6 +934,46 @@ def render_report(run_dir: str, now: Optional[float] = None,
     out = []
     v = r["verdict"]
     out.append(f"Run {r['run_id']}  [{v['status'].upper()}]")
+    svc = cfg.get("service") or {}
+    if svc:
+        # checking-as-a-service run: which job/tenant this run served and
+        # whether it rode the warm compile cache / a batched group
+        out.append(
+            "  service: job "
+            + str(svc.get("job_id", "?"))
+            + f"  tenant {svc.get('tenant', '?')}"
+            + (
+                f"  batched x{svc['group_size']}"
+                if svc.get("group_size", 1) > 1
+                else ""
+            )
+            + (
+                "  compile-cache HIT"
+                if svc.get("cache_hit")
+                else "  compile-cache miss (cold shape)"
+            )
+            + (
+                f"  leader run {svc['leader_run_id']}"
+                if svc.get("leader_run_id")
+                else ""
+            )
+            + (
+                "  state-cache SEED"
+                if svc.get("state_cache_seed")
+                else ""
+            )
+        )
+        if svc.get("takeover"):
+            # lease takeover: this run serves a job a DIFFERENT daemon
+            # claimed first and abandoned (died or wedged); the janitor
+            # attribution rides the job spec into the run manifest
+            t = svc["takeover"]
+            out.append(
+                "  takeover: requeued from pid "
+                + str(t.get("from_pid", "?"))
+                + f" ({t.get('reason', '?')})"
+                + f" by janitor pid {t.get('by_pid', '?')}"
+            )
     bits = [
         f"module={cfg.get('module') or cfg.get('model') or '?'}",
         f"engine={cfg.get('engine', '?')}",

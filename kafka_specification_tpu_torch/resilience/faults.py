@@ -3,9 +3,9 @@
 The port's own copy of ``kafka_specification_tpu/resilience/faults.py``.
 It parses the JAX package's whole grammar, token for token, so a plan
 means the same thing to both packages; the port wires the sites of the
-single-device engine, its disk tier and the one-host serving daemon, and
-``check()`` refuses a plan that names any other (``FaultPlan.unwired``:
-the routed fleet's host faults and ``flip@exchange``), never ignoring it:
+single-device engine, its disk tier, the serving daemon and the routed
+fleet's hosts, and ``check()`` refuses a plan that names any other
+(``FaultPlan.unwired``: ``flip@exchange``), never ignoring it:
 
     crash@level:N          raise InjectedCrash at the level-N boundary
     crash@ckpt:N           raise InjectedCrash mid-checkpoint-write at
@@ -53,6 +53,21 @@ arms (a job's ``--fault`` plan reaches only that job's check()):
                            stay leased; the next janitor requeues them)
     stall@daemon<i>        daemon instance i wedges after its next claim
                            sweep (``serve --supervised`` kills it)
+
+and the routed fleet's hosts (``service/router.py``: each host's daemons
+run with ``KSPEC_HOST_INSTANCE=<i>``, so one composed plan drives a whole
+multi-host drill, each fault firing only on its host):
+
+    kill@host<i>:N         kill host i's daemon while it handles its Nth
+                           job, before any verdict (durable once per
+                           service dir, like crash@daemon)
+    partition@host<i>[:N]  host i loses the shared state-cache namespace
+                           for its next N jobs (default 1): lookups degrade
+                           to typed cold runs, publishes are deferred and
+                           re-published when the partition heals
+    skew@host<i>:SECS      shift host i's wall clock by SECS (may be
+                           negative) in the timestamps it writes where
+                           other hosts read them (leases, heartbeats)
 
 Resource faults end in the typed RESOURCE_EXHAUSTED exit (75), bit flips
 in INTEGRITY_VIOLATION (76), crashes in InjectedCrash and an exact resume,
@@ -178,10 +193,12 @@ def list_faults() -> list:
         for k, sites, g, d in FAULT_REGISTRY
     ]
 
-#: the (kind, site) pairs the port wires: its single-device check() and its
-#: serving daemon (the daemon and cache sites, which check() ignores)
+#: the (kind, site) pairs the port wires: its single-device check(), its
+#: serving daemon and the routed fleet's hosts (the daemon, cache and host
+#: sites, which check() ignores)
 WIRED = frozenset({
     ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
+    ("kill", "host"), ("partition", "host"), ("skew", "host"),
     ("crash", "level"), ("crash", "ckpt"), ("crash", "merge"),
     ("corrupt_ckpt", "ckpt"),
     ("enospc", "spill"), ("enospc", "merge"), ("enospc", "ckpt"), ("enospc", "plog"),
@@ -349,9 +366,32 @@ class FaultPlan:
         self.instance = int(instance)
 
     def set_host(self, host: int) -> None:
-        """Record which service host this process serves (the host faults
-        are unwired: a plan naming one is refused before it gets here)."""
+        """Record which service host this process serves (the router's
+        per-host daemons run with ``KSPEC_HOST_INSTANCE=i``):
+        ``kill@host<i>``, ``partition@host<i>`` and ``skew@host<i>`` fire
+        only in host i's processes."""
         self.host = int(host)
+
+    def _host_match(self, s: _Spec) -> bool:
+        return s.host is not None and self.host is not None and s.host == self.host
+
+    def host_kill(self, lo: int, hi: Optional[int] = None) -> None:
+        """Raise InjectedCrash if a `kill@host<i>:N` fault targets this host
+        and job ordinal N is in [lo, hi]: the daemon's hook, beside
+        `daemon_crash`, before any verdict.  The router sees the host's
+        heartbeats go stale and re-routes its pending jobs; leased claims
+        come back through the takeover, so the verdict publishes once."""
+        hi = lo if hi is None else hi
+        for s in self.specs:
+            if s.kind != "kill" or s.budget <= 0 or not self._host_match(s):
+                continue
+            if not lo <= s.arg <= hi:
+                continue
+            s.budget -= 1
+            raise InjectedCrash(
+                f"injected host kill on host {s.host} at job ordinal "
+                f"{int(s.arg)} (KSPEC_FAULT)"
+            )
 
     def daemon_crash(self, lo: int, hi: Optional[int] = None) -> None:
         """Raise InjectedCrash if a `crash@daemon<i>:N` fault targets this
@@ -379,14 +419,23 @@ class FaultPlan:
         return False
 
     def host_partition(self) -> int:
-        """Jobs this host runs cache-partitioned (`partition@host<i>:N`),
-        once, else 0: always 0 in the port, the fault being unwired."""
+        """Jobs this host must run cache-partitioned, once per
+        `partition@host<i>[:N]` fault targeting it, then 0.  The daemon
+        consumes it at a claim sweep: for that many jobs every state-cache
+        lookup degrades to a typed `cache-fallback` cold run and every
+        publish is deferred, re-published on heal."""
         for s in self.specs:
-            if (s.kind == "partition" and s.budget > 0 and self.host is not None
-                    and s.host == self.host):
+            if s.kind == "partition" and s.budget > 0 and self._host_match(s):
                 s.budget -= 1
                 return int(s.arg)
         return 0
+
+    def skew_s(self) -> float:
+        """The wall-clock shift of this host's cross-host-visible stamps;
+        0.0 without a matching `skew@host<i>:SECS`.  Never consumed: a
+        drifted clock drifts for the whole process lifetime."""
+        return sum(float(s.arg) for s in self.specs
+                   if s.kind == "skew" and self._host_match(s))
 
     def set_start_depth(self, depth: int) -> None:
         """Record the depth a resumed run starts from: crash faults at or
@@ -503,12 +552,30 @@ class FaultPlan:
         return False
 
 
+#: injected_skew_s's cache: (KSPEC_FAULT, KSPEC_HOST_INSTANCE) -> seconds.
+#: The lease stamp calls it on every renewal; the pair is fixed for a
+#: process's life and varies only across monkeypatched tests.
+_SKEW_CACHE: dict = {}
+
+
 def injected_skew_s() -> float:
     """The wall-clock shift (seconds) that `skew@host<i>:SECS` injects into
     the timestamps this process writes where other hosts read them (claim
-    leases, heartbeats, fleet-trace stamps): 0.0, the fault being unwired
-    (a plan naming it is refused)."""
-    return 0.0
+    leases, heartbeats, fleet-trace stamps): 0.0 unless KSPEC_FAULT holds a
+    skew fault for this process's KSPEC_HOST_INSTANCE.  Never raises (an
+    unparseable plan is the engine's or the CLI's error to report)."""
+    key = (os.environ.get(ENV_VAR, ""), os.environ.get("KSPEC_HOST_INSTANCE", ""))
+    if key not in _SKEW_CACHE:
+        skew = 0.0
+        if key[0] and key[1]:
+            try:
+                plan = FaultPlan(key[0])
+                plan.set_host(int(key[1]))
+                skew = plan.skew_s()
+            except (ValueError, TypeError):
+                skew = 0.0
+        _SKEW_CACHE[key] = skew
+    return _SKEW_CACHE[key]
 
 
 def corrupt_file(path: str, n_bytes: int = 64) -> None:

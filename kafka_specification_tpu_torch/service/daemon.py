@@ -14,10 +14,11 @@ their first launch, then drains the durable job queue:
 The daemon runs on the card unless ``ServeConfig.device`` says "cpu"; on a
 machine without CUDA it refuses to start (``Daemon`` raises before any
 claim), never answering jobs with error verdicts and never falling back to
-the CPU.  Its own ``$KSPEC_FAULT`` arms the daemon and cache faults
+the CPU.  Its own ``$KSPEC_FAULT`` arms the daemon, cache and host faults
 (``crash@daemon<i>:N``, ``stall@daemon<i>``, ``flip@cache:N``,
-``enospc@cache:N``); a plan naming an unwired site (the routed fleet's
-host faults) is refused at start.  JAX's platform guard, re-exec and XLA
+``enospc@cache:N``, ``kill@host<i>:N``, ``partition@host<i>[:N]``,
+``skew@host<i>:SECS``); a plan naming an unwired site (``flip@exchange``)
+is refused at start.  JAX's platform guard, re-exec and XLA
 compile cache are TPU plumbing with no counterpart here.
 
 Tenancy: each run executes under the job's tenant's ResourceGovernor
@@ -214,9 +215,17 @@ class Daemon:
         self._seeds: dict = {}  # job_id -> engine seed dict (cache delta)
         self._trace_buf: list = []  # solo runs' trace store (publication)
         self._janitor_last = 0.0
-        # metrics identity: the run_id distinguishes daemon instances (the
-        # fleet's per-instance const labels come with the fleet)
-        self.metrics = MetricsRegistry(run_id="service" + self.metrics_suffix)
+        # metrics identity: the run_id distinguishes daemon instances and
+        # the const labels carry instance + host, so N fleet daemons'
+        # scraped series (one metric namespace) never collide
+        labels = {}
+        if self.instance is not None:
+            labels["instance"] = str(self.instance)
+        if os.environ.get("KSPEC_HOST_INSTANCE"):
+            labels["host"] = os.environ["KSPEC_HOST_INSTANCE"]
+        self.metrics = MetricsRegistry(
+            run_id="service" + self.metrics_suffix, const_labels=labels
+        )
         self.jobs_done = 0
         self.groups_run = 0
         self._stop = False
@@ -400,6 +409,20 @@ class Daemon:
                 )
             except InjectedCrash:
                 self._mark_daemon_fault("crash")
+                raise
+        # kill@host<i>:N, the whole-host-death drill (service/router.py):
+        # crash@daemon's firing point and exactly-once story, scoped by
+        # KSPEC_HOST_INSTANCE so one composed plan targets one host of a
+        # routed fleet.  The router sees the host's heartbeats go stale
+        # and re-routes its pending jobs; the leased claims come back
+        # through the takeover protocol.
+        if self._daemon_fault_armed("kill"):
+            try:
+                self.fault.host_kill(
+                    self.jobs_done + 1, self.jobs_done + len(group)
+                )
+            except InjectedCrash:
+                self._mark_daemon_fault("kill")
                 raise
         # the busy-heartbeat window opens BEFORE the model-cache lookup:
         # a cold miss runs build_model + prepare, and without
@@ -1234,6 +1257,13 @@ class Daemon:
         svc = self.queue.service_dir
         sfx = self.metrics_suffix  # per-instance files in a fleet: two
         # daemons must not alternate-overwrite one prom textfile
+        if self.device.type == "cuda":
+            # the port's own gauge (the JAX daemon has no card to report):
+            # this process's peak device memory, a fleet's per-daemon figure
+            import torch
+
+            self.metrics.set_gauge("kspec_svc_device_peak_bytes",
+                                   torch.cuda.max_memory_allocated(self.device))
         try:
             if jsonl:
                 self.metrics.write_jsonl(

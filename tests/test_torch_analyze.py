@@ -91,14 +91,15 @@ def test_port_tree_is_clean(capsys):
     rec = json.loads(out)
     assert rc == 0 and rec["ok"] is True
     assert rec["counts"] == {"HIGH": 0, "MEDIUM": 0, "LOW": 1, "INFO": 0}
-    assert rec["targets"][-1] == "engine sources (ownership + purity)"
+    assert rec["targets"][-2:] == ["engine sources (ownership + purity)",
+                                   "trace vocabulary (obs/fleettrace registries)"]
     assert any(t.startswith("Kip320 (") for t in rec["targets"])
     (low,) = rec["findings"]
     assert (low["kind"], low["data"]) == ("stale-annotation",
                                           {"class": "CheckpointStore", "attr": "ident_aliases"})
     rc, out, _ = port_analyze(capsys, "--no-models")
     assert rc == 0 and out.splitlines()[0] == (
-        "kspec analyze: 1 target(s) — 0 high / 0 medium / 1 low / 0 info")
+        "kspec analyze: 2 target(s) — 0 high / 0 medium / 1 low / 0 info")
     rc, out, _ = port_analyze(capsys, "--no-models", "--no-engine", "--info")
     assert rc == 0 and out.splitlines()[0].startswith("kspec analyze: 0 target(s)")
 

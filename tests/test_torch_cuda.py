@@ -697,3 +697,86 @@ def test_staged_loop_on_the_card_equals_serial(card, backend, tmp_path):
     assert k_on == k_off > 0
     assert r_on.stats["overlap"]["staged_chunks_peak"] == 2
     assert r_off.stats["overlap"]["staged_chunks_peak"] == 0
+
+
+def test_sweep_on_card_equals_cpu_and_repeats_as_hits(card, tmp_path, monkeypatch):
+    """A sweep (sweep/) against an in-process daemon on the card: every row
+    equals the same sweep on the CPU, K1 launches on the cold sweep, and a
+    repeat sweep is all verified cache hits with no launch."""
+    from kafka_specification_tpu_torch.service.daemon import Daemon, ServeConfig
+    from kafka_specification_tpu_torch.sweep import SweepConfig, load_lattice, run_sweep
+
+    monkeypatch.delenv("KSPEC_FAULT", raising=False)
+    thw = (Path(__file__).resolve().parents[1] / "configs"
+           / "KafkaTruncateToHighWatermark.cfg").read_text()
+    lattice = {"schema": "kspec-sweep-lattice/1", "name": "card",
+               "module": "KafkaTruncateToHighWatermark", "cfg_text": thw,
+               "axes": [{"name": "max_depth", "kind": "bound", "values": [4, 8, None]}]}
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        svc = str(tmp_path / dev / "svc")
+        d = Daemon(ServeConfig(svc, device=dev, linger_s=0.0))
+        before = cuda_fingerprint.LAUNCHES
+        rec = run_sweep(load_lattice(lattice), SweepConfig(
+            sweep_dir=str(tmp_path / dev / "sw1"), service_dir=svc, drive=d.drain_once))
+        rows[dev] = {pid: {k: r["verdict"][k] for k in ("distinct_states", "diameter",
+                                                          "violation", "exit_code")}
+                     for pid, r in rec["points"].items()}
+        if dev == "cuda":
+            assert cuda_fingerprint.LAUNCHES > before
+            before = cuda_fingerprint.LAUNCHES
+            rep = run_sweep(load_lattice(lattice), SweepConfig(
+                sweep_dir=str(tmp_path / dev / "sw2"), service_dir=svc, drive=d.drain_once))
+            assert [(r.get("cache") or {}).get("state_cache")
+                    for r in rep["points"].values()] == ["hit"] * 3
+            assert cuda_fingerprint.LAUNCHES == before
+    assert rows["cuda"] == rows["cpu"]
+
+
+def test_serve_fleet_on_card_finishes_a_crashed_job_once(card, tmp_path):
+    """`cli serve-fleet --daemons 2` on the card with crash@daemon0:1 and
+    crash@daemon1:1: the crashed slots restart and the Kip320 2r job is
+    finished exactly once; SIGTERM stops the fleet with exit 0."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from kafka_specification_tpu_torch.service.queue import JobQueue
+
+    repo = Path(__file__).resolve().parents[1]
+    svc = str(tmp_path / "svc")
+    q = JobQueue(svc)
+    cfg = (repo / "configs" / "Kip320.cfg").read_text().replace(
+        "Replicas = {b1, b2, b3}", "Replicas = {b1, b2}")
+    job = q.submit(cfg, "Kip320")["job_id"]
+    env = {**os.environ, "PYTHONPATH": str(repo),
+           "KSPEC_FAULT": "crash@daemon0:1,crash@daemon1:1"}
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "kafka_specification_tpu_torch.cli", "serve-fleet", svc,
+         "--daemons", "2", "--backoff-base", "0.5", "--poll", "0.2"],
+        cwd=repo, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        deadline = time.monotonic() + 240
+        while q.result(job) is None and time.monotonic() < deadline:
+            time.sleep(0.5)
+        fleet.send_signal(signal.SIGTERM)
+        assert fleet.wait(timeout=60) == 0
+    finally:
+        if fleet.poll() is None:
+            os.killpg(fleet.pid, signal.SIGKILL)
+        fleet.communicate()
+    rec = q.result(job)
+    assert rec is not None and rec["exit_code"] == 0
+    events = [json.loads(line) for line in open(os.path.join(svc, "service",
+                                                             "fleet-events.jsonl"))]
+    assert any(e["event"] == "daemon-restart" and e["why"] == "crash" for e in events)
+    assert len([n for n in os.listdir(os.path.join(svc, "results"))
+                if n.endswith(".json")]) == 1
+    # each daemon on the card reports its peak device memory
+    proms = [open(os.path.join(svc, "service", n)).read()
+             for n in os.listdir(os.path.join(svc, "service")) if n.endswith(".prom")]
+    assert proms and all("kspec_svc_device_peak_bytes" in p for p in proms)

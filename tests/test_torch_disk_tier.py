@@ -286,9 +286,9 @@ def test_tier_checkpoint_files_equal_jax_byte_for_byte(tmp_path, monkeypatch, ov
 
 
 def test_unwired_fault_sites_are_refused(monkeypatch):
-    for plan in ("flip@exchange:3", "partition@host0", "skew@host0:5", "kill@host1:2",
-                 "crash@level:3,partition@host0:2", "compile_oom,flip@exchange:3",
-                 "transient_device_err:2,kill@host1:2"):
+    for plan in ("flip@exchange:3", "flip@exchange:1", "flip@shard0:exchange:2",
+                 "crash@level:3,flip@exchange:2", "compile_oom,flip@exchange:3",
+                 "transient_device_err:2,flip@exchange:4", "partition@host0,flip@exchange:5"):
         monkeypatch.setenv("KSPEC_FAULT", plan)
         bad = FaultPlan(plan).unwired()
         assert bad

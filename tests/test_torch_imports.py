@@ -85,7 +85,9 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "engine.decode", "resilience.retry", "resilience.supervisor",
                      "utils.clock", "obs.fleettrace", "service", "service.queue",
                      "service.verdict", "service.kernel_cache", "service.scheduler",
-                     "service.batch", "service.state_cache", "service.daemon"):
+                     "service.batch", "service.state_cache", "service.daemon",
+                     "service.fleet", "service.router", "sweep", "sweep.lattice",
+                     "sweep.cost", "sweep.portfolio", "sweep.bisect"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -134,7 +136,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "pipeline_registry.py", "resilience/retry.py", "resilience/supervisor.py",
             "utils/clock.py", "obs/fleettrace.py", "service/__init__.py", "service/queue.py",
             "service/verdict.py", "service/kernel_cache.py", "service/scheduler.py",
-            "service/batch.py", "service/state_cache.py", "service/daemon.py"} <= names
+            "service/batch.py", "service/state_cache.py", "service/daemon.py",
+            "service/fleet.py", "service/router.py", "sweep/__init__.py", "sweep/lattice.py",
+            "sweep/cost.py", "sweep/portfolio.py", "sweep/bisect.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
@@ -235,5 +239,67 @@ def test_the_service_client_path_imports_no_torch():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_the_fleet_router_and_sweep_client_paths_import_no_torch(tmp_path):
+    """The fleet parent, the router, the client verbs through a router,
+    `trace`/`top`/`fleet-report`, and the sweep's report and bisect run
+    on boxes that never pay the torch import: a fresh interpreter drives
+    them all and ends with no torch, and nothing of JAX, in sys.modules.
+    Only the sweep's vacuity pass imports torch (and initialises no CUDA:
+    tests/test_torch_sweep.py)."""
+    code = textwrap.dedent(
+        f"""
+        import contextlib, io, json, os, sys
+        from kafka_specification_tpu_torch import cli
+        from kafka_specification_tpu_torch.service.fleet import FleetManager, FleetServeConfig
+        from kafka_specification_tpu_torch.service.queue import JobQueue
+        from kafka_specification_tpu_torch.service.router import Router
+        from kafka_specification_tpu_torch.sweep import bisect, cost, lattice, portfolio
+        root = {str(tmp_path)!r}
+        hosts = [os.path.join(root, "h0"), os.path.join(root, "h1")]
+        for h in hosts:
+            JobQueue(h)
+        FleetManager(FleetServeConfig(service_dir=hosts[0], daemons=2))
+        man = {{"schema": "kspec-sweep/1", "sweep_id": "s", "name": "s",
+                "lattice": {{"sheets": [{{"axes": [
+                    {{"name": "N", "kind": "constant", "values": [1, 2]}}]}}]}},
+                "points": {{"p2": {{"point_id": "p2", "coords": [["N", 2]],
+                                    "status": "done", "verdict": {{
+                                        "violation": {{"invariant": "I", "depth": 1,
+                                                       "trace_len": 2}},
+                                        "distinct_states": 3, "exit_code": 1}}}}}}}}
+        os.makedirs(os.path.join(root, "sw"))
+        with open(os.path.join(root, "sw", "sweep.json"), "w") as fh:
+            json.dump(man, fh)
+        rt = os.path.join(root, "rt")
+        calls = [["route", rt, "--hosts", *hosts, "--status"],
+                 ["submit", "configs/IdSequence.cfg", "--router", rt],
+                 ["status", "--router", rt], ["route", rt, "--once"],
+                 ["top", "--once", "--router", rt], ["fleet-report", "--router", rt],
+                 ["report", rt], ["sweep", "report", os.path.join(root, "sw")],
+                 ["sweep", "bisect", os.path.join(root, "sw")],
+                 ["report", os.path.join(root, "sw")]]
+        rcs = []
+        for args in calls:
+            with contextlib.redirect_stdout(io.StringIO()), \\
+                    contextlib.redirect_stderr(io.StringIO()):
+                rcs.append(cli.main(args))
+        assert rcs == [0] * len(calls), rcs
+        job = Router(rt).submit(open("configs/IdSequence.cfg").read(), "IdSequence")["job_id"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["trace", job, "--router", rt]) == 0
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("torch", "jax", "jaxlib", "kafka_specification_tpu"))
+        assert not bad, bad
+        print("clean")
+        """
+    )
+    env = {**os.environ}
+    env.pop("KSPEC_FAULT", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout

@@ -163,8 +163,11 @@ def test_hooks_fire_as_jax_hooks_fire():
 def test_unwired_sites_are_named():
     assert tfaults.FaultPlan(",".join(TOKENS[:11] + TOKENS[12:15]
                                       + TOKENS[16:18])).unwired() == []
+    # the routed fleet's host faults are wired; flip@exchange (the sharded
+    # engine's) is not
+    assert tfaults.FaultPlan(",".join(TOKENS[27:])).unwired() == []
     assert tfaults.FaultPlan("compile_oom,flip@exchange:2,kill@host1:2").unwired() == [
-        "flip@exchange", "kill@host"]
+        "flip@exchange"]
 
 
 # --- the governor -----------------------------------------------------------

@@ -186,11 +186,16 @@ def test_orphan_requeue_and_janitor_equal_jax(tmp_path):
 
 
 def test_wired_daemon_sites_and_refused_host_faults(tmp_path, monkeypatch):
-    monkeypatch.setenv("KSPEC_FAULT", "kill@host0:1")
-    with pytest.raises(ValueError, match="not wired"):
+    """The daemon, cache and host faults are wired; a plan naming an
+    unwired site (flip@exchange, the sharded engine's) is refused before
+    the queue exists."""
+    monkeypatch.setenv("KSPEC_FAULT", "kill@host0:1,flip@exchange:2")
+    with pytest.raises(ValueError, match="not wired") as ei:
         Daemon(ServeConfig(str(tmp_path / "svc"), device="cpu"))
+    assert "site(s) flip@exchange are not wired" in str(ei.value)
     assert not os.path.exists(tmp_path / "svc")  # refused before the queue exists
-    monkeypatch.setenv("KSPEC_FAULT", "crash@daemon0:1,stall@daemon0,flip@cache:1,enospc@cache:2")
+    monkeypatch.setenv("KSPEC_FAULT", "crash@daemon0:1,stall@daemon0,flip@cache:1,enospc@cache:2,"
+                       "kill@host0:1,partition@host1:2,skew@host0:-1.5")
     Daemon(ServeConfig(str(tmp_path / "svc"), device="cpu"))
 
 
