@@ -251,12 +251,29 @@ print no result:
          kspec_svc_device_peak_bytes gauge of its metrics-<i>.prom) on a
          line of their own; (a)'s and (b)'s launches happen in the
          daemons' processes and are not counted
+  harness  the harnesses (resilience/crashcheck/, resilience/simfleet/,
+         durable_io's op recorder): (a) `cli crashcheck --json` in a
+         subprocess: exit 0, ok, 254 crash states, 0 non-convergent, each
+         protocol's ops and states as the JAX package's (pinned below);
+         (b) `cli simfleet run --seeds 50 --json` in a subprocess: exit 0,
+         no violation; in this process the run digests of seeds 0-4, the
+         JAX package's (pinned below); (c) Kip320 3r on the `device`
+         backend with a checkpoint every level, to depth 11 unrecorded,
+         then resumed to depth 12 under durable_io.install(OpRecorder):
+         the recorded ops' crash states (fsmodel), at most 16 of them
+         spread evenly over the list, each materialized into a fresh
+         directory and resumed on the card to the end: 737,794 states,
+         diameter 25, the pinned levels and the uncrashed run's chain (the
+         JAX package's), or, where load() raises CheckpointCorrupt, a fresh
+         run to the same.  (a) and (b) run on the host meanwhile.  K1
+         counted on every leg (`harness ckpt ...`) and held at each leg's
+         largest launch
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
 three E3 runs of disk-tier, each check of obs, each side of each overlap
 path, each oracle run that launches K1, each in-process resilience
-run) then
+run, each leg of harness (c)) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -3029,6 +3046,185 @@ def phase_fleet():
     shutil.rmtree(root, ignore_errors=True)
     return {"line": "; ".join(parts), "counts": counts}
 
+# phase `harness`: crashcheck's ops and crash states per protocol, and
+# simfleet's run digests of seeds 0-4, as the JAX package's harnesses give
+# them (the same numbers in either package)
+CRASHCHECK_OPS_STATES = {"queue": (15, 69), "router": (16, 49), "cache": (20, 37),
+                         "ckpt": (7, 32), "spill": (24, 40), "sweep": (8, 13),
+                         "trace": (7, 14)}
+SIMFLEET_DIGESTS = (
+    "2da43a890e04bce234b4e6fb98b7eefe0913e1d07d4e4092316e70e81b670489",
+    "9c660e2b3b398f9e070bdc2d5d58979cc480ca447388ed31cb039d5495786965",
+    "46f38e1413c6720b6a14c13d734974d4aff625f300fc92eed57754cf57e7b386",
+    "274c261c5e18cb5a72b907626249d6c8658d1ddbb3fa1db3602e7fbb8748c55d",
+    "adb700fe0dbe88f31b55ce3c6626a5656a93aa73c6750718ef53d76068d51d8a",
+)
+# part (c): how many of the recorded run's crash states are resumed
+HARNESS_STATES = 16
+
+
+def _harness_verbs(outs):
+    """(a) and (b)'s subprocesses checked; -> the phase line's note."""
+    rc, out, err, wall_a = outs["crashcheck"]
+    rec = json.loads(out) if rc == 0 else {}
+    got = {s["protocol"]: (s["ops"], s["states"]) for s in rec.get("scenarios", [])}
+    if (rc != 0 or not rec.get("ok") or rec["states"] != 254 or rec["non_convergent"]
+            or got != CRASHCHECK_OPS_STATES):
+        raise AssertionError(f"(a) cli crashcheck --json: exit {rc}, {got}, "
+                             f"{ {k: rec.get(k) for k in ('states', 'non_convergent')} }: "
+                             f"{err[-500:]}")
+    rc, out, err, wall_b = outs["simfleet"]
+    sim = json.loads(out) if rc == 0 else {}
+    if rc != 0 or not sim.get("ok") or sim["runs"] != 50 or sim["clean"] != 50:
+        raise AssertionError(f"(b) cli simfleet run --seeds 50 --json: exit {rc}: {out[:500]} "
+                             f"{err[-500:]}")
+    return (f"(a) cli crashcheck --json: exit 0, 254 crash states over 7 protocols, 0 "
+            f"non-convergent, ops/states per protocol as the JAX package's {got}, harness "
+            f"{rec['seconds']} s, process {wall_a:.1f} s; (b) cli simfleet run --seeds 50 "
+            f"--json: exit 0, 50 clean, {sim['pair_coverage']} event pairs, process "
+            f"{wall_b:.1f} s")
+
+
+def _harness_resume(model_fn, ckpt, path, want_chain):
+    """One resume of the checkpoint directory `ckpt` to the end on the
+    card, counted from 0 under `path`: 737,794 states, diameter 25, the
+    pinned levels, and `want_chain` in the newest checkpoint.  When no
+    generation verifies (load() raises CheckpointCorrupt, its typed
+    degradation) a fresh run beside it must give the same.  -> (how,
+    counts, note, wall)."""
+    from kafka_specification_tpu_torch import check
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import (
+        CheckpointCorrupt, verify_file)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = check(model_fn(), device=DEV, checkpoint_dir=str(ckpt))
+        how = "resumed"
+    except CheckpointCorrupt:
+        ckpt = ckpt.with_name(ckpt.name + "-fresh")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        res = check(model_fn(), device=DEV, checkpoint_dir=str(ckpt))
+        how = "corrupt, fresh run"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(("fingerprint",))
+    if not res.ok or res.levels != KIP320_LEVELS or res.diameter != 25:
+        raise AssertionError(f"{path}: ok={res.ok} levels {res.levels}")
+    chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+    if not np.array_equal(chain, want_chain):
+        raise AssertionError(f"{path} ({how}): the digest chain is not the uncrashed run's")
+    return how, counts, _hold_path_shapes(_largest(), res.total), wall
+
+
+def _harness_ckpt():
+    """(c) Kip320 3r on the `device` backend with a checkpoint every level:
+    to depth 11 unrecorded, then resumed to depth 12 under durable_io's
+    recorder; the recorded ops' crash states (fsmodel), at most
+    HARNESS_STATES of them spread evenly over the list, each materialized
+    into a fresh directory and resumed on the card to the end.  -> (line,
+    counts)."""
+    from kafka_specification_tpu_torch import check, durable_io
+    from kafka_specification_tpu_torch.resilience.crashcheck.fsmodel import (
+        enumerate_crash_states, materialize, snapshot_tree, summarize_ops)
+
+    root = WORK / "harness"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = root / "ck"
+    counts, walls = {}, {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    cut = check(_kip320_model(), device=DEV, checkpoint_dir=str(ckpt), max_depth=11)
+    walls["cut"] = time.perf_counter() - t0
+    counts["harness ckpt cut 11"] = _read_counts(("fingerprint",))
+    if cut.levels != KIP320_LEVELS[:12]:
+        raise AssertionError(f"(c) the cut at 11 gave {cut.levels}")
+    base, dirs = snapshot_tree(str(ckpt))
+    rec = durable_io.OpRecorder(str(ckpt))
+    _reset_counts()
+    t0 = time.perf_counter()
+    prev = durable_io.install(rec)
+    try:
+        cut = check(_kip320_model(), device=DEV, checkpoint_dir=str(ckpt), max_depth=12)
+    finally:
+        durable_io.install(prev)
+    walls["recorded"] = time.perf_counter() - t0
+    counts["harness ckpt recorded 12"] = _read_counts(("fingerprint",))
+    held = _hold_path_shapes(_largest(), cut.total)
+    if cut.levels != KIP320_LEVELS[:13]:
+        raise AssertionError(f"(c) the recorded leg to 12 gave {cut.levels}")
+    ops = summarize_ops(rec.ops)
+    if not [op for op in ops if op["op"] == "write"]:
+        raise AssertionError(f"(c) the recorder saw no checkpoint write: {ops}")
+    states = enumerate_crash_states(base, rec.ops)
+    pick = (list(range(len(states))) if len(states) <= HARNESS_STATES else sorted(
+        {round(i * (len(states) - 1) / (HARNESS_STATES - 1)) for i in range(HARNESS_STATES)}))
+    # the uncrashed continuation reaches the JAX package's chain, and so
+    # must every crash state
+    want = np.array(KIP320_CHAIN, np.uint64)
+    uncrashed = root / "uncrashed"
+    shutil.copytree(ckpt, uncrashed)
+    _, counts["harness ckpt uncrashed"], held_u, walls["uncrashed"] = _harness_resume(
+        _kip320_model, uncrashed, "harness ckpt uncrashed", want)
+    hows, state_walls = {}, []
+    for k, i in enumerate(pick):
+        st = states[i]
+        dest = root / f"state-{i}"
+        materialize(st, dirs, str(dest))
+        path = f"harness ckpt state {i}"
+        how, counts[path], _, wall = _harness_resume(_kip320_model, dest, path, want)
+        hows[how] = hows.get(how, 0) + 1
+        state_walls.append(wall)
+        shutil.rmtree(dest, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    k1 = [c["fingerprint"] for p, c in counts.items() if p.startswith("harness ckpt state")]
+    line = (f"(c) Kip320 3r, a checkpoint every level: cut at 11 {walls['cut']:.2f} s, the "
+            f"leg to 12 recorded {walls['recorded']:.2f} s ({len(ops)} ops: "
+            f"{[op['op'] for op in ops]}), {held}; {len(states)} crash states, "
+            f"{len(pick)} resumed on the card to 737794 states, diameter 25, the pinned "
+            f"levels and the uncrashed chain (the JAX package's): {hows}, "
+            f"{sum(state_walls):.2f} s (each {min(state_walls):.2f}-{max(state_walls):.2f} s), "
+            f"K1 {min(k1)}-{max(k1)} launches a resume; uncrashed {walls['uncrashed']:.2f} s, "
+            f"{held_u}")
+    return line, counts
+
+
+def phase_harness():
+    """The harnesses (resilience/crashcheck/, resilience/simfleet/,
+    durable_io's recorder): (a) `cli crashcheck --json` and (b) `cli
+    simfleet run --seeds 50 --json` in subprocesses (on the host; they
+    run meanwhile), simfleet's run digests of seeds 0-4 in this process;
+    (c) a recorded checkpointed Kip320 3r check on the card and a resume
+    from each of its crash states."""
+    from kafka_specification_tpu_torch.resilience import simfleet
+
+    verbs = _start_verbs({
+        "crashcheck": ["crashcheck", "--json"],
+        "simfleet": ["simfleet", "run", "--seeds", "50", "--json",
+                     "--out", str(WORK / "simfleet-repros")],
+    })
+    try:
+        t0 = time.perf_counter()
+        digests = [simfleet.run_seed(s)["digest"] for s in range(len(SIMFLEET_DIGESTS))]
+        wall_d = time.perf_counter() - t0
+        if tuple(digests) != SIMFLEET_DIGESTS:
+            bad = [s for s, d in enumerate(digests) if d != SIMFLEET_DIGESTS[s]]
+            raise AssertionError(f"(b) simfleet run digests differ at seeds {bad}")
+        line_c, counts = _harness_ckpt()
+        for _, th, _ in verbs.values():
+            th.join(timeout=300)
+        outs = {name: out["result"] for name, (_, _, out) in verbs.items()}
+    finally:
+        for proc, th, _ in verbs.values():
+            if proc.poll() is None:
+                proc.kill()
+            th.join()
+    line_ab = _harness_verbs(outs)
+    return {"line": (f"{line_ab}; simfleet run digests of seeds 0-4 the JAX package's "
+                     f"({wall_d:.2f} s); {line_c}"),
+            "counts": counts}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3068,6 +3264,7 @@ def main() -> int:
     resilience = ph.run("resilience", phase_resilience)
     serve = ph.run("serve", phase_serve)
     fleet = ph.run("fleet", phase_fleet)
+    harness = ph.run("harness", phase_harness)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -3085,7 +3282,8 @@ def main() -> int:
                **{f"oracle {p}": c for p, c in oracle["counts"].items()},
                **{f"resilience {p}": c for p, c in resilience["counts"].items()},
                **{f"serve {p}": c for p, c in serve["counts"].items()},
-               **{f"fleet {p}": c for p, c in fleet["counts"].items()}}
+               **{f"fleet {p}": c for p, c in fleet["counts"].items()},
+               **harness["counts"]}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

@@ -34,15 +34,21 @@ Layout (module names mirror the JAX package):
                code with the kernels
     analysis/  the encoding gate and proven field hulls (interval
                abstract interpretation of the action kernels), and the
-               ownership and purity passes over the engine sources
+               ownership and purity passes over the engine sources, and
+               the durable-io and raw-clock lints
     native/    the host fingerprint set (fpset.cpp, g++ at first use)
     resilience/  the level digest chain, the checkpoint store, the
-               per-level heartbeat record
-    durable_io.py  the file steps checkpoints and stats lines take
+               per-level heartbeat record, the supervisor, and the two
+               harnesses: crashcheck/ (every legal crash state of each
+               durable protocol, each recovered) and simfleet/ (the
+               control plane under a virtual clock and a seeded schedule)
+    durable_io.py  every durable file step, with the op recorder and the
+               fault hook the harnesses install
     utils/     TLC .cfg parsing and model instantiation, trace rendering,
                device timing
     cli.py     `python -m kafka_specification_tpu_torch.cli check|simulate|oracle CFG`,
-               and `report`, `faults`, `pipelines`, `analyze`, `verify-checkpoint`
+               and `report`, `faults`, `pipelines`, `analyze`, `verify-checkpoint`,
+               `crashcheck`, `simfleet` and the service verbs
     verdict.py the kspec-verdict/1 record and exit codes
     pipeline_registry.py  pipeline names ("fused", "legacy", "device"),
                their per-engine and per-backend support and $KSPEC_PIPELINE

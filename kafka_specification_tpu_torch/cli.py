@@ -19,6 +19,8 @@ a checkpoint directory.
         --checkpoint ckpt/ --run-dir runs/k320r
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --integrity-shadow 0.1
     python -m kafka_specification_tpu_torch.cli faults --list
+    python -m kafka_specification_tpu_torch.cli crashcheck --json
+    python -m kafka_specification_tpu_torch.cli simfleet run --seeds 50
     python -m kafka_specification_tpu_torch.cli oracle configs/Kip320.cfg
     python -m kafka_specification_tpu_torch.cli pipelines --json
     python -m kafka_specification_tpu_torch.cli analyze --json
@@ -53,7 +55,16 @@ record also finishes the manifest with status "error".
 ``report [RUN_DIR]`` renders a run directory (the JAX package's text, or
 its record with ``--json``); with no directory it lists the runs under
 ``--root``, and ``--latest`` renders the newest.  ``faults --list`` prints
-the fault grammar (``resilience/faults.py``).
+the fault grammar (``resilience/faults.py``) and the crashcheck scenarios.
+
+``crashcheck`` runs the crash-consistency harness
+(``resilience/crashcheck/``): each durable protocol's recorded op-trace,
+every legal crash state of it, and the protocol's recovery on each (exit
+1 on a non-convergent state; ``--json`` the ``kspec-crashcheck/1``
+record).  ``simfleet run|replay`` is the deterministic fleet simulation
+(``resilience/simfleet/``): seeded schedules over the real control plane
+under a virtual clock, violations shrunk to ``kspec-simfleet/1`` repros.
+Both, and ``faults``, import no torch.
 
 ``check --resilient`` runs the same check as a child process under the
 auto-resume supervisor (``resilience/supervisor.py``): the child's
@@ -91,7 +102,8 @@ with each entry's support matrix, or with ``--json`` the list itself.
 ``analyze`` is the static analysis (``analysis/``): the encoding and
 action passes over the models of the given .cfg files (default: every
 ``configs/*.cfg``), then the ownership and purity passes over the port's
-engine sources.  It prints the findings (``--json``: the
+engine sources, the trace vocabulary, and the durable-io and raw-clock
+lints.  It prints the findings (``--json``: the
 ``kspec-analysis/1`` record) and exits 0 with no HIGH finding, 1 with
 one, and 2 when a target cannot be analyzed or ``--module`` is given with
 other than one .cfg.  ``oracle``, ``pipelines`` and ``analyze`` touch no
@@ -505,10 +517,22 @@ def _report(args) -> int:
 
 def _faults(args) -> int:
     """`cli faults --list`: the fault grammar, from the registry the
-    parser validates against."""
+    parser validates against, then the crashcheck scenarios."""
+    from .resilience.crashcheck import list_scenarios
+
     entries = list_faults()
+    scenarios = list_scenarios()
     if args.json:
-        print(json.dumps(entries))
+        # the scenario rows ride along as extra entries of the same flat
+        # list, tagged by kind
+        print(json.dumps(entries + [
+            {"kind": "crashcheck-scenario",
+             "grammar": f"crashcheck --protocol {s['protocol']}",
+             "sites": [s["name"]],
+             "description": s["description"],
+             "scopeable": False}
+            for s in scenarios
+        ]))
         return 0
     print("Injectable faults (KSPEC_FAULT / --fault; comma-separate "
           "to compose; every fault takes a `shard<d>:` scope after "
@@ -518,7 +542,157 @@ def _faults(args) -> int:
         print(f"      {e['description']}")
     print("Examples: crash@level:7   enospc@spill:2   "
           "flip@shard1:exchange:3   corrupt_ckpt@ckpt:4")
+    print()
+    print("Crashcheck scenarios (`cli crashcheck --protocol P`; "
+          "enumerated crash states, not injected faults):")
+    for s in scenarios:
+        print(f"  {s['protocol']}: {s['name']}")
+        print(f"      {s['description']}")
     return 0
+
+
+def _crashcheck(args) -> int:
+    """`cli crashcheck`: every legal crash state of each durable protocol,
+    each run through the protocol's own recovery.  Exit 0 when all
+    converge, 1 on a non-convergent state, 2 for an unknown protocol."""
+    from .resilience.crashcheck import run_crashcheck
+
+    try:
+        rec = run_crashcheck(protocols=args.protocols)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    if args.json:
+        print(json.dumps(rec))
+    else:
+        print(f"kspec crashcheck: {rec['states']} crash states / "
+              f"{len(rec['protocols'])} protocol(s) in "
+              f"{rec['seconds']}s — "
+              f"{rec['non_convergent']} non-convergent")
+        for s in rec["scenarios"]:
+            print(f"  {s['protocol']:<8} {s['name']:<18} "
+                  f"{s['states']:>4} states  "
+                  f"{s['non_convergent']} non-convergent")
+        for f in rec["findings"]:
+            print(f"  FINDING {f['scenario']} prefix={f['prefix']} "
+                  f"degraded={f['degraded']} "
+                  f"state={f['state_digest']}")
+            for v in f["violations"]:
+                print(f"    {v}")
+    return 0 if rec["ok"] else 1
+
+
+def _run_simfleet(args) -> int:
+    """`cli simfleet run|replay`: the deterministic fleet simulator.
+
+    Exit codes — run: 0 = every seed clean, 1 = violations (repros
+    banked under --out), 2 = bad arguments.  replay: 0 = the repro
+    still reproduces its recorded violation, 2 = stale."""
+    from .resilience import simfleet as sf
+
+    if args.sf_cmd == "run":
+        cfg = sf.SimConfig(hosts=args.hosts, jobs=args.jobs,
+                           steps=args.steps)
+        if args.seeds < 1 or args.hosts < 1 or args.jobs < 0:
+            print("error: --seeds/--hosts must be >= 1", file=sys.stderr)
+            return EXIT_ERROR
+        seeds = range(args.start_seed, args.start_seed + args.seeds)
+        summary = sf.sweep_seeds(
+            seeds, config=cfg, coverage=args.coverage,
+            max_extra=max(2, args.seeds // 5) if args.coverage else 0,
+        )
+        banked = []
+        for hit in summary["violating"]:
+            seed, record = hit["seed"], hit["record"]
+            v = record["violations"][0]
+            try:
+                small, srec = sf.shrink(record["schedule"], cfg, seed,
+                                        v["oracle"])
+            except ValueError:
+                # a drain-phase-only violation on an empty-ish schedule:
+                # the full schedule is the minimal repro
+                small, srec = record["schedule"], record
+            os.makedirs(args.out, exist_ok=True)
+            path = os.path.join(
+                args.out, f"repro-seed{seed}-{v['oracle']}.json")
+            # bank the violation as the SHRUNK run reports it: job ids
+            # shift when submit events drop out of the schedule, and a
+            # repro must name a job that exists in its own replay
+            sv = next((w for w in srec["violations"]
+                       if w["oracle"] == v["oracle"]), v)
+            sf.save_repro(path, seed, cfg, sv, small, srec,
+                          shrunk_from=len(record["schedule"]))
+            banked.append({"seed": seed, "oracle": v["oracle"],
+                           "events": len(small), "path": path})
+        rec = {
+            "schema": "kspec-simfleet-sweep/1",
+            "config": summary["config"],
+            "runs": summary["runs"],
+            "clean": summary["clean"],
+            "pair_coverage": summary["pair_coverage"],
+            "violations": banked,
+            "ok": not banked,
+        }
+        if args.json:
+            print(json.dumps(rec))
+        else:
+            print(f"kspec simfleet: {rec['runs']} seed(s) — "
+                  f"{rec['clean']} clean, {len(banked)} violating "
+                  f"({rec['pair_coverage']} event-pair(s) covered)")
+            for b in banked:
+                print(f"  VIOLATION seed {b['seed']}: {b['oracle']} — "
+                      f"shrunk to {b['events']} event(s), repro at "
+                      f"{b['path']}")
+        return 0 if rec["ok"] else 1
+
+    # replay
+    try:
+        repro = sf.load_repro(args.repro)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    out = sf.replay_repro(repro, keep_root=args.trace)
+    record = out["record"]
+    rec = {
+        "schema": "kspec-simfleet-replay/1",
+        "repro": {k: repro[k] for k in
+                  ("seed", "violation", "events_digest", "shrunk_from")},
+        "reproduced": out["reproduced"],
+        "digest_match": out["digest_match"],
+        "violations": record["violations"],
+    }
+    try:
+        if args.json:
+            print(json.dumps(rec))
+        else:
+            v = repro["violation"]
+            state = ("REPRODUCED" if out["reproduced"] else
+                     "STALE (violation no longer fires)")
+            print(f"kspec simfleet replay: {state} — {v['oracle']} "
+                  f"on {v['job']} over {len(repro['schedule'])} "
+                  f"event(s); digest "
+                  f"{'match' if out['digest_match'] else 'DRIFT'}")
+            for got in record["violations"]:
+                print(f"  {got['oracle']} @step {got['step']} "
+                      f"job={got['job']}: {got['detail']}")
+            if args.trace and out["kernel"] is not None:
+                from .obs import fleettrace as ft
+
+                job = (next((g["job"] for g in record["violations"]
+                             if g.get("job")), None)
+                       or v.get("job")
+                       or next(iter(record["verdicts"]), None))
+                if job:
+                    recs = ft.load_trace(out["kernel"].trace_roots(), job)
+                    if recs:
+                        print()
+                        print(ft.render_trace(ft.assemble(recs, job)))
+                    else:
+                        print(f"  (no trace records for {job})")
+    finally:
+        if out["kernel"] is not None:
+            out["kernel"].cleanup()
+    return 0 if out["reproduced"] else 2
 
 
 def _oracle(args) -> int:
@@ -644,6 +818,32 @@ def _analyze(args) -> int:
         for prob in lint_trace_vocabulary():
             findings.append(Finding(
                 kind="trace-vocab", severity="HIGH",
+                target=f"{prob['path']}:{prob['line']}",
+                message=prob["problem"],
+                data=dict(prob),
+            ))
+        # the durable-write discipline: every rename/replace and append
+        # journal goes through durable_io (or a registered emitter), so
+        # that crashcheck records it
+        targets.append("durable-write discipline (durable_io boundary)")
+        from .analysis.durable_lint import lint_durable_io
+
+        for prob in lint_durable_io():
+            findings.append(Finding(
+                kind="durable-io", severity="HIGH",
+                target=f"{prob['path']}:{prob['line']}",
+                message=prob["problem"],
+                data=dict(prob),
+            ))
+        # the raw-clock discipline: every timing decision of a
+        # clock-migrated module goes through utils/clock.py, so that the
+        # simfleet virtual clock owns it
+        targets.append("raw-clock discipline (utils/clock boundary)")
+        from .analysis.clock_lint import lint_raw_clock
+
+        for prob in lint_raw_clock():
+            findings.append(Finding(
+                kind="raw-clock", severity="HIGH",
                 target=f"{prob['path']}:{prob['line']}",
                 message=prob["problem"],
                 data=dict(prob),
@@ -1372,6 +1572,53 @@ def main(argv=None) -> int:
     pf.add_argument("--list", action="store_true", dest="list_faults",
                     help="list the fault registry (the default action)")
     pf.add_argument("--json", action="store_true")
+    pcc = sub.add_parser(
+        "crashcheck",
+        help="crash-consistency torture harness: record every durable "
+        "filesystem op each recovery protocol issues, enumerate every legal "
+        "post-crash state (torn writes, reverted renames, lost journal "
+        "tails), and run the protocol's own recovery against each one; "
+        "imports no torch.  Exits 1 on any non-convergent state; findings "
+        "carry the op-log prefix and crash state as a machine-readable "
+        "repro.  --json prints the kspec-crashcheck/1 record",
+    )
+    pcc.add_argument("--protocol", action="append", dest="protocols", metavar="P",
+                     help="restrict to one protocol or scenario name (repeatable; "
+                     "see `cli faults --list` for the scenario registry)")
+    pcc.add_argument("--json", action="store_true",
+                     help="machine-readable kspec-crashcheck/1 record")
+    psf = sub.add_parser(
+        "simfleet",
+        help="deterministic fleet simulation: run the real router, queue, "
+        "daemon and cache control plane under a virtual clock and a seeded "
+        "scheduler, search interleavings across seeds (kill, partition, "
+        "clock skew, flaky fs), judge every run with invariant oracles, and "
+        "shrink any violation to a minimal kspec-simfleet/1 repro; imports "
+        "no torch.  `run` exits 1 on any violation; `replay` re-runs a "
+        "repro and exits 0 if it still reproduces, 2 if stale",
+    )
+    sfsub = psf.add_subparsers(dest="sf_cmd", required=True)
+    psr = sfsub.add_parser("run", help="sweep seeds, shrink violations")
+    psr.add_argument("--seeds", type=int, default=50,
+                     help="how many seeds to run (default 50)")
+    psr.add_argument("--start-seed", type=int, default=0, help="first seed (default 0)")
+    psr.add_argument("--hosts", type=int, default=2)
+    psr.add_argument("--jobs", type=int, default=4)
+    psr.add_argument("--steps", type=int, default=60,
+                     help="schedule length per seed (default 60)")
+    psr.add_argument("--coverage", action="store_true",
+                     help="coverage-guided: seeds that reach new adjacent event-type "
+                     "pairs queue derived seeds behind them")
+    psr.add_argument("--out", default="simfleet-repros", metavar="DIR",
+                     help="directory violations' shrunk repros are banked in "
+                     "(default ./simfleet-repros)")
+    psr.add_argument("--json", action="store_true")
+    psp = sfsub.add_parser("replay", help="replay a kspec-simfleet/1 repro")
+    psp.add_argument("repro", help="kspec-simfleet/1 file")
+    psp.add_argument("--trace", action="store_true",
+                     help="assemble the violating job's fleet trace from the simulated "
+                     "run and render the same waterfall `cli trace` gives real runs")
+    psp.add_argument("--json", action="store_true")
     ps = sub.add_parser("simulate", help="random-walk checking (TLC -simulate equivalent)")
     ps.add_argument("cfg")
     ps.add_argument("--module", help="TLA+ module (default: cfg file stem)")
@@ -1767,6 +2014,10 @@ def main(argv=None) -> int:
         return _report(args)
     if args.cmd == "faults":
         return _faults(args)
+    if args.cmd == "crashcheck":
+        return _crashcheck(args)
+    if args.cmd == "simfleet":
+        return _run_simfleet(args)
     return _simulate(args) if args.cmd == "simulate" else _check(args, argv)
 
 

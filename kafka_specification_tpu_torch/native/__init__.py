@@ -76,7 +76,9 @@ def _build(out: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(f"g++ failed on native/fpset.cpp:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    # kspec: allow(durable-io) a built host library, rebuilt from source
+    # when missing; not durable state.  Atomic: a loader never sees half a file
+    os.replace(tmp, out)
 
 
 def library() -> ctypes.CDLL:

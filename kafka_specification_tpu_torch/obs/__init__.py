@@ -26,9 +26,8 @@ run directories are interchangeable for ``cli report``:
 Deep call sites in storage/ and resilience/ reach the active
 tracer/registry through the module-level ``tracer.span/event`` and
 ``metrics.inc/set_gauge`` helpers, imported lazily at the call site to
-keep the obs <-> resilience import graph acyclic.  The JAX package's
-fleet tracing (``obs/fleettrace.py``) and its router, sweep and host
-reports are not ported yet.
+keep the obs <-> resilience import graph acyclic.  The fleet traces
+(``obs/fleettrace.py``) span hosts and jobs rather than one run.
 
 Stdlib only at import: torch is imported only when a profiler window
 starts.

@@ -4,8 +4,8 @@ The port's own copy of ``kafka_specification_tpu/obs/atomicio.py``: one
 tmp + flush + (optional fsync) + ``os.replace`` + parent-dir fsync
 sequence, shared by the run manifest (``obs/runctx.py``) and the
 ``metrics.prom`` textfile export (``obs/metrics.py``), so a reader never
-sees a torn file.  The JAX module's crash-harness recorder hook is not
-ported (``durable_io.py``).
+sees a torn file.  The tmp's write is noted to ``durable_io``'s recorder
+before the promote, so the crash harness sees it.
 
 ``fsync=True`` is for records whose loss would sever a lineage (a power
 loss publishing an empty manifest mints a new run_id on reopen).
@@ -44,6 +44,7 @@ def atomic_write_text(path: str, text: str, fsync: bool = True,
             fh.flush()
             if fsync:
                 os.fsync(fh.fileno())
+        _dio.note_write(tmp, fsynced=fsync)
         _dio.replace(tmp, path)
     except BaseException:
         try:

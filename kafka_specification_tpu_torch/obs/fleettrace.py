@@ -52,6 +52,7 @@ import re
 from contextlib import contextmanager
 from typing import Optional
 
+from .. import durable_io as _dio
 from ..resilience.heartbeat import heartbeat_record
 from ..utils import clock as _clk
 from .tracer import read_jsonl_tolerant
@@ -156,6 +157,7 @@ def _append(path: str, rec: dict) -> bool:
             os.write(fd, payload)
         finally:
             os.close(fd)
+        _dio.note_append(path, payload)
         return True
     except OSError:
         return False

@@ -177,6 +177,7 @@ class CheckpointStore:
             with _obs.span("checkpoint-write", depth=depth, part=""):
                 # uncompressed: live fingerprints are high-entropy
                 np.savez(tmp, **{MANIFEST_KEY: json.dumps(build_manifest(arrays))}, **arrays)
+                _dio.note_write(tmp, fsynced=False)
                 if self.fault_plan is not None:
                     # torn-write rehearsal points: tmp written, nothing
                     # promoted (crash@ckpt:N and its full-disk twin

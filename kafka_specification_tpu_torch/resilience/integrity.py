@@ -41,6 +41,7 @@ only.
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -447,9 +448,23 @@ def readback_chain(path: str, depth=None) -> None:
     were self-checked BEFORE the write).  A CRC-consistent corruption
     inside the writer (flip@ckpt rehearses it: the manifest checksums
     corrupt content faithfully) is caught here, typed, before the run
-    goes on trusting a poisoned newest generation."""
-    with np.load(path, allow_pickle=False) as z:
-        small = {k: z[k] for k in ("digest_chain", "levels", "total", "depth") if k in z.files}
+    goes on trusting a poisoned newest generation.
+
+    A path that stays missing is no error: the next save's keep-K rotation
+    briefly renames generation 0 to ``.1`` before its replacement
+    promotes, so a newer generation has superseded this one, and that
+    save's own read-back verifies it."""
+    for _attempt in range(3):
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                small = {k: z[k] for k in ("digest_chain", "levels", "total", "depth")
+                         if k in z.files}
+            break
+        except FileNotFoundError:
+            # wait out the rotation window
+            time.sleep(0.02)
+    else:
+        return
     count_check()
     errs = checkpoint_chain_errors(small)
     if errs:

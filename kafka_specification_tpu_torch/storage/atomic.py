@@ -45,6 +45,7 @@ def atomic_write(path: str, write_fn, before_replace=None,
             write_fn(fh)
             fh.flush()
             os.fsync(fh.fileno())
+        _dio.note_write(tmp, fsynced=True)
         if before_replace is not None:
             before_replace()
         _dio.replace(tmp, path)

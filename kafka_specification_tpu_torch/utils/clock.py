@@ -12,9 +12,12 @@ With the default :class:`SystemClock` installed every call is a direct
 pass-through to ``time``: one attribute hop of overhead, no change of
 behaviour.  The pass-through resolves ``time.time``/``time.sleep`` at call
 time, so tests that monkeypatch attributes on the ``time`` module keep
-working through the shim.  (The JAX package pins the boundary with a
-``raw-clock`` lint, ``analysis/clock_lint.py``; the port's copy of that
-lint comes with the harnesses.)
+working through the shim.
+
+The ``raw-clock`` lint (``analysis/clock_lint.py``, wired into ``cli
+analyze``) pins the boundary: a raw ``time.time()``/``time.sleep()``/
+``time.monotonic()`` in a clock-migrated module is a HIGH finding unless
+the site carries a reasoned ``# kspec: allow(raw-clock)`` tag.
 
 Clock contract:
 

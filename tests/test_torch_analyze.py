@@ -85,21 +85,26 @@ def test_model_record_equals_jax_on_the_shipped_matrix(capsys):
 
 
 def test_port_tree_is_clean(capsys):
-    """The whole port: exit 0, no HIGH or MEDIUM finding, the Kip320 and
-    engine-sources targets, and the one LOW stale annotation."""
+    """The whole port: exit 0, no HIGH or MEDIUM finding, JAX's 13 targets
+    (the nine configs, the engine sources, the trace vocabulary, and the
+    durable-io and raw-clock lints, in JAX's order), and the one LOW stale
+    annotation."""
     rc, out, _ = port_analyze(capsys, "--json")
     rec = json.loads(out)
     assert rc == 0 and rec["ok"] is True
     assert rec["counts"] == {"HIGH": 0, "MEDIUM": 0, "LOW": 1, "INFO": 0}
-    assert rec["targets"][-2:] == ["engine sources (ownership + purity)",
-                                   "trace vocabulary (obs/fleettrace registries)"]
+    assert len(rec["targets"]) == 13
+    assert rec["targets"][-4:] == ["engine sources (ownership + purity)",
+                                   "trace vocabulary (obs/fleettrace registries)",
+                                   "durable-write discipline (durable_io boundary)",
+                                   "raw-clock discipline (utils/clock boundary)"]
     assert any(t.startswith("Kip320 (") for t in rec["targets"])
     (low,) = rec["findings"]
     assert (low["kind"], low["data"]) == ("stale-annotation",
                                           {"class": "CheckpointStore", "attr": "ident_aliases"})
     rc, out, _ = port_analyze(capsys, "--no-models")
     assert rc == 0 and out.splitlines()[0] == (
-        "kspec analyze: 2 target(s) — 0 high / 0 medium / 1 low / 0 info")
+        "kspec analyze: 4 target(s) — 0 high / 0 medium / 1 low / 0 info")
     rc, out, _ = port_analyze(capsys, "--no-models", "--no-engine", "--info")
     assert rc == 0 and out.splitlines()[0].startswith("kspec analyze: 0 target(s)")
 

@@ -391,19 +391,20 @@ def test_unknown_module_equals_jax(capsys):
 
 
 def test_faults_list_equals_jax(capsys):
-    """`cli faults --list` prints JAX's grammar, entry for entry (JAX's
-    listing then goes on to its crash-consistency scenarios, which the
-    port does not have yet); --json lists the same registry entries."""
+    """`cli faults --list` prints JAX's whole listing: the grammar, entry
+    for entry, then the seven crashcheck scenarios; --json lists the same
+    registry entries and scenario rows."""
     assert cli.main(["faults", "--list"]) == 0
     out = capsys.readouterr().out
     jrc, jout = jax_cli(capsys, "faults", "--list")
-    assert jrc == 0
-    head = jout.out.split("\n\nCrashcheck scenarios", 1)[0]
-    assert out == head + "\n" and out.count("\n      ") == 10  # ten kinds
+    assert jrc == 0 and out == jout.out
+    head, scn = out.split("\n\nCrashcheck scenarios", 1)
+    assert head.count("\n      ") == 10 and scn.count("\n      ") == 7  # ten kinds, 7 scenarios
     assert cli.main(["faults", "--json"]) == 0
     entries = json.loads(capsys.readouterr().out)
     jrc, jout = jax_cli(capsys, "faults", "--json")
-    assert entries == [e for e in json.loads(jout.out) if e["kind"] != "crashcheck-scenario"]
+    assert entries == json.loads(jout.out)
+    assert sum(e["kind"] == "crashcheck-scenario" for e in entries) == 7
 
 
 # --- cli pipelines: the registry against the JAX package's support matrix ---------------

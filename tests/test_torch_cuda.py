@@ -780,3 +780,48 @@ def test_serve_fleet_on_card_finishes_a_crashed_job_once(card, tmp_path):
     proms = [open(os.path.join(svc, "service", n)).read()
              for n in os.listdir(os.path.join(svc, "service")) if n.endswith(".prom")]
     assert proms and all("kspec_svc_device_peak_bytes" in p for p in proms)
+
+
+def test_recorded_checkpointed_check_resumes_from_every_crash_state(card, tmp_path):
+    """Kip320 2r on the card with a checkpoint every level: cut at depth 5,
+    the leg to 6 recorded by durable_io's recorder, and every crash state
+    of its ops (resilience/crashcheck/fsmodel) resumed on the card to the
+    uncrashed run's levels and digest chain, which are the CPU run's (a
+    state where no generation verifies must raise CheckpointCorrupt, and a
+    fresh run then gives the same)."""
+    from kafka_specification_tpu_torch import durable_io
+    from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
+    from kafka_specification_tpu_torch.resilience.checkpoints import (
+        CheckpointCorrupt, verify_file)
+    from kafka_specification_tpu_torch.resilience.crashcheck.fsmodel import (
+        enumerate_crash_states, materialize, snapshot_tree)
+
+    def model():
+        return kip320.make_model(Config(2, 2, 1, 1))
+
+    def chain(d):
+        return verify_file(str(d / CHECKPOINT_BASENAME))["digest_chain"]
+
+    ref = check(model(), device="cpu", checkpoint_dir=str(tmp_path / "cpu"))
+    ck = tmp_path / "ck"
+    check(model(), device=card, checkpoint_dir=str(ck), max_depth=5)
+    base, dirs = snapshot_tree(str(ck))
+    rec = durable_io.OpRecorder(str(ck))
+    prev = durable_io.install(rec)
+    try:
+        check(model(), device=card, checkpoint_dir=str(ck), max_depth=6)
+    finally:
+        durable_io.install(prev)
+    assert [op["op"] for op in rec.ops] == ["write", "rename", "rename", "rename"]
+    states = enumerate_crash_states(base, rec.ops)
+    assert len(states) >= 10
+    for i, st in enumerate(states):
+        dest = tmp_path / f"state-{i}"
+        materialize(st, dirs, str(dest))
+        try:
+            res = check(model(), device=card, checkpoint_dir=str(dest))
+        except CheckpointCorrupt:
+            dest = tmp_path / f"fresh-{i}"
+            res = check(model(), device=card, checkpoint_dir=str(dest))
+        assert (res.levels, res.total, res.diameter) == (ref.levels, 277, ref.diameter), i
+        np.testing.assert_array_equal(chain(dest), chain(tmp_path / "cpu"), err_msg=str(i))

@@ -248,7 +248,9 @@ def test_analyze_trace_vocab_target(monkeypatch, capsys):
     assert cli.main(["analyze", "--no-models", "--json"]) == 0
     rec = json.loads(capsys.readouterr().out)
     assert rec["targets"] == ["engine sources (ownership + purity)",
-                              "trace vocabulary (obs/fleettrace registries)"]
+                              "trace vocabulary (obs/fleettrace registries)",
+                              "durable-write discipline (durable_io boundary)",
+                              "raw-clock discipline (utils/clock boundary)"]
     assert not [f for f in rec["findings"] if f["kind"] == "trace-vocab"]
     monkeypatch.setattr(ft, "lint_trace_vocabulary", lambda *a, **k: [
         {"path": "x.py", "line": 3, "kind": "bogus",

@@ -87,7 +87,13 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "service.verdict", "service.kernel_cache", "service.scheduler",
                      "service.batch", "service.state_cache", "service.daemon",
                      "service.fleet", "service.router", "sweep", "sweep.lattice",
-                     "sweep.cost", "sweep.portfolio", "sweep.bisect"):
+                     "sweep.cost", "sweep.portfolio", "sweep.bisect",
+                     "analysis.durable_lint", "analysis.clock_lint",
+                     "resilience.crashcheck", "resilience.crashcheck.fsmodel",
+                     "resilience.crashcheck.harness", "resilience.crashcheck.scenarios",
+                     "resilience.simfleet", "resilience.simfleet.kernel",
+                     "resilience.simfleet.oracles", "resilience.simfleet.search",
+                     "resilience.simfleet.simclock"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -138,7 +144,13 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "service/verdict.py", "service/kernel_cache.py", "service/scheduler.py",
             "service/batch.py", "service/state_cache.py", "service/daemon.py",
             "service/fleet.py", "service/router.py", "sweep/__init__.py", "sweep/lattice.py",
-            "sweep/cost.py", "sweep/portfolio.py", "sweep/bisect.py"} <= names
+            "sweep/cost.py", "sweep/portfolio.py", "sweep/bisect.py",
+            "analysis/durable_lint.py", "analysis/clock_lint.py",
+            "resilience/crashcheck/__init__.py", "resilience/crashcheck/fsmodel.py",
+            "resilience/crashcheck/harness.py", "resilience/crashcheck/scenarios.py",
+            "resilience/simfleet/__init__.py", "resilience/simfleet/kernel.py",
+            "resilience/simfleet/oracles.py", "resilience/simfleet/search.py",
+            "resilience/simfleet/simclock.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
@@ -291,6 +303,40 @@ def test_the_fleet_router_and_sweep_client_paths_import_no_torch(tmp_path):
         job = Router(rt).submit(open("configs/IdSequence.cfg").read(), "IdSequence")["job_id"]
         with contextlib.redirect_stdout(io.StringIO()):
             assert cli.main(["trace", job, "--router", rt]) == 0
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("torch", "jax", "jaxlib", "kafka_specification_tpu"))
+        assert not bad, bad
+        print("clean")
+        """
+    )
+    env = {**os.environ}
+    env.pop("KSPEC_FAULT", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_the_harness_verbs_import_no_torch(tmp_path):
+    """`cli crashcheck`, `cli simfleet run` and `cli faults --list` (text
+    and --json) run in a fresh interpreter that ends with no torch, and
+    nothing of JAX, in sys.modules: the harnesses drive the torch-free
+    control plane only."""
+    code = textwrap.dedent(
+        f"""
+        import contextlib, io, json, sys
+        from kafka_specification_tpu_torch import cli
+        outs = []
+        for args in (["crashcheck", "--json"],
+                     ["simfleet", "run", "--seeds", "3", "--json",
+                      "--out", {str(tmp_path / "repros")!r}],
+                     ["faults", "--list"], ["faults", "--json"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                assert cli.main(args) == 0, args
+            outs.append(buf.getvalue())
+        assert json.loads(outs[0])["states"] == 254 and json.loads(outs[1])["clean"] == 3
+        assert "Crashcheck scenarios" in outs[2]
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("torch", "jax", "jaxlib", "kafka_specification_tpu"))
         assert not bad, bad
