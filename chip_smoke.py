@@ -268,6 +268,22 @@ print no result:
          run to the same.  (a) and (b) run on the host meanwhile.  K1
          counted on every leg (`harness ckpt ...`) and held at each leg's
          largest launch
+  sharded  the sharded engine's per-chunk path (parallel/sharded.py,
+         check_sharded) at D = 8 logical shards on cuda:0: (a) Kip320 3r on
+         `device`, `device-hash` and `host` with the all_to_all exchange
+         and on `device` with all_gather: 737,794 states, diameter 25, the
+         pinned levels and the JAX package's chain (spied), K1 launched on
+         every run and K2 on device-hash; (b) Kip320FirstTry 3r with
+         StrongIsr only: violated at depth 12, the pinned levels, the trace
+         replayed through the port's oracle (an init state, each step a
+         successor, StrongIsr false at the end); (c) crash@shard3:level:6
+         with a checkpoint every level at D = 8, resumed at D = 8 and,
+         from a second crashed run, elastically at D = 4: the pinned
+         levels and chain; (d) KSPEC_MULTIHOST=1: a world-size-1 NCCL
+         group, `device` at D = 1 with every exchange and gather an NCCL
+         collective: the same.  Each run counted from 0 (`sharded ...`)
+         and its kernels held at its largest launch; the walls beside the
+         card's name and power limit (one card: no multi-device speedup)
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
@@ -3226,6 +3242,162 @@ def phase_harness():
             "counts": counts}
 
 
+# --- phase sharded: the sharded engine's per-chunk path (parallel/) --------
+
+SHARDS = 8
+
+
+def _sharded_run(name, model_fn, path_kernels, mesh=None, fault=None, **knobs):
+    """check_sharded() on the card (D = SHARDS logical shards on cuda:0
+    unless `mesh`), counted from 0, under the fault plan `fault` if any
+    (which must stop it with InjectedCrash: -> None), the digest chain
+    spied; then the path's kernels held at its largest launch.  -> (result,
+    chain array, wall, counts, note)."""
+    from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+    from kafka_specification_tpu_torch.resilience.faults import InjectedCrash
+
+    mesh = mesh or ShardMesh(SHARDS, DEV)
+    _reset_counts()
+    t0 = time.perf_counter()
+    if fault:
+        os.environ["KSPEC_FAULT"] = fault
+    try:
+        with _chain_spy() as chains:
+            res = check_sharded(model_fn(), mesh=mesh, **knobs)
+    except InjectedCrash:
+        if not fault:
+            raise
+        res = None
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if fault and res is not None:
+        raise AssertionError(f"{name}: {fault} did not fire")
+    counts = _read_counts(path_kernels)
+    total = 0 if res is None else res.total
+    chain = chains[-1].to_array() if chains else None
+    return res, chain, wall, counts, _hold_path_shapes(_largest(), total)
+
+
+def _sharded_full(name, res, chain, want_chain=True):
+    if not res.ok or res.levels != KIP320_LEVELS or res.diameter != 25:
+        raise AssertionError(f"{name}: ok={res.ok} levels {res.levels}")
+    if want_chain and not np.array_equal(chain, np.array(KIP320_CHAIN, dtype=np.uint64)):
+        raise AssertionError(f"{name}: the digest chain is not the JAX package's")
+
+
+def _replay_first_try(v):
+    """The counterexample replayed through the port's oracle: an init state,
+    each step a successor under its action, the last state violating."""
+    from kafka_specification_tpu_torch import build_model, load_config
+
+    cfg = load_config("configs/Kip320FirstTry.cfg")
+    cfg.invariants = ["StrongIsr"]
+    oracle = build_model("Kip320FirstTry", cfg, oracle=True)
+    actions = {a.name: a for a in oracle.actions}
+    cur = v.trace[0][1]
+    if cur not in set(oracle.init_states()):
+        raise AssertionError("the trace's first state is not an init state of the oracle")
+    for a, nxt in v.trace[1:]:
+        if nxt not in set(actions[a].successors(cur)):
+            raise AssertionError(f"the trace's step {a} is not a transition of the oracle")
+        cur = nxt
+    (inv_name, pred), = [(n, p) for n, p in oracle.invariants if n == "StrongIsr"]
+    if pred(cur):
+        raise AssertionError("the trace's last state satisfies StrongIsr in the oracle")
+
+
+def phase_sharded():
+    """The sharded engine (parallel/sharded.py) at D = SHARDS logical shards
+    on cuda:0: (a) Kip320 3r on device, device-hash and host with
+    all_to_all and on device with all_gather: the pinned levels and the
+    JAX package's chain; (b) Kip320FirstTry StrongIsr at depth 12, its
+    trace replayed through the oracle; (c) crash@shard3:level:6 with a
+    checkpoint every level, resumed at D = 8 and elastically at D = 4; (d)
+    a world-size-1 NCCL group at D = 1 on device.  Each run counted from 0
+    and its kernels held at its largest launch."""
+    from kafka_specification_tpu_torch import build_model, load_config
+    from kafka_specification_tpu_torch.parallel import ShardMesh, multihost
+
+    def kip():
+        return build_model("Kip320", load_config("configs/Kip320.cfg"))
+
+    from kafka_specification_tpu_torch.utils.timing import card_line
+
+    card = card_line()
+    counts, parts, held = {}, [], []
+    for backend, exchange, kernels in (
+            ("device", "all_to_all", ("fingerprint",)),
+            ("device-hash", "all_to_all", ("fingerprint", "hash_probe_insert")),
+            ("host", "all_to_all", ("fingerprint",)),
+            ("device", "all_gather", ("fingerprint",))):
+        name = f"D={SHARDS} {backend} {exchange}"
+        res, chain, wall, c, note = _sharded_run(name, kip, kernels, visited_backend=backend,
+                                                 exchange=exchange)
+        _sharded_full(name, res, chain)
+        counts[name] = c
+        parts.append(f"{name} {wall:.2f} s (launches {c})")
+        held.append(note)
+
+    # (b) the first violation and its trace
+    def first_try():
+        cfg = load_config("configs/Kip320FirstTry.cfg")
+        cfg.invariants = ["StrongIsr"]
+        return build_model("Kip320FirstTry", cfg)
+
+    res, _chain, wall, c, note = _sharded_run("first-try", first_try, ("fingerprint",))
+    v = res.violation
+    if v is None or (v.invariant, v.depth) != ("StrongIsr", 12):
+        raise AssertionError(f"first-try: expected StrongIsr at depth 12, got "
+                             f"{v and (v.invariant, v.depth)}")
+    if res.levels != FIRST_TRY_STRONG_LEVELS or len(v.trace) != 13:
+        raise AssertionError(f"first-try: levels {res.levels}, trace of {len(v.trace)}")
+    _replay_first_try(v)
+    counts[f"D={SHARDS} first-try StrongIsr"] = c
+    parts.append(f"first-try StrongIsr at depth 12 after {res.total} states, trace replayed "
+                 f"through the oracle, {wall:.2f} s")
+    held.append(note)
+
+    # (c) a shard-scoped crash, resumed on the same mesh and elastically
+    for to in (SHARDS, SHARDS // 2):
+        ckpt = WORK / f"sharded-crash-{to}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _res, _c, w1, c1, _n = _sharded_run(f"crash to {to}", kip, ("fingerprint",),
+                                            fault="crash@shard3:level:6",
+                                            checkpoint_dir=str(ckpt))
+        res, chain, w2, c2, note = _sharded_run(f"resume at D={to}", kip, ("fingerprint",),
+                                                mesh=ShardMesh(to, DEV),
+                                                checkpoint_dir=str(ckpt))
+        _sharded_full(f"resume at D={to}", res, chain)
+        counts[f"crash D={SHARDS} for D={to}"] = c1
+        counts[f"resume D={to}"] = c2
+        parts.append(f"crash@shard3:level:6 at D={SHARDS} ({w1:.2f} s) resumed at D={to} "
+                     f"({w2:.2f} s) to the pinned levels and chain")
+        held.append(note)
+
+    # (d) the NCCL route: a world-size-1 group, every exchange a collective
+    os.environ["KSPEC_MULTIHOST"] = "1"
+    try:
+        info = multihost.init_distributed(DEV)
+        backend = torch.distributed.get_backend()
+        res, chain, wall, c, note = _sharded_run("nccl D=1", kip, ("fingerprint",),
+                                                 mesh=ShardMesh(1, DEV))
+    finally:
+        os.environ.pop("KSPEC_MULTIHOST", None)
+        multihost.leave_distributed()
+    if backend != "nccl" or info["process_count"] != 1:
+        raise AssertionError(f"the group is {backend} of {info['process_count']}")
+    _sharded_full("nccl D=1", res, chain)
+    counts["nccl D=1 device"] = c
+    parts.append(f"NCCL world size 1, D=1 device {wall:.2f} s")
+    held.append(note)
+    return {"line": f"Kip320 3r {res.total} states, diameter 25, the pinned levels and the JAX "
+                    f"package's chain on every run; {'; '.join(parts)}; walls on {card}, one "
+                    f"card, so no multi-device speedup is measured; {'; '.join(held)}",
+            "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3265,6 +3437,7 @@ def main() -> int:
     serve = ph.run("serve", phase_serve)
     fleet = ph.run("fleet", phase_fleet)
     harness = ph.run("harness", phase_harness)
+    sharded = ph.run("sharded", phase_sharded)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -3283,7 +3456,8 @@ def main() -> int:
                **{f"resilience {p}": c for p, c in resilience["counts"].items()},
                **{f"serve {p}": c for p, c in serve["counts"].items()},
                **{f"fleet {p}": c for p, c in fleet["counts"].items()},
-               **harness["counts"]}
+               **harness["counts"],
+               **{f"sharded {p}": c for p, c in sharded["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

@@ -18,6 +18,9 @@ a checkpoint directory.
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --resilient \
         --checkpoint ckpt/ --run-dir runs/k320r
     python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --integrity-shadow 0.1
+    python -m kafka_specification_tpu_torch.cli check configs/Kip320.cfg --sharded
+    torchrun --nproc-per-node 2 -m kafka_specification_tpu_torch.cli check \
+        configs/FiniteReplicatedLog.cfg --sharded --cpu --visited-backend host
     python -m kafka_specification_tpu_torch.cli faults --list
     python -m kafka_specification_tpu_torch.cli crashcheck --json
     python -m kafka_specification_tpu_torch.cli simfleet run --seeds 50
@@ -80,10 +83,19 @@ device and touches no card.  ``--integrity-shadow RATE`` samples chunks for
 the host fingerprint oracle (``check(integrity_shadow=)``; a mismatch is
 exit 76).
 
+``check --sharded`` runs the sharded engine (``parallel/sharded.py``): one
+shard per device the runtime exposes, the shards of the process group when
+there is one.  The process joins the group before anything touches a
+device when torchrun's variables (``MASTER_ADDR``, ``WORLD_SIZE``,
+``RANK``, ...) or ``KSPEC_MULTIHOST=1`` are set: NCCL on the card, gloo
+with ``--cpu``.  ``--integrity-shadow`` is refused under ``--sharded``
+(exit 2), as in the JAX package.
+
 ``verify-checkpoint DIR`` checks a checkpoint directory offline (every
-generation's checksums and digest chain, and the spill files its disk-tier
-manifests reference): exit 0 iff every checkpoint chain has a resumable
-generation, with the JAX package's report (``--json``) or its text.
+generation's checksums and digest chain, the per-host part files a sharded
+generation needs, and the spill files its disk-tier manifests reference):
+exit 0 iff every checkpoint chain has a resumable generation, with the JAX
+package's report (``--json``) or its text.
 
 ``simulate`` is TLC's ``-simulate`` (``engine/simulate.py``): ``--walks``
 random walks of at most ``--depth`` steps from ``--seed``, the same walks
@@ -268,6 +280,16 @@ def _check(args, argv) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return EXIT_ERROR
+    if args.sharded and args.integrity_shadow:
+        # shadow re-execution is a single-device oracle; dropping the flag
+        # on a sharded run would report a clean pass
+        print(
+            "error: --integrity-shadow is single-device only (the shadow "
+            "oracles are the legacy pipeline + host fingerprint oracle); "
+            "re-run without --sharded to localize corruption",
+            file=sys.stderr,
+        )
+        return EXIT_ERROR
     if args.fault:
         try:
             FaultPlan(args.fault)  # the grammar, before anything runs
@@ -279,25 +301,42 @@ def _check(args, argv) -> int:
         # before the model is built or a device resolved: the supervisor
         # only re-runs this command as its child
         return _run_resilient(args, argv)
+    device = "cpu" if args.cpu else args.device
+    if os.environ.get("MASTER_ADDR") or os.environ.get("KSPEC_MULTIHOST") == "1":
+        # a process of a torchrun (or KSPEC_MULTIHOST=1) job joins its group
+        # before anything touches a device
+        from .parallel.multihost import init_distributed
+
+        info = init_distributed(device)
+        if info["process_count"] > 1:
+            print(f"[fleet] process {info['process_id']}/{info['process_count']} "
+                  f"({info['local_devices']} local / {info['global_devices']} global devices)",
+                  file=sys.stderr)
     model = _model(args, tlc_cfg)
     if model is None:
         return EXIT_ERROR
     from .engine.bfs import check
+    from .parallel.multihost import is_coordinator
     from .resilience.integrity import shadow_rate
 
     # every check gets a run directory: manifest, stats, spans and metrics
     # under one run_id (`cli report` renders it, live or post-mortem)
-    run_ctx = RunContext(args.run_dir)
-    run_ctx.record_config(module=_module(args), cfg=args.cfg, sharded=False,
-                          checkpoint=args.checkpoint, stats=args.stats)
+    run_ctx = RunContext(args.run_dir) if is_coordinator() else None
+    if run_ctx is not None:
+        run_ctx.record_config(module=_module(args), cfg=args.cfg, sharded=args.sharded,
+                              checkpoint=args.checkpoint, stats=args.stats)
     spill_defaulted = False
-    if args.mem_budget is not None and args.spill_dir is None and args.checkpoint is None:
+    if (args.mem_budget is not None and args.spill_dir is None and args.checkpoint is None
+            and run_ctx is not None):
         # an un-homed disk tier spills under the run directory, so a
         # crashed run's spill sits next to its stats and spans; a
         # completed run removes it
         args.spill_dir = run_ctx.spill_dir
         spill_defaulted = True
-    print(f"[obs] run dir: {run_ctx.dir} (run {run_ctx.run_id})", file=sys.stderr)
+    # one run directory a job: in a multi-process run only process 0 opens it
+    run_id = run_ctx.run_id if run_ctx is not None else None
+    if run_ctx is not None:
+        print(f"[obs] run dir: {run_ctx.dir} (run {run_ctx.run_id})", file=sys.stderr)
     kw = {} if args.chunk_size is None else {"chunk_size": args.chunk_size}
     try:
         shadow_rate(args.integrity_shadow)
@@ -311,8 +350,7 @@ def _check(args, argv) -> int:
         os.makedirs(args.profile, exist_ok=True)
         prof = start_profiler()
     try:
-        res = check(
-            model,
+        common = dict(
             max_depth=args.max_depth,
             max_states=args.max_states,
             store_trace=not args.no_trace,
@@ -331,17 +369,22 @@ def _check(args, argv) -> int:
             disk_budget=args.disk_budget,
             run=run_ctx,
             overlap=args.overlap,
-            device="cpu" if args.cpu else args.device,
-            integrity_shadow=args.integrity_shadow,
+            device=device,
             **kw,
         )
+        if args.sharded:
+            from .parallel.sharded import check_sharded
+
+            res = check_sharded(model, **common)
+        else:
+            res = check(model, integrity_shadow=args.integrity_shadow, **common)
     except IntegrityError as e:
         # the run's data failed a check: its own exit code, so a
         # supervisor resumes from the newest chain-verified generation
         print(f"INTEGRITY VIOLATION: {e}", file=sys.stderr)
         if args.json:
             print(json.dumps(error_verdict(f"INTEGRITY_VIOLATION[{e.site}]: {e.detail}",
-                                           run_id=run_ctx.run_id, exit_code=EXIT_INTEGRITY)))
+                                           run_id=run_id, exit_code=EXIT_INTEGRITY)))
         if args.checkpoint:
             print(f"  re-running resumes from the newest chain-verified generation in "
                   f"{args.checkpoint} (verify offline with `... verify-checkpoint "
@@ -358,7 +401,7 @@ def _check(args, argv) -> int:
         print(f"RESOURCE EXHAUSTED: {e}", file=sys.stderr)
         if args.json:
             print(json.dumps(error_verdict(f"RESOURCE_EXHAUSTED[{e.reason}]: {e.detail}",
-                                           run_id=run_ctx.run_id,
+                                           run_id=run_id,
                                            exit_code=EXIT_RESOURCE_EXHAUSTED)))
         if args.checkpoint:
             print(f"  checkpoint intact at {args.checkpoint} — verify with `... "
@@ -373,9 +416,10 @@ def _check(args, argv) -> int:
     except (RuntimeError, ValueError, CheckpointCorrupt) as e:
         # no card, an unknown $KSPEC_PIPELINE, no g++ for the host set, a
         # checkpoint of another config or none that verifies: no result
-        rec = error_verdict(f"{type(e).__name__}: {e}", run_id=run_ctx.run_id)
-        run_ctx.finish("error", error=rec["error"])
-        run_ctx.deactivate()
+        rec = error_verdict(f"{type(e).__name__}: {e}", run_id=run_id)
+        if run_ctx is not None:
+            run_ctx.finish("error", error=rec["error"])
+            run_ctx.deactivate()
         if args.json:
             print(json.dumps(rec))
         else:
@@ -383,12 +427,12 @@ def _check(args, argv) -> int:
         return verdict_exit_code(rec)
     finally:
         if prof is not None:
-            stop_profiler(prof, os.path.join(args.profile, f"{run_ctx.run_id}.pt.trace.json"))
+            stop_profiler(prof, os.path.join(args.profile, f"{run_id}.pt.trace.json"))
     if spill_defaulted:
         # a completed run: the spilled fingerprints are dead weight (the
         # spill accounting lives on in the metrics and spans)
         shutil.rmtree(run_ctx.spill_dir, ignore_errors=True)
-    rec = verdict_from_result(res, run_id=run_ctx.run_id)
+    rec = verdict_from_result(res, run_id=run_id)
     if args.json:
         print(json.dumps(rec))
     else:
@@ -454,8 +498,14 @@ def _print_verify_checkpoint(rep: dict) -> None:
         print(f"  {store['basename']}: {'OK' if store['ok'] else 'NOT RESUMABLE'}")
         for g in store["generations"]:
             bits = [f"gen {g['gen']}", f"depth {g.get('depth')}"]
+            if "mesh_D" in g:
+                bits.append(f"shards {g['mesh_D']} x procs {g.get('mesh_P')}")
             if g.get("digest_chain") and g["digest_chain"] != "absent":
                 bits.append(f"chain {g['digest_chain']}")
+            if g.get("parts"):
+                bits.append("parts " + ",".join(
+                    f"{p}@{gen}" if gen is not None else f"{p}@MISSING"
+                    for p, gen in sorted(g["parts"].items())))
             if "spill" in g:
                 bits.append(f"spill {g['spill']['files_checked']} files "
                             + ("resolved" if g["spill"]["ok"] else "BROKEN"))
@@ -1375,6 +1425,7 @@ def main(argv=None) -> int:
         "cwd; reopening an existing run dir resumes its run_id).  Render it "
         "later with `cli report`",
     )
+    pc.add_argument("--sharded", action="store_true", help="mesh-sharded engine")
     pc.add_argument("--max-depth", type=int)
     pc.add_argument("--max-states", type=int)
     pc.add_argument("--no-trace", action="store_true", help="skip trace storage")

@@ -1083,7 +1083,7 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
                      if seed.get("digest_chain") is not None
                      else integrity.LevelDigestChain.from_levels(levels))
     elif loaded is not None:
-        snap, _gen = loaded
+        snap, _parts, _gen = loaded
         if disk is not None:
             visited = _TierVisited.resume(snap, disk)
             frontier = _SpilledFrontier(disk.pending(), dev)

@@ -1,7 +1,8 @@
-"""RunObserver: the engine's one window into the obs subsystem.
+"""RunObserver: the engines' one window into the obs subsystem.
 
 The port's own copy of ``kafka_specification_tpu/obs/observer.py``.
-``engine/bfs.py::check`` routes its per-level stats through it:
+``engine/bfs.py::check`` and ``parallel/sharded.py::check_sharded``
+(``engine="sharded"``) route their per-level stats through it:
 
 - with only ``stats_path``, the emitted records are **identical** to the
   stream the engine wrote before it had a run context — same envelope,
@@ -9,7 +10,8 @@ The port's own copy of ``kafka_specification_tpu/obs/observer.py``.
 - with a :class:`~.runctx.RunContext`, the same records are additionally
   run_id-stamped, routed to the run directory's ``stats.jsonl`` (unless
   ``stats_path`` points elsewhere), folded into the metrics registry
-  (states/sec, duplicate ratio, wall-share counters), snapshotted to
+  (states/sec, duplicate ratio, per-shard imbalance, wall-share
+  counters), snapshotted to
   ``metrics.jsonl`` + ``metrics.prom`` at most every 5 s and at the end,
   and bracketed by level spans.
 
@@ -118,7 +120,24 @@ class RunObserver:
             m.inc("kspec_step_ms_total", f["step_ms"])
         if "host_ms" in f:
             m.inc("kspec_host_ms_total", f["host_ms"])
-        # (the JAX package's per-shard gauges wait for the sharded engine)
+        # per-shard exchange balance (the sharded engine)
+        shard_new = f.get("shard_new")
+        if shard_new:
+            for d, v in enumerate(shard_new):
+                m.set_gauge("kspec_shard_new", v, shard=d)
+            mean = sum(shard_new) / len(shard_new)
+            m.set_gauge(
+                "kspec_shard_imbalance",
+                round(max(shard_new) / mean, 3) if mean else 0.0,
+            )
+        for key, name in (
+            ("shard_frontier", "kspec_shard_frontier"),
+            ("shard_duplicates", "kspec_shard_duplicates"),
+        ):
+            vals = f.get(key)
+            if vals:
+                for d, v in enumerate(vals):
+                    m.set_gauge(name, v, shard=d)
 
     # --- sub-level spans ---------------------------------------------------
     def chunk_span(self, kind: str, seconds: float, **attrs) -> None:

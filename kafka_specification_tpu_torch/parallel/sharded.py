@@ -1,0 +1,1215 @@
+"""Mesh-sharded BFS on torch.distributed: the per-chunk path (PyTorch).
+
+Counterpart of ``kafka_specification_tpu/parallel/sharded.py::
+check_sharded`` on its per-chunk step, the bit-identity oracle the JAX
+package holds every other sharded pipeline against.  The frontier and the
+fingerprint set are sharded over D shards (``multihost.ShardMesh``);
+every candidate successor is owned by the shard ``fp_lo mod D``:
+
+- each shard expands its chunk of the frontier with the per-chunk stages
+  of the single-device engine (``engine/pipeline.py``: the action kernels
+  on every cell, the enabled cells squeezed in candidate order,
+  fingerprints by kernel K1);
+- the candidates go to their owners: "all_to_all" routes each source
+  shard's candidates into D per-owner buckets and sends each bucket to its
+  owner; "all_gather" sends every candidate to every shard, which keeps
+  the ones it owns.  The payload is one int32 tensor a chunk, [W, 2 + K +
+  2] rows (hi, lo, the K lanes, the level-global parent, the action);
+- each owner sees its candidates source shard by source shard, each in
+  candidate order, sorts them stably by fingerprint (the first copy
+  wins) and dedups them against its own visited set: the sorted set of
+  order keys ("device"), a K2 hash table ("device-hash", one a shard,
+  launched once a local shard a chunk) or a native host set ("host", on
+  the process that owns the shard; the novelty masks are OR-merged across
+  processes).  Its new states, in fingerprint order, are its shard of the
+  next frontier.
+
+The result is the JAX package's at the same D, with zero tolerance: the
+levels, the per-shard new counts, the first violation (lowest invariant,
+then lowest shard, then its first row in the chunk; a deadlock: the
+lowest shard) and its trace value for value, the level digest chain
+(which is the single-device chain: it digests the level multisets) and
+the exchange framing verdict.  The chunk plan is copied exactly, since it
+decides which duplicate wins: each level splits every shard's pending
+rows in buckets of ``min(next_pow2(max(rem, min_bucket // D, 32)),
+chunk)`` rows, and the bucket selects the candidate order
+(``pipeline.compacts``, with this engine's gate of 1024).
+
+Widths.  XLA compiles fixed shapes, so the JAX step sizes its per-owner
+buckets (``_default_dest_w`` and a doubling ladder on overflow), its
+compact widths (``AdaptiveCompact``) and its sorted sets' capacity
+(``max vn + receive width``) by policy and re-runs a chunk that
+overflows.  Here every width is an exact count: W is the largest
+(source, owner) bucket of the chunk, and the sorted sets grow to the next
+power of two over the largest ``vn + new``.  So ``dest_w`` and
+``visited_capacity_per_shard`` differ from the JAX package's (ROADMAP
+"Not followed"); no array of a checkpoint that depends only on the search
+does.
+
+Processes.  The host loop is replicated (``multihost``): every process
+holds every shard's pending rows and takes the same decisions; it expands
+and dedups its own shards, and an all-gather brings every shard's chunk
+outcome to every process.  Within one process the exchange is a
+transpose; with a process group (gloo on the CPU, NCCL on the card) every
+exchange and gather is a collective, even at world size 1.
+
+Checkpoints are the JAX package's files, array for array
+(``sharded_checkpoint.npz``, the per-host ``.host<p>`` parts of a
+multi-process host run, the mesh stamps ``mesh_D``/``mesh_P`` and the
+legacy ident alias), so either package resumes the other's, on the same
+mesh or elastically on another (``_elastic_reshard``).  With a trace
+asked for, a checkpointed run writes per-shard parent logs under
+``<checkpoint_dir>/plog`` (``storage/parent_log.py::ShardedParentLog``).
+
+Left for ROADMAP item 8b, each refused with an error that names it: the
+device-resident sharded level (``pipeline="device"``), the compressed
+exchange (``KSPEC_EXCHANGE_COMPRESS=1``), the overlap legs (an explicit
+``overlap`` on, or ``KSPEC_OVERLAP`` on; the default is the serial path,
+which stats["overlap"] records), the disk tier and the resource governor
+(``store="disk"``, ``mem_budget``, ``disk_budget`` and the governor's
+environment).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..analysis import require_encoding_sound
+from ..engine.bfs import CheckResult, Violation, resolve_device, walk_trace
+from ..engine.pipeline import (compacts, deadlock_rows, expand_stage, first_copies, fp_stage,
+                               next_pow2, squeeze_stage)
+from ..interop import from_u32, to_u32
+from ..obs import metrics as _met
+from ..obs.observer import RunObserver
+from ..ops import dedup, hashset
+from ..ops.cuda_hashset import probe_insert
+from ..overlap import OVERLAP_ENV, overlap_enabled
+from ..pipeline_registry import resolve_pipeline
+from ..resilience import integrity as _integ
+from ..resilience.checkpoints import CheckpointStore
+from ..resilience.faults import WIRED_SHARDED, FaultPlan
+from ..resilience.heartbeat import append_jsonl, heartbeat_record
+from ..resilience.integrity import IntegrityError
+from ..resilience.resources import ResourceExhausted, is_disk_full
+from ..resilience.retry import ChunkRetryHandler
+from ..storage.parent_log import ParentLogCorrupt, ShardedParentLog
+from .multihost import (ShardMesh, all_gather_shards, all_to_all_shards, fetch_global,
+                        gather_rows, is_coordinator, is_multiprocess, max_across_processes,
+                        mesh_layouts, or_across_processes, process_count)
+
+# per-shard hash-table floor (module-level so tests can shrink it to
+# exercise growth at small state counts)
+_HASH_MIN_CAP = 1 << 14
+# what the JAX package saves as `vcap` and reports as the per-shard
+# capacity on the host backend: its placeholder arrays' width
+_NO_SORTED_CAP = 64
+CHECKPOINT_BASENAME = "sharded_checkpoint.npz"
+ITEM_8B = "ROADMAP Queue A item 8b"
+_U32 = 0xFFFFFFFF
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the sharded engine yet ({ITEM_8B}); the per-chunk "
+        f"path does not stand in for it")
+
+
+def _shard_tables_from_pairs(per_shard: dict, min_cap: int, device_of):
+    """Uniform-capacity per-shard K2 tables from per-shard (hi, lo) pairs.
+
+    `per_shard`: local shard -> (hi, lo) int64 tensors.  Every shard of
+    every process shares one capacity, ``next_pow2(max(min_cap, 4 * the
+    largest shard's count))``; if any table's build grows past it (probe
+    overflow, improbable at 1/4 load), every table is rebuilt at the
+    larger capacity.  -> (tables, cap)."""
+    n_max = max_across_processes(max((int(h.shape[0]) for h, _ in per_shard.values()),
+                                     default=1))
+    cap = next_pow2(max(min_cap, 4 * max(n_max, 1)))
+    while True:
+        tables, grown = {}, cap
+        for d, (hi, lo) in per_shard.items():
+            t = hashset.table_from_pairs(hi.to(device_of(d)), lo.to(device_of(d)), min_cap=cap)
+            tables[d] = t
+            grown = max(grown, int(t.shape[0]))
+        grown = max_across_processes(grown)
+        if grown == cap:
+            return tables, cap
+        cap = grown
+
+
+def _grow_hash_tables(tables: dict, new_cap: int, device_of):
+    """Rehash every shard's table into (>=) `new_cap` slots, all shards
+    together (the JAX rule: one capacity).  -> (tables, cap)."""
+    pairs = {d: hashset.live_pairs(t) for d, t in tables.items()}
+    return _shard_tables_from_pairs(pairs, new_cap, device_of)
+
+
+def _grow_sorted_shards(keys: dict, new_cap: int) -> dict:
+    """Every local shard's sorted set of order keys padded to `new_cap`."""
+    return {d: torch.cat([k, torch.full((new_cap - k.shape[0],), dedup.PAD, dtype=torch.int64,
+                                        device=k.device)]) for d, k in keys.items()}
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR of a 1-D int64 tensor's entries (a tree of pairwise XORs)."""
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+        x = x[0::2] ^ x[1::2]
+    return x.sum() if x.shape[0] else x.new_zeros(())
+
+
+# kspec: traced
+def _fp_digest(hi: torch.Tensor, lo: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Exchange framing record: order-invariant (count, xor_hi, xor_lo,
+    sum_hi, sum_lo) of a masked fingerprint multiset, the sums wrapping at
+    32 bits as the JAX package's u32 lanes do: int64[5].  Taken per shard
+    before and after the exchange; the host compares the global combines,
+    so a bit flipped in a routed fingerprint desyncs the two."""
+    mh = torch.where(mask, hi, 0)
+    ml = torch.where(mask, lo, 0)
+    return torch.stack([mask.sum(), _xor_reduce(mh), _xor_reduce(ml),
+                        mh.sum() & _U32, ml.sum() & _U32])
+
+
+def _combine_digs(dig: np.ndarray) -> tuple:
+    """Host-side global combine of per-shard [D, 5] framing digests
+    (counts sum exactly, xors xor, wrapping-u32 sums wrap)."""
+    dig = np.asarray(dig, np.int64)
+    return (
+        int(dig[:, 0].sum()),
+        int(np.bitwise_xor.reduce(dig[:, 1])) if dig.shape[0] else 0,
+        int(np.bitwise_xor.reduce(dig[:, 2])) if dig.shape[0] else 0,
+        int(dig[:, 3].sum() & _U32),
+        int(dig[:, 4].sum() & _U32),
+    )
+
+
+def _sentinel_rows(n: int, F: int, device) -> torch.Tensor:
+    """n empty payload rows: the sentinel fingerprint pair, zero lanes,
+    parent and action -1."""
+    rows = torch.zeros((n, F), dtype=torch.int32, device=device)
+    rows[:, :2] = -1  # 0xFFFFFFFF as int32
+    rows[:, F - 2:] = -1
+    return rows
+
+
+def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
+    """The per-chunk candidate exchange.  -> route(payloads, owners) with
+    `payloads`: local source shard -> int32[n, 2 + K + 2] candidate rows in
+    candidate order, `owners`: their owner shards; it returns, per local
+    owner shard, (int32[R, 2 + K + 2], mine): what every source shard sent
+    it, source by source, each in candidate order, padded with sentinel
+    rows, and `mine` None (all_to_all), or every candidate with `mine`
+    masking the owner's (all_gather); and the width W of the exchange (rows
+    a bucket)."""
+    if exchange not in ("all_to_all", "all_gather"):
+        raise ValueError(f"unknown exchange {exchange!r}")
+    D = mesh.size
+    F = 2 + K + 2
+
+    def route_a2a(payloads: dict, owners: dict):
+        counts = {d: torch.bincount(owners[d], minlength=D) for d in mesh.my_shards}
+        local_max = max((int(c.max()) for c in counts.values()), default=0)
+        W = max(1, max_across_processes(local_max))
+        sends = []
+        for d in mesh.my_shards:
+            p, o, c = payloads[d], owners[d], counts[d]
+            buf = _sentinel_rows(D * W, F, p.device)
+            if p.shape[0]:
+                order = torch.sort(o, stable=True).indices
+                start = torch.cumsum(c, 0) - c
+                oo = o[order]
+                slot = oo * W + torch.arange(oo.shape[0], device=p.device) - start[oo]
+                buf[slot] = p[order]
+            sends.append(buf.view(D, W, F))
+        recv = all_to_all_shards(sends, mesh)
+        return {d: (r.reshape(D * W, F), None) for d, r in zip(mesh.my_shards, recv)}, W
+
+    def route_gather(payloads: dict, owners: dict):
+        local_max = max((p.shape[0] for p in payloads.values()), default=0)
+        T = max(1, max_across_processes(local_max))
+        sends = []
+        for d in mesh.my_shards:
+            p = payloads[d]
+            buf = _sentinel_rows(T, F, p.device)
+            buf[: p.shape[0]] = p
+            sends.append(buf)
+        allc = all_gather_shards(sends, mesh).reshape(D * T, F)
+        owner = (allc[:, 1].to(torch.int64) & _U32) % D
+        return {d: (allc.to(mesh.device(d)), (owner == d).to(mesh.device(d)))
+                for d in mesh.my_shards}, T
+
+    return route_a2a if exchange == "all_to_all" else route_gather
+
+
+def _make_sharded_step(model, mesh: ShardMesh, exchange: str, visited_backend: str,
+                       compact_shift: int, compact_gate: int, check_deadlock: bool):
+    """One chunk over every local shard: expansion, the exchange and each
+    owner's dedup.  -> step(frontier, base, bucket, vis) where `frontier`:
+    local shard -> int64[rows, K] (this chunk's rows of its pending), `base`:
+    local shard -> the level-global index of its first row.  Returns
+    (flags, outs, W): `flags`, local shard -> int64 vector [inv_any (I),
+    inv_row (I), deadlock, deadlock_row, enabled per action (A), sent
+    digest (5), received digest (5)]; `outs`, local owner shard -> int64[n,
+    K + 4] (the lanes, parent, action, hi, lo) of its winners in
+    fingerprint order: the new states on the device backends, the first
+    copies on the host backend (the host set judges them at the commit)."""
+    spec = model.spec
+    K = spec.num_lanes
+    D = mesh.size
+    A = len(model.actions)
+    n_inv = len(model.invariants)
+    route = _make_exchange(mesh, exchange, K)
+
+    def expand(rows: torch.Tensor, base: int, action_major: bool):
+        """A source shard's chunk -> (flags head, payload int32[n, F], owners)."""
+        dev = rows.device
+        if rows.shape[0] == 0:
+            head = torch.zeros(2 * n_inv + 2 + A, dtype=torch.int64, device=dev)
+            return head, torch.zeros((0, 4 + K), dtype=torch.int32, device=dev), \
+                torch.zeros(0, dtype=torch.int64, device=dev), (rows.new_zeros(0),) * 2
+        states = spec.unpack(rows)
+        if n_inv:
+            bad = torch.stack([~inv.pred(states) for inv in model.invariants])
+            inv_any = bad.any(dim=1).to(torch.int64)
+            inv_row = torch.argmax(bad.to(torch.uint8), dim=1)
+        else:
+            inv_any = inv_row = rows.new_zeros(0)
+        en_pre, parts = expand_stage(model, states)
+        if check_deadlock:
+            dead = deadlock_rows(en_pre)
+            dl = torch.stack([dead.any().to(torch.int64), torch.argmax(dead.to(torch.uint8))])
+        else:
+            dl = rows.new_zeros(2)
+        act_en = torch.stack([e.sum() for e, _ in parts])
+        crows, cparent, cact = squeeze_stage(spec, parts, action_major)
+        hi, lo = fp_stage(spec, crows)  # K1 on the card
+        payload = torch.cat([hi[:, None], lo[:, None], crows, (cparent + base)[:, None],
+                             cact[:, None]], dim=1).to(torch.int32)
+        return torch.cat([inv_any, inv_row, dl, act_en]), payload, lo % D, (hi, lo)
+
+    def step(frontier: dict, base: dict, bucket: int, vis) -> tuple:
+        action_major = compacts(bucket, compact_shift, compact_gate)
+        heads, payloads, owners, sent = {}, {}, {}, {}
+        for d in mesh.my_shards:
+            head, payloads[d], owners[d], (hi, lo) = expand(frontier[d], base[d], action_major)
+            heads[d] = head
+            sent[d] = _fp_digest(hi, lo, torch.ones_like(hi, dtype=torch.bool))
+        recv, W = route(payloads, owners)
+        # each owner: first copies in fingerprint order, then its visited set
+        firsts = {}
+        for d in mesh.my_shards:
+            r, mine = recv[d]
+            hi = r[:, 0].to(torch.int64) & _U32
+            lo = r[:, 1].to(torch.int64) & _U32
+            valid = ~((hi == dedup.SENT) & (lo == dedup.SENT))
+            if mine is not None:
+                # all_gather: the candidates this shard does not own turn
+                # into sentinels, which sort last and are never new
+                valid &= mine
+                hi = torch.where(valid, hi, dedup.SENT)
+                lo = torch.where(valid, lo, dedup.SENT)
+            heads[d] = torch.cat([heads[d], sent[d], _fp_digest(hi, lo, valid)])
+            sk, order, first = first_copies(dedup.order_key(hi, lo))
+            firsts[d] = (r, hi, lo, sk, order, first & (sk != dedup.PAD))
+        winners = vis.novelty(firsts)
+        outs = {}
+        for d in mesh.my_shards:
+            r, hi, lo, _sk, order, _first = firsts[d]
+            idx = order[winners[d].nonzero().squeeze(1)]
+            w = r[idx]
+            lanes = w[:, 2 : 2 + K].to(torch.int64) & _U32
+            outs[d] = torch.cat([lanes, w[:, 2 + K :].to(torch.int64), hi[idx, None],
+                                 lo[idx, None]], dim=1)
+        return heads, outs, W
+
+    return step
+
+
+class _ShardSets:
+    """The visited sets of this process's shards, one backend's kind.
+
+    ``device``: each shard's sorted order keys (``ops/dedup.py``), all
+    padded to one capacity ``cap``; ``device-hash``: one K2 table a shard,
+    one capacity, grown for all together (``_grow_hash_tables``);
+    ``host``: one native set a shard, on its owner process only."""
+
+    def __init__(self, backend: str, mesh: ShardMesh):
+        self.backend = backend
+        self.mesh = mesh
+        self.keys: dict = {}  # device: order keys; device-hash: the table
+        self.vn: dict = {}  # device: each local shard's set size
+        self.host: list = [None] * mesh.size  # host: FpSet per owned shard
+        self.cap = _NO_SORTED_CAP
+
+    def dev(self, d: int):
+        return self.mesh.device(d)
+
+    # --- building ------------------------------------------------------
+    def build(self, pairs: dict, lens, cap: Optional[int] = None) -> None:
+        """From every local shard's (hi, lo) pairs (the sorted backend:
+        ascending), `lens` every shard's count; `cap`: the sorted sets'
+        capacity (None: the JAX package's initial rule)."""
+        if self.backend == "host":
+            from ..native import FpSet
+
+            for d, (hi, lo) in pairs.items():
+                s = FpSet(initial_capacity=max(64, 2 * int(hi.shape[0])))
+                if hi.shape[0]:
+                    s.insert(dedup.pair_key(hi, lo).cpu().numpy().view(np.uint64))
+                self.host[d] = s
+        elif self.backend == "device-hash":
+            self.keys, self.cap = _shard_tables_from_pairs(pairs, _HASH_MIN_CAP, self.dev)
+        else:
+            self.cap = cap
+            for d, (hi, lo) in pairs.items():
+                k = dedup.order_key(hi, lo).to(self.dev(d))
+                self.keys[d] = torch.cat([k, torch.full((cap - k.shape[0],), dedup.PAD,
+                                                        dtype=torch.int64, device=k.device)])
+                self.vn[d] = int(hi.shape[0])
+
+    def reserve(self, shard_visited: np.ndarray) -> None:
+        """device-hash, before a chunk: keep every table under 1/2 load."""
+        if self.backend == "device-hash" and 2 * int(shard_visited.max()) > self.cap:
+            self.keys, self.cap = _grow_hash_tables(self.keys, 2 * self.cap, self.dev)
+
+    # --- the chunk's dedup ---------------------------------------------
+    def novelty(self, firsts: dict) -> dict:
+        """Per local owner: bool over its sorted candidates, True for the
+        new ones (host: the first copies; the host set judges at commit)."""
+        if self.backend == "host":
+            return {d: f[5] for d, f in firsts.items()}
+        if self.backend == "device":
+            found = {}
+            for d, (_r, _hi, _lo, sk, _order, first) in firsts.items():
+                seen, rank = dedup.rank_sorted(self.keys[d], self.vn[d], sk)
+                is_new = first & ~seen
+                found[d] = (is_new, rank, int(is_new.sum()))
+            need = max_across_processes(max((self.vn[d] + n for d, (_, _, n) in found.items()),
+                                            default=0))
+            if need > self.cap:
+                self.cap = next_pow2(need)
+                self.keys = _grow_sorted_shards(self.keys, self.cap)
+            out = {}
+            for d, (is_new, rank, _n) in found.items():
+                sel = is_new.nonzero().squeeze(1)
+                sk = firsts[d][3]
+                self.keys[d], self.vn[d] = dedup.merge_ranked(self.keys[d], self.vn[d], sk[sel],
+                                                              rank[sel], self.cap)
+                out[d] = is_new
+            return out
+        # device-hash: insert-or-find of the first copies, in key order (K2
+        # takes the first copies alone, not the padded receive width)
+        out = {d: torch.zeros_like(f[5]) for d, f in firsts.items()}
+        pend = dict(firsts)
+        while True:
+            ovf = np.zeros(self.mesh.size, bool)
+            for d, (_r, hi, lo, _sk, order, first) in pend.items():
+                sel = first.nonzero().squeeze(1)
+                if not sel.shape[0]:
+                    continue
+                q = dedup.pair_key(hi[order[sel]], lo[order[sel]])
+                self.keys[d], is_new, _n, o = probe_insert(self.keys[d], q)
+                out[d][sel] |= is_new
+                ovf[d] = o
+            ovf = or_across_processes(ovf)
+            if not ovf.any():
+                return out
+            # a shard ran out of probes: every table grows, and the
+            # overflowing shards insert again (rows the failed attempt
+            # inserted report seen now; OR-ing keeps them new)
+            self.keys, self.cap = _grow_hash_tables(self.keys, 2 * self.cap, self.dev)
+            pend = {d: f for d, f in pend.items() if ovf[d]}
+
+    # --- checkpoint dumps ----------------------------------------------
+    def dump_pairs(self) -> list:
+        """Every shard's visited (hi, lo) u32 arrays, all processes' shards
+        gathered (device: ascending; device-hash: slot order)."""
+        local = []
+        for d in self.mesh.my_shards:
+            if self.backend == "device":
+                hi, lo = dedup.order_key_to_pair(self.keys[d][: self.vn[d]])
+            else:
+                hi, lo = hashset.live_pairs(self.keys[d])
+            local.append(torch.stack([hi, lo], dim=1))
+        got = gather_rows(local, 2)
+        return [(to_u32(g[:, 0]), to_u32(g[:, 1])) for g in got]
+
+
+def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, mesh, spec,
+                     visited_backend: str, sets: _ShardSets, device):
+    """Re-bucket a checkpoint of another shard or process count onto this
+    mesh (the JAX helper's rules).  Ownership is fingerprint arithmetic
+    (owner = fp_lo mod D), so this is a deterministic re-dealing of every
+    piece of persisted state, with no re-exploration:
+
+    - pending rows are fingerprinted again and dealt to their new owners;
+      within a shard the old concatenated order is kept, so the re-dealing
+      is deterministic and the parent log's boundary rewrite can mirror it;
+    - device and device-hash shards are rebuilt from the snapshot's
+      fingerprint pairs, host sets from the (per-host part) dumps.
+
+    -> (pending uint32 arrays per new shard, shard_visited)."""
+    D = mesh.size
+    K = spec.num_lanes
+    rows_all = (np.concatenate(old_pending) if any(p.shape[0] for p in old_pending)
+                else np.empty((0, K), np.uint32))
+    if rows_all.shape[0]:
+        _hi, rlo = fp_stage(spec, from_u32(rows_all, device))
+        rowner = rlo.cpu().numpy() % D
+    else:
+        rowner = np.empty(0, np.int64)
+    pending = [rows_all[rowner == d] for d in range(D)]
+
+    def local_pairs(all_hi, all_lo):
+        owner = all_lo.astype(np.int64) % D
+        lens = np.bincount(owner, minlength=D).astype(np.int64)
+        pairs = {}
+        for d in mesh.my_shards:
+            sel = np.nonzero(owner == d)[0]
+            hi, lo = all_hi[sel], all_lo[sel]
+            if visited_backend == "device":
+                order = np.lexsort((lo, hi))
+                hi, lo = hi[order], lo[order]
+            pairs[d] = (from_u32(hi, mesh.device(d)), from_u32(lo, mesh.device(d)))
+        return pairs, lens
+
+    if visited_backend == "host":
+        if old_P > 1:
+            all_fps = np.concatenate([np.asarray(part_arrays[f"host{p}"]["host_fps"], np.uint64)
+                                      for p in range(old_P)])
+        else:
+            all_fps = np.asarray(snap["host_fps"], np.uint64)
+        pairs, lens = local_pairs((all_fps >> np.uint64(32)).astype(np.uint32),
+                                  (all_fps & np.uint64(_U32)).astype(np.uint32))
+        sets.build(pairs, lens)
+    elif visited_backend == "device-hash":
+        pairs, lens = local_pairs(np.asarray(snap["hash_hi"], np.uint32),
+                                  np.asarray(snap["hash_lo"], np.uint32))
+        sets.build(pairs, lens)
+    else:
+        vn_old = np.asarray(snap["vn"]).ravel()
+        vhi, vlo = np.asarray(snap["vhi"], np.uint32), np.asarray(snap["vlo"], np.uint32)
+        his = [vhi[d, : int(vn_old[d])] for d in range(old_D)]
+        los = [vlo[d, : int(vn_old[d])] for d in range(old_D)]
+        pairs, lens = local_pairs(np.concatenate(his) if his else np.empty(0, np.uint32),
+                                  np.concatenate(los) if los else np.empty(0, np.uint32))
+        sets.build(pairs, lens, cap=next_pow2(max(1024, 2 * int(lens.max() if lens.size else 1))))
+    return pending, lens
+
+
+def _refuse_8b(pipe_name: str, overlap, store: str, mem_budget, disk_budget) -> None:
+    """The items of ROADMAP 8b raise here, before anything runs."""
+    if pipe_name == "device":
+        raise _not_ported("pipeline='device' (the device-resident sharded level)")
+    if os.environ.get("KSPEC_EXCHANGE_COMPRESS", "") == "1":
+        raise _not_ported("the compressed exchange (KSPEC_EXCHANGE_COMPRESS=1)")
+    explicit = overlap is not None or os.environ.get(OVERLAP_ENV, "").strip()
+    if explicit and overlap_enabled(overlap):
+        raise _not_ported("the overlap layer (staged host commit, background merges, async "
+                          "checkpoint writes); pass overlap=False or leave it unset")
+    if store == "disk" or mem_budget is not None:
+        raise _not_ported("the disk tier (store='disk', mem_budget)")
+    if store not in ("auto", "ram"):
+        raise ValueError(f"store must be 'auto', 'ram' or 'disk', got {store!r}")
+    governed = [k for k in ("KSPEC_DISK_BUDGET", "KSPEC_RSS_BUDGET", "KSPEC_LEVEL_DEADLINE")
+                if os.environ.get(k)]
+    if disk_budget is not None or governed:
+        raise _not_ported("the resource governor (disk_budget" +
+                          "".join(f", ${k}" for k in governed) + ")")
+
+
+def check_sharded(
+    model,
+    mesh: Optional[ShardMesh] = None,
+    max_depth: Optional[int] = None,
+    max_states: Optional[int] = None,
+    min_bucket: int = 256,
+    progress=None,
+    check_deadlock: bool = False,
+    chunk_size: int = 16384,
+    store_trace: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_keep: int = 3,
+    stats_path: Optional[str] = None,
+    compact_shift: int = 2,
+    compact_gate: int = 1024,
+    exchange: str = "all_to_all",
+    visited_backend: str = "device",
+    mem_budget=None,
+    spill_dir: Optional[str] = None,
+    store: str = "auto",
+    disk_budget=None,
+    run=None,
+    shard_heartbeat_dir: Optional[str] = None,
+    overlap: Optional[bool] = None,
+    pipeline: Optional[str] = None,
+    device=None,
+) -> CheckResult:
+    """Exhaustive sharded BFS over `mesh` (default: ``ShardMesh.default``,
+    one shard per device the runtime exposes, on the card unless `device`
+    says "cpu"); arguments mean what they mean for the JAX engine's
+    check_sharded, with its defaults and in its order.  `device` is used
+    only to build the default mesh; a given mesh names its devices.
+
+    store_trace: keep each level's rows, parents and actions in
+    shard-major discovery order and report a violation with its full
+    trace.  checkpoint_dir: save every `checkpoint_every` levels (keep
+    `checkpoint_keep` generations) and resume from the newest that
+    verifies, on this mesh or elastically on another; with store_trace,
+    per-shard parent logs under ``<checkpoint_dir>/plog`` keep traces
+    across a resume.  stats_path / run: the per-level records, with the
+    per-shard frontier, new and (host) duplicate breakdowns; a run context
+    observes on the coordinator only.  shard_heartbeat_dir (or
+    $KSPEC_SHARD_HEARTBEAT_DIR, or ``<run dir>/shards``): every process
+    appends one line a level to ``proc<i>.jsonl``.  exchange:
+    "all_to_all" or "all_gather".  visited_backend: "device",
+    "device-hash" or "host".  compact_shift/compact_gate select the
+    candidate order of a chunk (``pipeline.compacts``).  pipeline: "legacy"
+    and "fused" run the per-chunk step; "device" raises (ROADMAP 8b), as
+    do the compressed exchange, the overlap legs, the disk tier and the
+    resource governor (module docstring).  $KSPEC_FAULT arms the faults of
+    ``faults.WIRED_SHARDED``; a shard-scoped one fires only on the process
+    owning its shard, and a plan naming another site is refused.
+    """
+    require_encoding_sound(model)
+    pipe_name = resolve_pipeline(pipeline)
+    _refuse_8b(pipe_name, overlap, store, mem_budget, disk_budget)
+    if visited_backend not in ("device", "device-hash", "host"):
+        raise ValueError(f"visited_backend must be 'device', 'device-hash' or 'host', "
+                         f"got {visited_backend!r}")
+    if exchange not in ("all_to_all", "all_gather"):
+        raise ValueError(f"unknown exchange {exchange!r}")
+    if mesh is None:
+        mesh = ShardMesh.default(resolve_device(device))
+    for dev in set(mesh.devices):
+        resolve_device(dev)
+    D = mesh.size
+    my_proc, my_shards = mesh.my_proc, mesh.my_shards
+    P = process_count()
+    fault = FaultPlan.from_env()
+    unwired = fault.unwired(WIRED_SHARDED)
+    if unwired:
+        raise ValueError(
+            f"fault plan {fault.spec!r}: site(s) {', '.join(unwired)} are not wired in the "
+            f"sharded engine (it wires {', '.join(sorted(f'{k}@{p}' for k, p in WIRED_SHARDED))})")
+    # shard-scoped faults fire only on the process hosting the shard
+    fault.set_local_shards(my_shards)
+    fault.validate_shards(D)
+
+    hb_dir = shard_heartbeat_dir or os.environ.get("KSPEC_SHARD_HEARTBEAT_DIR")
+    if hb_dir is None and run is not None:
+        hb_dir = os.path.join(run.dir, "shards")
+    if run is not None and not is_coordinator():
+        run = None
+    obs_ = RunObserver(run, stats_path, engine="sharded")
+    spec = model.spec
+    K = spec.num_lanes
+    C = model.total_fanout
+    home = mesh.device(my_shards[0])
+
+    inits = [{k: torch.as_tensor(np.asarray(v, np.int64)) for k, v in s.items()}
+             for s in model.init_states()]
+    init_packed = np.unique(torch.stack([spec.pack(s) for s in inits]).numpy(), axis=0)
+    n0 = init_packed.shape[0]
+
+    def decode_row(row):
+        if isinstance(row, np.ndarray):
+            row = torch.from_numpy(row.astype(np.int64))
+        st = {k: v.cpu().numpy() for k, v in spec.unpack(row).items()}
+        return model.decode(st) if model.decode else st
+
+    t0 = time.perf_counter()
+    init_t = torch.from_numpy(init_packed).to(home)
+    if model.invariants:
+        st0 = spec.unpack(init_t)
+        for inv in model.invariants:
+            ok = inv.pred(st0).cpu().numpy()
+            if not ok.all():
+                dec = decode_row(init_packed[int(np.argmax(~ok))])
+                res = CheckResult(model.name, [n0], n0, 0,
+                                  Violation(invariant=inv.name, depth=0, state=dec,
+                                            trace=[("<init>", dec)]),
+                                  time.perf_counter() - t0, 0.0, stats={"devices": D})
+                obs_.finish(res)
+                obs_.close()
+                return res
+    obs_.config(model=model.name, devices=D, exchange=exchange,
+                visited_backend=visited_backend, store="ram", mem_budget=mem_budget,
+                checkpoint_dir=checkpoint_dir,
+                platform="gpu" if home.type == "cuda" else home.type)
+
+    # the inits, dealt to their owners; each shard's set
+    hi0, lo0 = (t.cpu().numpy() for t in fp_stage(spec, init_t))
+    owner0 = lo0 % D
+    sets = _ShardSets(visited_backend, mesh)
+    pending = [init_packed[owner0 == d] for d in range(D)]  # uint32 lanes kept as int64
+    shard_visited = np.bincount(owner0, minlength=D).astype(np.int64)
+
+    def init_pairs():
+        pairs = {}
+        for d in my_shards:
+            sel = np.nonzero(owner0 == d)[0]
+            h, lo = hi0[sel], lo0[sel]
+            if visited_backend == "device":
+                order = np.lexsort((lo, h))
+                h, lo = h[order], lo[order]
+            pairs[d] = (torch.from_numpy(h.astype(np.int64)).to(mesh.device(d)),
+                        torch.from_numpy(lo.astype(np.int64)).to(mesh.device(d)))
+        return pairs
+
+    chunk = next_pow2(max(32, chunk_size))
+    levels = [n0]
+    total = n0
+    depth = 0
+    violation = None
+    result_levels: list = []
+    exch_bytes_total = 0
+
+    chain = _integ.LevelDigestChain() if _integ.enabled() else None
+    hb_path = None
+    if hb_dir:
+        os.makedirs(hb_dir, exist_ok=True)
+        hb_path = os.path.join(hb_dir, f"proc{my_proc}.jsonl")
+
+    def shard_beat(done_depth: int, **extra) -> None:
+        if hb_path is not None:
+            append_jsonl(hb_path, heartbeat_record(
+                "shard-heartbeat", proc=int(my_proc), pid=os.getpid(), shards=my_shards,
+                depth=int(done_depth), **extra))
+
+    chunk_retry = ChunkRetryHandler.from_env("[sharded]")
+    ckpt_store = None
+    last_ckpt_depth = None
+    resumed = elastic_resumed = False
+    plog = None
+    inv_names = ",".join(sorted(i.name for i in model.invariants))
+    # the mesh layout is NOT part of the identity: a checkpoint binds to the
+    # search, and another layout resumes it elastically; the writing layout
+    # is stamped as mesh_D / mesh_P instead
+    fields_ident = ",".join(f"{f.name}:{f.shape}:{f.lo}:{f.hi}" for f in spec.fields)
+    ckpt_ident = (f"{model.name}|lanes={K}|backend={visited_backend}|"
+                  f"inv={inv_names}|dl={check_deadlock}|" + fields_ident)
+    # the pre-elastic ident baked the layout in: accepted for THIS mesh only
+    ckpt_ident_legacy = (f"{model.name}|lanes={K}|D={D}|P={P}|backend={visited_backend}|"
+                         f"inv={inv_names}|dl={check_deadlock}|" + fields_ident)
+    if checkpoint_dir is not None:
+        want_trace = store_trace
+        store_trace = False
+        last_ckpt_depth = 0
+        checkpoint_every = max(1, int(checkpoint_every))
+        ckpt_store = CheckpointStore(
+            checkpoint_dir, CHECKPOINT_BASENAME, ident=ckpt_ident, keep=checkpoint_keep,
+            fault_plan=fault, ident_aliases=(ckpt_ident_legacy,),
+            validators=(_integ.checkpoint_chain_errors,) if chain is not None else (),
+        )
+        if want_trace:
+            plog = ShardedParentLog(os.path.join(checkpoint_dir, "plog"), K, D,
+                                    local_shards=my_shards, epoch_writer=is_coordinator(),
+                                    fault_plan=fault)
+
+        def parts_for(main):
+            # the per-host parts a main needs, from the layout IT records: a
+            # same-layout resume reads this process's part, an elastic one
+            # every old host's; a stamp-less legacy main passed the ident
+            # check through the same-layout alias, so its layout is ours
+            old_P_ = int(main["mesh_P"]) if "mesh_P" in main else P
+            old_D_ = int(main["mesh_D"]) if "mesh_D" in main else D
+            if visited_backend != "host" or old_P_ <= 1:
+                return ()
+            if old_D_ == D and old_P_ == P:
+                return (f"host{my_proc}",)
+            return tuple(f"host{p}" for p in range(old_P_))
+
+        loaded = ckpt_store.load(parts=parts_for)
+        if loaded is not None:
+            resumed = True
+            snap, part_arrays, _gen = loaded
+            if chain is not None:
+                chain = (_integ.LevelDigestChain.from_array(snap["digest_chain"])
+                         if "digest_chain" in snap
+                         else _integ.LevelDigestChain.from_levels(snap["levels"].tolist()))
+            old_D = int(snap["mesh_D"]) if "mesh_D" in snap else D
+            old_P = int(snap["mesh_P"]) if "mesh_P" in snap else P
+            elastic_resumed = old_D != D or old_P != P
+            flat, pending, at = snap["pending"], [], 0
+            for ln in snap["pending_lens"]:
+                pending.append(np.asarray(flat[at : at + int(ln)], np.uint32))
+                at += int(ln)
+            levels = snap["levels"].tolist()
+            total = int(snap["total"])
+            depth = last_ckpt_depth = int(snap["depth"])
+            # crash faults at or below the resume level count as fired
+            fault.set_start_depth(depth)
+            if elastic_resumed:
+                pending, shard_visited = _elastic_reshard(
+                    snap, part_arrays, old_D, old_P, pending, mesh=mesh, spec=spec,
+                    visited_backend=visited_backend, sets=sets, device=home)
+                if plog is not None and is_multiprocess():
+                    # the boundary rewrite replaces segments other processes
+                    # may be reading: a multi-process elastic resume stays
+                    # trace-less (as in the JAX package)
+                    plog = None
+                if plog is not None and not plog.reshard(depth, pending):
+                    plog = None  # old segments unreadable: trace-less
+                from ..obs import tracer as _obs_t
+
+                _obs_t.event("elastic-reshard", depth=depth, from_shards=old_D, to_shards=D,
+                             from_procs=old_P, to_procs=P)
+                _met.inc("kspec_elastic_reshards_total")
+            elif visited_backend == "host":
+                src = part_arrays[f"host{my_proc}"] if is_multiprocess() else snap
+                fps_flat, lens = np.asarray(src["host_fps"], np.uint64), src["host_lens"]
+                starts = np.concatenate([[0], np.cumsum(lens)])
+                pairs = {}
+                for d in my_shards:
+                    f = fps_flat[int(starts[d]) : int(starts[d + 1])]
+                    pairs[d] = (from_u32((f >> np.uint64(32)).astype(np.uint32), mesh.device(d)),
+                                from_u32((f & np.uint64(_U32)).astype(np.uint32), mesh.device(d)))
+                sets.build(pairs, lens)
+            elif visited_backend == "device-hash":
+                lens = np.asarray(snap["hash_lens"], np.int64)
+                shard_visited = lens.copy()
+                starts = np.concatenate([[0], np.cumsum(lens)])
+                pairs = {d: (from_u32(snap["hash_hi"][int(starts[d]) : int(starts[d + 1])],
+                                      mesh.device(d)),
+                             from_u32(snap["hash_lo"][int(starts[d]) : int(starts[d + 1])],
+                                      mesh.device(d))) for d in my_shards}
+                sets.build(pairs, lens)
+            else:
+                vn = np.asarray(snap["vn"]).ravel()
+                pairs = {d: (from_u32(snap["vhi"][d, : int(vn[d])], mesh.device(d)),
+                             from_u32(snap["vlo"][d, : int(vn[d])], mesh.device(d)))
+                         for d in my_shards}
+                sets.build(pairs, vn, cap=int(snap["vcap"]))
+                shard_visited = vn.astype(np.int64)
+            if plog is not None and not elastic_resumed and not plog.resume(depth):
+                plog = None  # no resolvable epochs: trace-less
+        if is_multiprocess():
+            # split-brain guard: every process must resume the same level
+            votes = fetch_global(torch.tensor([[depth]], dtype=torch.int64))
+            if len(set(votes.ravel().tolist())) != 1:
+                raise ValueError(
+                    "checkpoint resume disagreement: processes verified different checkpoint "
+                    "generations (per-host part corruption?) — restore or delete "
+                    f"{checkpoint_dir} and restart")
+    if not resumed:
+        sets.build(init_pairs(), shard_visited,
+                   cap=next_pow2(max(1024, 4 * n0)) if visited_backend == "device" else None)
+        if chain is not None:
+            chain.fold(_integ.pair_u64(hi0, lo0))
+            chain.seal(0, n0)
+    # the pending rows of every shard, on this process's device
+    pending = [from_u32(p, home) for p in pending]
+    step = _make_sharded_step(model, mesh, exchange, visited_backend, compact_shift,
+                              compact_gate, check_deadlock)
+
+    def levels_for_save():
+        levels_arr = np.asarray(levels)
+        if chain is not None and chain.anchored and fault.flip("ckpt", depth,
+                                                                ckpt_depth=last_ckpt_depth):
+            levels_arr = levels_arr.copy()
+            _integ.flip_bit(levels_arr)
+        return levels_arr
+
+    def save_checkpoint():
+        if visited_backend == "host":
+            dumps = [s.dump() if s is not None else np.empty(0, np.uint64) for s in sets.host]
+            if is_multiprocess():
+                # each process persists its own shards in a part file; the
+                # mesh stamps pair parts with mains
+                ckpt_store.save(depth, dict(
+                    host_fps=np.concatenate(dumps), host_lens=np.asarray([len(x) for x in dumps]),
+                    mesh_D=D, mesh_P=P), part=f"host{my_proc}")
+                extra = {}
+            else:
+                extra = {"host_fps": np.concatenate(dumps) if dumps else np.empty(0, np.uint64),
+                         "host_lens": np.asarray([len(x) for x in dumps])}
+        elif visited_backend == "device-hash":
+            pairs = sets.dump_pairs()
+            extra = {"hash_hi": np.concatenate([h for h, _ in pairs]),
+                     "hash_lo": np.concatenate([lo for _, lo in pairs]),
+                     "hash_lens": np.asarray([len(h) for h, _ in pairs])}
+        else:
+            pairs = sets.dump_pairs()
+            vn = np.asarray([len(h) for h, _ in pairs], np.int32)
+            w = int(vn.max()) if vn.size else 0
+            vhi = np.full((D, w), _U32, np.uint32)
+            vlo = np.full((D, w), _U32, np.uint32)
+            for d, (h, lo) in enumerate(pairs):
+                vhi[d, : len(h)], vlo[d, : len(lo)] = h, lo
+            extra = {"vhi": vhi, "vlo": vlo, "vn": vn}
+        if chain is not None and chain.anchored:
+            # flip@fpset, then the save-time self-check of the dump against
+            # the chain (a multi-process host run's dumps are partial)
+            pk = {"host": None if is_multiprocess() else "host_fps", "device-hash": "hash_hi",
+                  "device": "vhi"}[visited_backend]
+            if pk is not None:
+                if fault.flip("fpset", depth, ckpt_depth=last_ckpt_depth):
+                    extra[pk] = np.array(extra[pk], copy=True)
+                    _integ.flip_bit(extra[pk])
+                _integ.count_check()
+                chain.verify_visited(_integ.visited_fps(extra), depth=depth)
+        if not is_coordinator():
+            return
+        pend = [to_u32(p).reshape(-1, K) for p in pending]
+        arrays = dict(
+            pending=np.concatenate(pend) if any(p.shape[0] for p in pend)
+            else np.empty((0, K), np.uint32),
+            pending_lens=np.asarray([p.shape[0] for p in pend]),
+            vcap=sets.cap, levels=levels_for_save(), total=total, mesh_D=D, mesh_P=P,
+            **extra,
+            **({"digest_chain": chain.to_array()} if chain is not None and chain.anchored
+               else {}),
+        )
+        path = ckpt_store.save(depth, arrays)
+        if chain is not None and chain.anchored:
+            _integ.readback_chain(path, depth=depth)
+
+    if elastic_resumed:
+        # one generation in the new layout at once: a crash before the next
+        # save resumes into it without re-dealing
+        save_checkpoint()
+
+    trace_store = []
+    if store_trace:
+        none = torch.full((n0,), -1, dtype=torch.int64, device=home)
+        trace_store.append((torch.cat(pending), none, none))
+    if plog is not None and not resumed:
+        plog.start_fresh()
+        plog.write_level(0, [to_u32(p).reshape(-1, K) for p in pending],
+                         [np.full(p.shape[0], -1, np.int64) for p in pending],
+                         [np.full(p.shape[0], -1, np.int64) for p in pending])
+    collect_trace = store_trace or plog is not None
+
+    def build_violation(inv_name, d_level, idx):
+        if store_trace:
+            return walk_trace(trace_store, model.actions, decode_row, inv_name, d_level, idx)
+        if plog is not None and plog.has_levels(d_level):
+            return walk_trace(plog.view(), model.actions, decode_row, inv_name, d_level, idx)
+        return None
+
+    n_inv = len(model.invariants)
+    A = len(model.actions)
+    shard_beat(depth, event="start", resumed=bool(resumed))
+    cut = False
+    exhausted = integrity_fail = None
+    try:
+        while any(p.shape[0] for p in pending):
+            fault.crash("level", depth, ckpt_depth=last_ckpt_depth)
+            if chain is not None:
+                sp = fault.flip("frontier", depth, ckpt_depth=last_ckpt_depth)
+                if sp:
+                    # a shard scope targets that shard's pending rows (the
+                    # first non-empty one when it holds none this level)
+                    d0 = sp.shard if sp.shard is not None else 0
+                    if pending[d0].shape[0] == 0:
+                        d0 = next((d for d in range(D) if pending[d].shape[0]), d0)
+                    u32 = to_u32(pending[d0])
+                    _integ.flip_bit(u32)
+                    pending[d0] = from_u32(u32, home)
+                # the frontier verify: the shards' combined multiset against
+                # the entry sealed at discovery (one K1 launch over them all)
+                keys = dedup.pair_key(*fp_stage(spec, torch.cat(pending)))
+                _integ.count_check()
+                chain.verify_level(depth, keys.cpu().numpy().view(np.uint64))
+            if max_depth is not None and depth >= max_depth:
+                cut = True
+                break
+            if max_states is not None and total >= max_states:
+                cut = True
+                break
+            t_level = time.perf_counter()
+            lens = [p.shape[0] for p in pending]
+            obs_.level_begin(depth + 1, int(sum(lens)))
+            next_pending = [[] for _ in range(D)]
+            next_parent = [[] for _ in range(D)]
+            next_act = [[] for _ in range(D)]
+            lvl_act_en = np.zeros(A, np.int64)
+            lvl_new_per_shard = np.zeros(D, np.int64)
+            lvl_en_per_shard = np.zeros(D, np.int64)
+            lvl_recv_per_shard = np.zeros(D, np.int64)
+            lvl_exch_bytes = 0
+            lvl_dispatches = 0
+            offs = [0] * D
+            prev_base = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+            verdict = None  # (invariant name, frontier row, level index)
+            while verdict is None:
+                rem = max(n - o for n, o in zip(lens, offs))
+                if rem <= 0:
+                    break
+                bucket = min(next_pow2(max(rem, min_bucket // D, 32)), chunk)
+                chunk_off = list(offs)
+                took = [min(bucket, lens[d] - offs[d]) for d in range(D)]
+                for d in range(D):
+                    offs[d] += took[d]
+                frontier = {d: pending[d][chunk_off[d] : chunk_off[d] + took[d]].to(mesh.device(d))
+                            for d in my_shards}
+                base = {d: int(prev_base[d] + chunk_off[d]) for d in my_shards}
+                t_chunk = time.perf_counter()
+                chunk_retry.reset_chunk()
+                while True:
+                    try:
+                        injected = fault.chunk_error(escalated=False)
+                        if injected is not None:
+                            raise injected
+                        sets.reserve(shard_visited)
+                        heads, outs, W = step(frontier, base, bucket, sets)
+                        lvl_dispatches += 1
+                        break
+                    except Exception as e:  # noqa: BLE001 -- the failure ladder decides
+                        # transient: re-run the attempt; a device allocation
+                        # failure halves the chunk from the next one on, and
+                        # re-runs this one (single process only: a lone
+                        # process retrying would desync the collectives)
+                        action = chunk_retry.handle(e, escalated=False, depth=depth,
+                                                    retry_transient=not is_multiprocess())
+                        if action == "degrade_chunk":
+                            chunk = max(next_pow2(max(32, min_bucket // D)), chunk >> 1)
+                # every shard's flags, digests and winners, on every process
+                g = fetch_global(torch.stack([heads[d].to(home) for d in my_shards]))
+                o = 0
+                viol_any = g[:, o : o + n_inv]
+                viol_idx = g[:, o + n_inv : o + 2 * n_inv]
+                o += 2 * n_inv
+                dl_any, dl_idx = g[:, o], g[:, o + 1]
+                act_en = g[:, o + 2 : o + 2 + A]
+                sd = g[:, o + 2 + A : o + 7 + A]
+                rd = np.array(g[:, o + 7 + A : o + 12 + A])
+                # the exchange framing check: across the mesh the received
+                # multiset combines to exactly the sent one; flip@exchange
+                # drives the detector's observation
+                if chain is not None:
+                    sp = fault.flip("exchange", depth + 1, ckpt_depth=last_ckpt_depth)
+                    if sp:
+                        rd[sp.shard if sp.shard is not None else 0, 1] ^= 0x10
+                    _integ.count_check()
+                    if _combine_digs(sd) != _combine_digs(rd):
+                        raise IntegrityError(
+                            "exchange",
+                            f"exchange payload framing mismatch at level {depth + 1}: sent "
+                            f"digest {_combine_digs(sd)} != received {_combine_digs(rd)} "
+                            f"({exchange}; a routed fingerprint was corrupted in flight)",
+                            depth=depth)
+                if exchange == "all_to_all":
+                    lvl_exch_bytes += D * D * W * (8 + 4 * K + 4 + 4)
+                obs_.chunk_span("exchange", time.perf_counter() - t_chunk, depth=depth,
+                                bucket=bucket, exchange=exchange, compressed=False)
+                # the chunk's verdicts (the states expanded are level `depth`)
+                if viol_any.any():
+                    inv_i = int(np.argmax(viol_any.any(axis=0)))
+                    d = int(np.argmax(viol_any[:, inv_i]))
+                    idx = int(viol_idx[d, inv_i])
+                    verdict = (model.invariants[inv_i].name, d, chunk_off[d] + idx,
+                               int(prev_base[d] + chunk_off[d] + idx))
+                    break
+                if check_deadlock and dl_any.any():
+                    d = int(np.argmax(dl_any))
+                    idx = int(dl_idx[d])
+                    verdict = ("Deadlock", d, chunk_off[d] + idx,
+                               int(prev_base[d] + chunk_off[d] + idx))
+                    break
+                got = [t.to(home) for t in gather_rows([outs[d] for d in my_shards], K + 4)]
+                counts = np.asarray([t.shape[0] for t in got], np.int64)
+                lvl_recv_per_shard += counts
+                if visited_backend == "host" and counts.any():
+                    # each shard's owner inserts its first copies in key
+                    # order; the masks are OR-merged, so every process takes
+                    # the same novelty decision
+                    masks = np.zeros((D, int(counts.max())), bool)
+                    for d in range(D):
+                        if counts[d] and sets.host[d] is not None:
+                            keys = dedup.pair_key(got[d][:, K + 2], got[d][:, K + 3])
+                            masks[d, : counts[d]] = sets.host[d].insert(
+                                keys.cpu().numpy().view(np.uint64))
+                    masks = or_across_processes(masks)
+                newc = np.zeros(D, np.int64)
+                for d in range(D):
+                    w = got[d]
+                    if visited_backend == "host" and w.shape[0]:
+                        w = w[torch.from_numpy(masks[d, : w.shape[0]]).to(w.device)]
+                    if not w.shape[0]:
+                        continue
+                    next_pending[d].append(w[:, :K])
+                    if chain is not None:
+                        chain.fold(dedup.pair_key(w[:, K + 2], w[:, K + 3]).cpu().numpy()
+                                   .view(np.uint64))
+                    if collect_trace:
+                        next_parent[d].append(w[:, K])
+                        next_act[d].append(w[:, K + 1])
+                    newc[d] = w.shape[0]
+                lvl_new_per_shard += newc
+                shard_visited += newc
+                if obs_.collect:
+                    lvl_act_en += act_en.sum(axis=0)
+                    lvl_en_per_shard += act_en.sum(axis=1)
+
+            if verdict is not None:
+                inv_name, d, row, gidx = verdict
+                violation = build_violation(inv_name, depth, gidx) or Violation(
+                    invariant=inv_name, depth=depth, state=decode_row(pending[d][row]),
+                    trace=[])
+                break
+
+            n_new = int(lvl_new_per_shard.sum())
+            exch_bytes_total += lvl_exch_bytes
+            depth += 1
+            if n_new:
+                levels.append(n_new)
+                total += n_new
+            if chain is not None:
+                if n_new:
+                    chain.seal(depth, n_new)
+                else:
+                    chain.reset_fold()
+            if obs_.collect and is_coordinator():
+                enabled_total = int(lvl_act_en.sum())
+                shard_extra = {}
+                if visited_backend == "host":
+                    shard_extra["shard_duplicates"] = (lvl_recv_per_shard
+                                                       - lvl_new_per_shard).tolist()
+                rec = obs_.level(
+                    depth=depth,
+                    frontier=int(prev_base[-1]),
+                    enabled_candidates=enabled_total,
+                    new=n_new,
+                    duplicates=enabled_total - n_new,
+                    total=total,
+                    level_ms=round((time.perf_counter() - t_level) * 1e3, 1),
+                    shard_new=lvl_new_per_shard.tolist(),
+                    shard_frontier=np.diff(prev_base).astype(np.int64).tolist(),
+                    shard_enabled=lvl_en_per_shard.tolist(),
+                    **shard_extra,
+                    action_enablement={a.name: int(c)
+                                       for a, c in zip(model.actions, lvl_act_en.tolist())},
+                )
+                # in memory only, as in the JAX package: the exchange bytes
+                # (at the port's exact widths) and the per-shard launches
+                result_levels.append({
+                    **rec,
+                    "exch_bytes": int(lvl_exch_bytes),
+                    "exch_raw_bytes": int(lvl_exch_bytes),
+                    "shard_launches": int(lvl_dispatches),
+                    "io_hidden_ms": 0.0,
+                    "io_exposed_ms": 0.0,
+                })
+                _met.set_gauge("kspec_shard_launches_level", int(lvl_dispatches))
+                if lvl_exch_bytes:
+                    _met.set_gauge("kspec_exchange_bytes_level", int(lvl_exch_bytes))
+                    _met.set_gauge("kspec_exchange_compression_ratio", 1.0)
+            if progress:
+                progress(depth, n_new, total)
+            shard_beat(depth, new=n_new, total=total)
+            pending = [torch.cat(next_pending[d]) if next_pending[d]
+                       else torch.zeros((0, K), dtype=torch.int64, device=home)
+                       for d in range(D)]
+            parents = [torch.cat(x) if x else torch.zeros(0, dtype=torch.int64, device=home)
+                       for x in next_parent]
+            acts = [torch.cat(x) if x else torch.zeros(0, dtype=torch.int64, device=home)
+                    for x in next_act]
+            if plog is not None:
+                # the level's segments before the checkpoint: a checkpoint at
+                # depth R implies the log resolves every level <= R
+                plog.write_level(depth, [to_u32(p).reshape(-1, K) for p in pending],
+                                 [x.cpu().numpy() for x in parents],
+                                 [x.cpu().numpy() for x in acts])
+            if ckpt_store is not None and depth % checkpoint_every == 0:
+                save_checkpoint()
+                last_ckpt_depth = depth
+            if store_trace:
+                trace_store.append((torch.cat(pending), torch.cat(parents), torch.cat(acts)))
+    except ResourceExhausted as e:
+        exhausted = e
+    except IntegrityError as e:
+        integrity_fail = e
+    except ParentLogCorrupt as e:
+        integrity_fail = IntegrityError("storage", str(e), depth=depth)
+    except OSError as e:
+        if not is_disk_full(e):
+            raise
+        # ENOSPC from a checkpoint or parent-log writer: every writer cleaned
+        # up its tmp, so the promoted state is intact
+        exhausted = ResourceExhausted("enospc", str(e), depth=depth)
+    if integrity_fail is not None:
+        try:
+            _integ.record_violation(integrity_fail)
+            shard_beat(depth, event="integrity-violation", site=integrity_fail.site,
+                       detail=integrity_fail.detail[:200])
+            obs_.abort("integrity-violation", site=integrity_fail.site,
+                       depth=integrity_fail.depth, detail=integrity_fail.detail[:300],
+                       distinct_states=total)
+            obs_.close()
+        except OSError:
+            pass
+        raise integrity_fail
+    if exhausted is not None:
+        try:
+            shard_beat(depth, event="resource-exhausted", reason=exhausted.reason,
+                       detail=exhausted.detail[:200])
+            obs_.abort("resource-exhausted", reason=exhausted.reason, depth=exhausted.depth,
+                       detail=exhausted.detail, distinct_states=total)
+            obs_.close()
+        except OSError:
+            pass
+        raise exhausted
+
+    if violation is None and cut and model.invariants:
+        # the cut left the last frontier unexpanded: its invariant pass, in
+        # shard-major order (the trace store's level layout)
+        rows = torch.cat(pending)
+        if rows.shape[0]:
+            st = spec.unpack(rows)
+            for inv in model.invariants:
+                ok = inv.pred(st)
+                if not bool(ok.all()):
+                    idx = int(torch.argmax((~ok).to(torch.uint8)))
+                    violation = build_violation(inv.name, depth, idx) or Violation(
+                        invariant=inv.name, depth=depth, state=decode_row(rows[idx]), trace=[])
+                    break
+
+    if home.type == "cuda":
+        torch.cuda.synchronize(home)
+    dt = time.perf_counter() - t0
+    shard_beat(depth, event="finish", ok=violation is None)
+    stats = {
+        "devices": D,
+        **({"levels": result_levels} if result_levels else {}),
+        "visited_capacity_per_shard": int(sets.cap),
+        "fanout": C,
+        "visited_backend": visited_backend,
+        "exchange": exchange,
+        "pipeline": pipe_name,
+        "mesh_layouts": mesh_layouts(mesh),
+        "adaptive_active": False,
+        "adaptive_compile_fallback": False,
+        "transient_retries": chunk_retry.retries_total,
+        "degradations": chunk_retry.degradations,
+        "overlap": {"enabled": False, "staged_chunks_peak": 0},
+        "exchange_compressed": False,
+        "exchange_bytes_total": int(exch_bytes_total),
+        "exchange_raw_bytes_total": int(exch_bytes_total),
+    }
+    if visited_backend == "host":
+        stats["host_fpset_sizes"] = [len(s) if s is not None else None for s in sets.host]
+    if visited_backend == "device-hash":
+        stats["shard_visited"] = shard_visited.tolist()
+    res = CheckResult(
+        model=model.name,
+        levels=levels,
+        total=total,
+        diameter=len(levels) - 1,
+        violation=violation,
+        seconds=dt,
+        states_per_sec=total / max(dt, 1e-9),
+        stats=stats,
+    )
+    obs_.finish(res)
+    obs_.close()
+    return res

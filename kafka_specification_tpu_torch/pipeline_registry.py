@@ -15,8 +15,11 @@ port's: CUDA launches and host reads on one card, not XLA programs.
 are cut and give the same result, so one implementation serves both here
 (``engine/pipeline.py::run_chunk``).  "device" is the device-resident
 level pipeline (``engine/pipeline.py::DevicePipeline``); on the
-``device-hash`` backend it degrades to "fused".  The port has no sharded
-engine yet, so every ``sharded`` engine cell reads unsupported.
+``device-hash`` backend it degrades to "fused".  The ``sharded`` engine
+cells carry the JAX package's flags but for "device": "legacy" runs the
+sharded per-chunk step (``parallel/sharded.py``), "fused" names the same
+step, and the device-resident sharded level is not ported yet (ROADMAP
+Queue A item 8b), so ``check_sharded(pipeline="device")`` raises.
 """
 
 from __future__ import annotations
@@ -32,14 +35,6 @@ ENGINES = ("single-device", "sharded")
 #: the visited backends a pipeline can be asked to serve: keys of every
 #: entry's per-backend support matrix
 BACKENDS = ("device", "device-hash", "host")
-
-_NO_SHARDED = {
-    "supported": False,
-    "detail": (
-        "the port has no sharded engine yet (ROADMAP Queue A 8): "
-        "--sharded is not a flag of its CLI, so no run lands here"
-    ),
-}
 
 #: name -> registry entry; insertion order is the display order and the
 #: degradation ladder reads right to left (device -> fused -> legacy)
@@ -104,7 +99,14 @@ PIPELINE_REGISTRY = {
                     "unproven field hulls"
                 ),
             },
-            "sharded": _NO_SHARDED,
+            "sharded": {
+                "supported": False,
+                "detail": (
+                    "not ported yet (ROADMAP 8b): the device-resident sharded "
+                    "level; check_sharded(pipeline='device') raises rather "
+                    "than run the per-chunk step in its place"
+                ),
+            },
         },
     },
     "fused": {
@@ -142,7 +144,15 @@ PIPELINE_REGISTRY = {
                 "supported": True,
                 "detail": "the default single-device path",
             },
-            "sharded": _NO_SHARDED,
+            "sharded": {
+                "supported": False,
+                "detail": (
+                    "runs the per-chunk sharded step: the expansion, the "
+                    "exchange and the owners' dedup are one step per chunk "
+                    "in this engine, so there is no separate fused variant — "
+                    "the name runs the per-chunk path (identical results)"
+                ),
+            },
         },
     },
     "legacy": {
@@ -174,7 +184,15 @@ PIPELINE_REGISTRY = {
                 "supported": True,
                 "detail": "the same per-chunk path as 'fused'",
             },
-            "sharded": _NO_SHARDED,
+            "sharded": {
+                "supported": True,
+                "detail": (
+                    "the per-chunk sharded step (parallel/sharded.py): K1 on "
+                    "each shard's chunk, the all_to_all or all_gather "
+                    "exchange, each owner's dedup (K2 on device-hash) — this "
+                    "engine's bit-identity oracle path"
+                ),
+            },
         },
     },
 }

@@ -335,10 +335,6 @@ def _ckpt_run(root, rec):
 
 
 def _ckpt_recover(root, acked, ctx):
-    """The JAX scenario's recovery with one departure: the port's
-    ``CheckpointStore.load()`` returns ``(main, gen)``, not JAX's
-    ``(main, part_arrays, gen)``, because the port writes no per-shard
-    part files yet; this unpacks the 2-tuple."""
     viol = []
     from ...resilience.checkpoints import verify_checkpoint_dir
 
@@ -365,7 +361,7 @@ def _ckpt_recover(root, acked, ctx):
     # What a successful load DOES owe: the generation it picked
     # round-trips intact — arrays match their stamped depth.
     if loaded is not None:
-        main, _gen = loaded
+        main, _parts, _gen = loaded
         if int(main["frontier"].shape[0]) != 4 * int(main["depth"]):
             viol.append("load() returned a generation whose content "
                         "does not match its stamped depth")

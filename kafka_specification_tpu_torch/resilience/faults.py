@@ -3,9 +3,9 @@
 The port's own copy of ``kafka_specification_tpu/resilience/faults.py``.
 It parses the JAX package's whole grammar, token for token, so a plan
 means the same thing to both packages; the port wires the sites of the
-single-device engine, its disk tier, the serving daemon and the routed
-fleet's hosts, and ``check()`` refuses a plan that names any other
-(``FaultPlan.unwired``: ``flip@exchange``), never ignoring it:
+single-device engine, its disk tier, the sharded engine, the serving
+daemon and the routed fleet's hosts, and each engine refuses a plan that
+names a site it does not wire (``FaultPlan.unwired``), never ignoring it:
 
     crash@level:N          raise InjectedCrash at the level-N boundary
     crash@ckpt:N           raise InjectedCrash mid-checkpoint-write at
@@ -38,6 +38,10 @@ fleet's hosts, and ``check()`` refuses a plan that names any other
     flip@ckpt:N            flip the `levels` array of the first checkpoint
                            past level N before its CRC manifest is built
                            (caught by the post-save chain read-back)
+    flip@exchange:N        corrupt the received side of the sharded
+                           engine's exchange framing digest at the first
+                           chunk of level N (caught by the framing check);
+                           the sharded engine only (``check_sharded``)
 
 and the serving daemon's (``service/``), which its own ``$KSPEC_FAULT``
 arms (a job's ``--fault`` plan reaches only that job's check()):
@@ -75,8 +79,11 @@ the two chunk faults in the retry ladder (``resilience/retry.py``): a
 retry, or a degradation recorded in ``stats["degradations"]``.  They fire
 before anything of the step is queued on the card, and are consumed in
 process (a restarted process starts with its budget whole).
-Shard scopes (`crash@shard2:level:N`, `corrupt_ckpt@shard1`, ...) parse and,
-in a single-device run, fire as their unscoped forms.
+Shard scopes (`crash@shard2:level:N`, `corrupt_ckpt@shard1`, ...) fire, in
+the sharded engine, only on the process that owns the shard
+(``set_local_shards``), and a scope outside the mesh is refused
+(``validate_shards``); in a single-device run they fire as their unscoped
+forms.
 
 Crash faults fire only when the run *started* below the target level
 (`set_start_depth`, called after a checkpoint resume), and on a
@@ -195,7 +202,8 @@ def list_faults() -> list:
 
 #: the (kind, site) pairs the port wires: its single-device check(), its
 #: serving daemon and the routed fleet's hosts (the daemon, cache and host
-#: sites, which check() ignores)
+#: sites, which check() ignores).  flip@exchange is the sharded engine's
+#: (``WIRED_SHARDED``)
 WIRED = frozenset({
     ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
     ("kill", "host"), ("partition", "host"), ("skew", "host"),
@@ -205,6 +213,20 @@ WIRED = frozenset({
     ("stall", "level"),
     ("transient_device_err", None), ("compile_oom", None),
     ("flip", "frontier"), ("flip", "fpset"), ("flip", "spill"), ("flip", "ckpt"),
+})
+
+#: the sharded engine's sites (``parallel/sharded.py``): the level, the
+#: checkpoint and parent-log writes, the chunk step and the bit flips,
+#: with its exchange; the disk tier, the governor and compile_oom (which
+#: fires on escalated attempts, and the port's sharded step never
+#: escalates) wait for it (ROADMAP item 8b), so a plan naming them is
+#: refused there
+WIRED_SHARDED = frozenset({
+    ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
+    ("kill", "host"), ("partition", "host"), ("skew", "host"),
+    ("crash", "level"), ("crash", "ckpt"), ("corrupt_ckpt", "ckpt"),
+    ("enospc", "ckpt"), ("enospc", "plog"), ("transient_device_err", None),
+    ("flip", "frontier"), ("flip", "fpset"), ("flip", "ckpt"), ("flip", "exchange"),
 })
 
 
@@ -346,6 +368,8 @@ class FaultPlan:
         # only on an exact match, so None never fires them
         self.instance: Optional[int] = None
         self.host: Optional[int] = None
+        # the shards this process owns (set_local_shards; None: every one)
+        self.local_shards: Optional[frozenset] = None
         self.specs = [_parse_token(t.strip()) for t in self.spec.split(",") if t.strip()]
 
     @classmethod
@@ -355,10 +379,34 @@ class FaultPlan:
     def __bool__(self) -> bool:
         return bool(self.specs)
 
-    def unwired(self) -> list:
-        """The sites of this plan that the port's check() does not wire
-        (it refuses the plan naming them)."""
-        return sorted({s.site for s in self.specs if (s.kind, s.point) not in WIRED})
+    def unwired(self, wired=WIRED) -> list:
+        """The sites of this plan outside `wired` (the engine's set:
+        ``WIRED`` for check(), ``WIRED_SHARDED`` for check_sharded()); the
+        engine refuses a plan naming any."""
+        return sorted({s.site for s in self.specs if (s.kind, s.point) not in wired})
+
+    def set_local_shards(self, shards) -> None:
+        """Record which shards this process owns (the sharded engine's
+        mesh): a shard-scoped fault then fires only on the owner of its
+        shard; the peers pass the injection point and wait in their next
+        collective, the one-process-died failure a fleet supervisor
+        catches."""
+        self.local_shards = frozenset(int(s) for s in shards)
+
+    def validate_shards(self, shard_count: int) -> None:
+        """Refuse shard scopes outside the mesh: a typo'd
+        `crash@shard5:...` on a 2-shard run would otherwise rehearse
+        nothing on every process and report the drill as passed."""
+        for s in self.specs:
+            if s.shard is not None and s.shard >= shard_count:
+                raise ValueError(
+                    f"fault plan {self.spec!r}: shard {s.shard} is out of "
+                    f"range for a {shard_count}-shard mesh (valid: "
+                    f"0..{shard_count - 1})"
+                )
+
+    def _is_local(self, s: _Spec) -> bool:
+        return s.shard is None or self.local_shards is None or s.shard in self.local_shards
 
     def set_instance(self, instance: int) -> None:
         """Record which serving-daemon instance this process is
@@ -452,6 +500,8 @@ class FaultPlan:
         for s in self.specs:
             if s.kind != "crash" or s.point != point or s.budget <= 0:
                 continue
+            if not self._is_local(s):
+                continue
             # merge ordinals are per-process counters, not BFS levels:
             # the resume-depth relief does not apply to them
             if point != "merge" and self.start_depth >= s.arg:
@@ -477,6 +527,8 @@ class FaultPlan:
         for s in self.specs:
             if s.kind != "enospc" or s.point != point or s.budget <= 0:
                 continue
+            if not self._is_local(s):
+                continue
             if point in ("ckpt", "plog") and self.start_depth >= s.arg:
                 continue  # resumed at/past the target: counts as fired
             if n != s.arg:
@@ -495,6 +547,8 @@ class FaultPlan:
         for s in self.specs:
             if s.kind != "stall" or s.budget <= 0 or s.point == "daemon":
                 continue
+            if not self._is_local(s):
+                continue
             if self.start_depth >= s.arg:
                 continue
             if depth >= s.arg:
@@ -509,6 +563,8 @@ class FaultPlan:
         failure mode it rehearses and the only attempt shape for which
         the engine has a fallback."""
         for s in self.specs:
+            if not self._is_local(s):
+                continue
             if s.kind == "transient_device_err" and s.budget > 0:
                 s.budget -= 1
                 return RuntimeError(TRANSIENT_MARKER)
@@ -518,13 +574,17 @@ class FaultPlan:
         return None
 
     def flip(self, site: str, n: int, ckpt_depth=None):
-        """The matching `flip@<site>:N` spec (truthy), once per spec, else
-        None; the caller then flips the bits at its site.  Level-keyed
+        """The matching `flip@<site>:N` spec (truthy; it carries the shard
+        scope, so the sharded engine flips the targeted shard's buffer),
+        once per spec, else None; the caller then flips the bits at its
+        site (for `exchange`, the received framing digest).  Level-keyed
         sites (frontier/fpset/ckpt): resume-depth relief applies, and with
         `ckpt_depth` given firing defers until a generation at or past N
         exists.  `spill` and `cache`: `n` is a per-process ordinal."""
         for s in self.specs:
             if s.kind != "flip" or s.point != site or s.budget <= 0:
+                continue
+            if not self._is_local(s):
                 continue
             if site in ("spill", "cache"):
                 # per-process ordinals: the Nth spill run, the Nth
@@ -545,7 +605,7 @@ class FaultPlan:
     def should_corrupt(self, depth: int) -> bool:
         """True if the checkpoint just written at `depth` must be corrupted."""
         for s in self.specs:
-            if s.kind == "corrupt_ckpt" and s.budget > 0:
+            if s.kind == "corrupt_ckpt" and s.budget > 0 and self._is_local(s):
                 if s.arg is None or s.arg == depth:
                     s.budget -= 1
                     return True

@@ -374,10 +374,10 @@ def chain_array_errors(arr, levels=None) -> list:
 
 
 def visited_fps(arrays: dict):
-    """The full visited-set uint64 multiset stored in a single-device
-    checkpoint, or None when the generation carries none (a disk-tier
-    generation's hot dump is a budget-bounded subset: its runs carry
-    their own CRCs)."""
+    """The full visited-set uint64 multiset stored in a checkpoint (a
+    sharded main's per-shard concatenations digest alike), or None when
+    the generation carries none (a disk-tier generation's hot dump is a
+    budget-bounded subset: its runs carry their own CRCs)."""
     if "spill_manifest" in arrays:
         return None
     if "host_fps" in arrays:
@@ -385,7 +385,14 @@ def visited_fps(arrays: dict):
     if "hash_hi" in arrays:
         return pair_u64(arrays["hash_hi"], arrays["hash_lo"])
     if "vhi" in arrays and "vn" in arrays:
-        return pair_u64(arrays["vhi"], arrays["vlo"])
+        vhi = np.asarray(arrays["vhi"], np.uint32)
+        vlo = np.asarray(arrays["vlo"], np.uint32)
+        if vhi.ndim == 1:
+            return pair_u64(vhi, vlo)
+        # the sharded device backend: [D, w] per-shard prefixes of vn[d] rows
+        vn = np.asarray(arrays["vn"]).ravel()
+        parts = [pair_u64(vhi[d, : int(n)], vlo[d, : int(n)]) for d, n in enumerate(vn.tolist())]
+        return np.concatenate(parts) if parts else np.empty(0, _U64)
     return None
 
 

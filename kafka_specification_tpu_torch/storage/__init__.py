@@ -1,7 +1,7 @@
 """Out-of-core state storage: the disk tier.
 
-The port's own copy of ``kafka_specification_tpu/storage/`` (single
-device; the sharded engine's per-shard parent log is not ported yet).
+The port's own copy of ``kafka_specification_tpu/storage/`` (the
+single-device tier, and the sharded engine's per-shard parent log).
 The checker's dedup stores form a memory hierarchy:
 
 - **device** — the sorted pair set and the hash table on the card

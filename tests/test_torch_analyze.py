@@ -7,8 +7,8 @@ tests/test_analysis.py runs it); the port's runs in process.  The model
 half of the record (`--no-engine`) equals JAX's on the shipped matrix and
 on the edge cases (an unsound cfg, an unreadable one, `--module` with two
 cfgs); the engine half is the port's own: its three THREAD_CONTRACT
-modules and its two purity modules, where it finds one LOW stale
-annotation and nothing else.  The port's AST checker and JAX's agree on
+modules and its two purity modules, where it finds nothing, so the whole
+record equals JAX's.  The port's AST checker and JAX's agree on
 both packages' contract modules and on seeded mutants of each."""
 
 import json
@@ -85,26 +85,25 @@ def test_model_record_equals_jax_on_the_shipped_matrix(capsys):
 
 
 def test_port_tree_is_clean(capsys):
-    """The whole port: exit 0, no HIGH or MEDIUM finding, JAX's 13 targets
-    (the nine configs, the engine sources, the trace vocabulary, and the
-    durable-io and raw-clock lints, in JAX's order), and the one LOW stale
-    annotation."""
+    """The whole port: exit 0, no finding, JAX's 13 targets (the nine
+    configs, the engine sources, the trace vocabulary, and the durable-io
+    and raw-clock lints, in JAX's order): the record is JAX's."""
     rc, out, _ = port_analyze(capsys, "--json")
     rec = json.loads(out)
-    assert rc == 0 and rec["ok"] is True
-    assert rec["counts"] == {"HIGH": 0, "MEDIUM": 0, "LOW": 1, "INFO": 0}
+    jrc, jout, jerr = jax_analyze("--json")
+    assert rc == jrc == 0 and rec["ok"] is True, jerr[-2000:]
+    assert rec == json.loads(jout)
+    assert rec["counts"] == {"HIGH": 0, "MEDIUM": 0, "LOW": 0, "INFO": 0}
     assert len(rec["targets"]) == 13
     assert rec["targets"][-4:] == ["engine sources (ownership + purity)",
                                    "trace vocabulary (obs/fleettrace registries)",
                                    "durable-write discipline (durable_io boundary)",
                                    "raw-clock discipline (utils/clock boundary)"]
     assert any(t.startswith("Kip320 (") for t in rec["targets"])
-    (low,) = rec["findings"]
-    assert (low["kind"], low["data"]) == ("stale-annotation",
-                                          {"class": "CheckpointStore", "attr": "ident_aliases"})
+    assert rec["findings"] == []
     rc, out, _ = port_analyze(capsys, "--no-models")
     assert rc == 0 and out.splitlines()[0] == (
-        "kspec analyze: 4 target(s) — 0 high / 0 medium / 1 low / 0 info")
+        "kspec analyze: 4 target(s) — 0 high / 0 medium / 0 low / 0 info")
     rc, out, _ = port_analyze(capsys, "--no-models", "--no-engine", "--info")
     assert rc == 0 and out.splitlines()[0].startswith("kspec analyze: 0 target(s)")
 
@@ -148,10 +147,10 @@ def test_exit_2_as_jax(capsys, tmp_path, argv):
 
 
 def test_analyze_engine_sources_finds_one_stale_annotation():
-    (f,) = analysis.analyze_engine_sources()
-    assert (f.kind, f.severity) == ("stale-annotation", "LOW")
-    assert f.target == "kafka_specification_tpu_torch/resilience/checkpoints.py:CheckpointStore"
-    assert f.data == {"class": "CheckpointStore", "attr": "ident_aliases"}
+    """The stale annotation this test once found (the contract's
+    `ident_aliases`, which the port's store lacked) is gone: the store has
+    it now, and the engine sources give no finding."""
+    assert analysis.analyze_engine_sources() == []
     assert analysis.OWNERSHIP_MODULES == tuple(
         f"kafka_specification_tpu_torch/{rel}" for rel in PORT_OWNERSHIP)
     assert all((REPO / rel).is_file() for rel in analysis.PURITY_MODULES)
@@ -164,13 +163,12 @@ def _records(findings):
 @pytest.mark.parametrize("pkg", ["kafka_specification_tpu_torch", "kafka_specification_tpu"])
 @pytest.mark.parametrize("rel", PORT_OWNERSHIP)
 def test_ast_checker_equals_jax(pkg, rel):
-    """Both checkers on both packages' contract modules: equal findings
-    (JAX's modules give none; the port's the one stale annotation)."""
+    """Both checkers on both packages' contract modules: equal findings,
+    and none."""
     path = str(REPO / pkg / rel)
     got, want = town.check_module_contract(path, rel), jown.check_module_contract(path, rel)
     assert _records(got) == _records(want)
-    if pkg == "kafka_specification_tpu" or rel != "resilience/checkpoints.py":
-        assert got == []
+    assert got == []
 
 
 @pytest.mark.parametrize("pkg", ["kafka_specification_tpu_torch", "kafka_specification_tpu"])

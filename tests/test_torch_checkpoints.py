@@ -85,19 +85,19 @@ def test_rotation_prune_and_fallback(tmp_path, capsys):
         store.save(depth, arrays_at(depth))
     assert store.generations() == [0, 1, 2]
     assert [int(tckpt.verify_file(store.path(g))["depth"]) for g in (0, 1, 2)] == [5, 4, 3]
-    arrays, gen = store.load()
-    assert gen == 0 and int(arrays["depth"]) == 5
+    arrays, parts, gen = store.load()
+    assert gen == 0 and int(arrays["depth"]) == 5 and parts == {}
 
     # a torn newest generation: the next one that verifies, said on stderr
     Path(store.path(0)).write_bytes(Path(store.path(0)).read_bytes()[:100])
-    arrays, gen = store.load()
+    arrays, parts, gen = store.load()
     assert gen == 1 and int(arrays["depth"]) == 4
     assert "resuming from generation 1 (level 4)" in capsys.readouterr().err
 
     # content that fails a validator (its checksums pass): skipped as well
     bad = tckpt.CheckpointStore(str(tmp_path), "c.npz", ident="id", keep=3,
                                 validators=(lambda a: ["odd"] if int(a["depth"]) == 4 else [],))
-    arrays, gen = bad.load()
+    arrays, parts, gen = bad.load()
     assert gen == 2 and int(arrays["depth"]) == 3
 
     # every generation corrupt: no silent fresh start

@@ -412,8 +412,9 @@ def test_faults_list_equals_jax(capsys):
 
 def test_pipelines_json_equals_jax_support_matrix(capsys):
     """Names, order, default, each entry's fallback, every backend cell's
-    flag and the (device, device-hash) detail are JAX's; the port's
-    sharded engine cells say they are not served."""
+    flag and the (device, device-hash) detail are JAX's; the sharded
+    engine cells carry JAX's flags but for "device", whose sharded level
+    is not ported yet (ROADMAP 8b)."""
     from kafka_specification_tpu.pipeline_registry import list_pipelines as jax_list
     from kafka_specification_tpu_torch import pipeline_registry as reg
 
@@ -431,9 +432,14 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
             assert e["backends"][be]["supported"] == j["backends"][be]["supported"]
             assert reg.backend_support(e["name"], be) == e["backends"][be]
         assert e["engines"]["single-device"]["supported"] is True
-        assert e["engines"]["sharded"]["supported"] is False
-        assert "no sharded engine" in e["engines"]["sharded"]["detail"]
-        assert reg.engine_support(e["name"], "sharded") == e["engines"]["sharded"]
+        sharded = e["engines"]["sharded"]
+        if e["name"] == "device":
+            assert sharded["supported"] is False and "not ported yet (ROADMAP 8b)" in \
+                sharded["detail"]
+        else:
+            assert sharded["supported"] == j["engines"]["sharded"]["supported"]
+            assert "per-chunk sharded step" in sharded["detail"]
+        assert reg.engine_support(e["name"], "sharded") == sharded
     dh, jdh = entries[0]["backends"]["device-hash"], jentries[0]["backends"]["device-hash"]
     assert dh == jdh
     assert reg.DEVICE_HASH_REASON == f"visited backend 'device-hash': {jdh['detail']}"
@@ -452,7 +458,8 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
 def test_pipelines_text_has_jax_layout(capsys):
     """One line per entry, its description, then one [engine] and one
     [backend b] line per cell, as JAX's `cli pipelines` prints them; the
-    marks agree except on the sharded cells the port does not serve."""
+    marks agree except on the device pipeline's sharded cell, which the
+    port does not serve yet."""
     from kafka_specification_tpu.utils.cli import main as jmain
 
     assert cli.main(["pipelines"]) == 0
@@ -470,8 +477,7 @@ def test_pipelines_text_has_jax_layout(capsys):
 
     assert out[0] == jout[0]
     for a, b in zip(out[1:], jout[1:]):
-        if "[sharded]" in a:
-            assert a.startswith("      [sharded] degrades: the port has no sharded engine")
+        if a.startswith("      [sharded] degrades: not ported yet (ROADMAP 8b)"):
             continue
         assert head(a) == head(b), (a, b)
     assert out[1] == ("  device: one K1 launch per chunk, one host read per LEVEL -> "

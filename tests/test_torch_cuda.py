@@ -825,3 +825,45 @@ def test_recorded_checkpointed_check_resumes_from_every_crash_state(card, tmp_pa
             res = check(model(), device=card, checkpoint_dir=str(dest))
         assert (res.levels, res.total, res.diameter) == (ref.levels, 277, ref.diameter), i
         np.testing.assert_array_equal(chain(dest), chain(tmp_path / "cpu"), err_msg=str(i))
+
+
+def _sharded(mesh, backend, exchange, **kw):
+    from kafka_specification_tpu_torch.parallel import check_sharded
+
+    return check_sharded(kip320.make_model(Config(2, 2, 2, 2)), mesh=mesh, min_bucket=32,
+                         chunk_size=256, visited_backend=backend, exchange=exchange, **kw)
+
+
+@pytest.mark.parametrize("backend,exchange", [("device", "all_to_all"),
+                                              ("device-hash", "all_to_all"),
+                                              ("host", "all_to_all"), ("device", "all_gather")])
+def test_sharded_eight_shards_on_card_equal_cpu(card, backend, exchange, tmp_path):
+    """D = 8 shards on cuda:0 against the same D = 8 run on the CPU: levels,
+    per-level records, the checkpoint's search arrays; K1 launched (and
+    K2 on device-hash)."""
+    from kafka_specification_tpu_torch.parallel import ShardMesh
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    cpu = _sharded(ShardMesh(8, "cpu"), backend, exchange, checkpoint_dir=str(tmp_path / "c"))
+    k1, k2 = cuda_fingerprint.LAUNCHES, cuda_hashset.LAUNCHES
+    gpu = _sharded(ShardMesh(8, card), backend, exchange, checkpoint_dir=str(tmp_path / "g"))
+    assert cuda_fingerprint.LAUNCHES > k1
+    assert (cuda_hashset.LAUNCHES > k2) == (backend == "device-hash")
+    assert gpu.ok and (gpu.levels, gpu.total) == (cpu.levels, cpu.total) == (gpu.levels, 5973)
+    a = verify_file(str(tmp_path / "c" / "sharded_checkpoint.npz"))
+    b = verify_file(str(tmp_path / "g" / "sharded_checkpoint.npz"))
+    for k in ("pending", "pending_lens", "levels", "total", "digest_chain", "mesh_D"):
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_sharded_violation_trace_on_card_equals_cpu(card):
+    from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+
+    def run(dev):
+        m = variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1),
+                                ("TypeOk", "WeakIsr"))
+        return check_sharded(m, mesh=ShardMesh(8, dev), min_bucket=8, chunk_size=8)
+
+    cpu, gpu = run("cpu"), run(card)
+    assert (gpu.violation.invariant, gpu.violation.depth) == ("WeakIsr", 8)
+    assert gpu.violation.trace == cpu.violation.trace and gpu.levels == cpu.levels

@@ -67,6 +67,12 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                 "stats.jsonl"]
             assert cli.main(["report", tmp + "/run"]) == 0
             assert cli.main(["faults", "--list"]) == 0
+        # the sharded engine, in process and through the CLI
+        from kafka_specification_tpu_torch.models import finite_replicated_log as frl
+        from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+        res = check_sharded(frl.make_model(2, 2, 2), mesh=ShardMesh(4, "cpu"), min_bucket=32)
+        assert res.ok and res.total == 49, res
+        assert cli.main(["check", "configs/IdSequence.cfg", "--sharded", "--cpu", "--json"]) == 0
         # the reference interpreter, the pipeline registry, the static analysis
         assert cli.main(["oracle", "configs/IdSequence.cfg"]) == 0
         assert cli.main(["pipelines", "--json"]) == 0
@@ -93,7 +99,8 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "resilience.crashcheck.harness", "resilience.crashcheck.scenarios",
                      "resilience.simfleet", "resilience.simfleet.kernel",
                      "resilience.simfleet.oracles", "resilience.simfleet.search",
-                     "resilience.simfleet.simclock"):
+                     "resilience.simfleet.simclock", "parallel", "parallel.multihost",
+                     "parallel.sharded"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -150,7 +157,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "resilience/crashcheck/harness.py", "resilience/crashcheck/scenarios.py",
             "resilience/simfleet/__init__.py", "resilience/simfleet/kernel.py",
             "resilience/simfleet/oracles.py", "resilience/simfleet/search.py",
-            "resilience/simfleet/simclock.py"} <= names
+            "resilience/simfleet/simclock.py", "parallel/__init__.py",
+            "parallel/multihost.py", "parallel/sharded.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (

@@ -643,9 +643,7 @@ def test_no_worker_outlives_a_crashed_check(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("rel", ["overlap.py", "storage/tiered.py", "resilience/checkpoints.py"])
 def test_jax_ast_checker_finds_nothing_in_the_port_and_contracts_equal(rel):
-    """No HIGH or MEDIUM finding.  (A LOW stale annotation is allowed: the
-    JAX contract of CheckpointStore names `ident_aliases`, the sharded
-    engine's, which the port's store has not.)"""
+    """No HIGH or MEDIUM finding, and the contracts are JAX's."""
     import importlib
 
     findings = check_module_contract(str(REPO / "kafka_specification_tpu_torch" / rel), rel)
