@@ -151,8 +151,8 @@ print no result:
          host), one decoded level at a time: every level's packed rows
          unpacked on the card, copied to the host once and decoded there,
          equal as a set to the oracle's level.  Kip320 3r (configs/
-         Kip320.cfg) with no knobs: 26 levels, 737,794 states, diameter 25,
-         every level equal; Kip320FirstTry 3r with StrongIsr only on
+         Kip320.cfg) with no knobs cut at max_depth 12 on both sides:
+         levels 0-12, 162,721 states, every level equal; Kip320FirstTry 3r with StrongIsr only on
          visited_backend="device-hash": StrongIsr at depth 12 in both,
          levels 0-12 equal; configs/AsyncIsr.cfg on visited_backend="host":
          4,088 states, diameter 16, every level equal (its state packs into
@@ -271,25 +271,55 @@ print no result:
   sharded  the sharded engine's per-chunk path (parallel/sharded.py,
          check_sharded) at D = 8 logical shards on cuda:0: (a) Kip320 3r on
          `device`, `device-hash` and `host` with the all_to_all exchange
-         and on `device` with all_gather: 737,794 states, diameter 25, the
-         pinned levels and the JAX package's chain (spied), K1 launched on
-         every run and K2 on device-hash; (b) Kip320FirstTry 3r with
-         StrongIsr only: violated at depth 12, the pinned levels, the trace
+         and on `device` with all_gather, with no overlap or compression
+         setting (the JAX package's default: the overlap layer on, the
+         all_to_all compressed): 737,794 states, diameter 25, the pinned
+         levels and the JAX package's chain (spied), K1 launched on every
+         run and K2 on device-hash, stats["overlap"]["enabled"], the
+         all_to_all runs compressed with their sent bytes under the raw
+         wire's for the same chunks, `host` staging its commits (one chunk
+         a level at this size); (b) Kip320FirstTry 3r with StrongIsr only: violated at depth 12, the pinned levels, the trace
          replayed through the port's oracle (an init state, each step a
          successor, StrongIsr false at the end); (c) crash@shard3:level:6
-         with a checkpoint every level at D = 8, resumed at D = 8 and,
-         from a second crashed run, elastically at D = 4: the pinned
+         with a checkpoint every level at D = 8, crashed and resumed at
+         D = 8 with overlap=False (the serial path: the raw wire,
+         checkpoints saved on the calling thread) and, from a second
+         crashed run with the layer on, elastically at D = 4: the pinned
          levels and chain; (d) KSPEC_MULTIHOST=1: a world-size-1 NCCL
          group, `device` at D = 1 with every exchange and gather an NCCL
          collective: the same.  Each run counted from 0 (`sharded ...`)
          and its kernels held at its largest launch; the walls beside the
          card's name and power limit (one card: no multi-device speedup)
+  sharded-overlap  the sharded engine's overlap and storage legs at
+         D = 8 on cuda:0, Kip320 3r: (b) phase sharded's three all_to_all
+         runs with KSPEC_EXCHANGE_COMPRESS=0: the same levels and chain,
+         the raw wire, its bytes exactly (a)'s raw count and beside (a)'s
+         compressed ones; `host` with overlap=False (the serial path, its
+         commits unstaged): the same; `host` at
+         chunk_size 4096, compressed: staged_chunks_peak 2; (c)
+         flip@exchange:6 through the codec: IntegrityError at site
+         exchange; (d) the disk tier at a 1M budget (a merge every 2
+         runs, on the kspec-io worker) with a checkpoint every level,
+         crash@shard3:level:14, resumed at D = 8 and, from a copy,
+         elastically at D = 4: the pinned levels and chain, spills and
+         merges; (e) the resource governor: the tier run again under a
+         disk budget of half (d)'s directory, ResourceExhausted (disk) and
+         a verifying checkpoint, resumed without the budget to the pinned
+         levels and chain; (f) scripts/torch_resilient_run.py --fleet 1
+         around `cli check configs/Kip320.cfg --sharded --checkpoint D
+         --fault crash@shard0:level:10 --json`: a world-size-1 NCCL fleet
+         crashed, torn down, restarted and resumed (events fleet-start,
+         shard-exit, fleet-teardown, restart, fleet-start, fleet-teardown,
+         fleet-complete), the record's 737,794 states and the newest
+         checkpoint's chain the JAX package's.  Each in-process run
+         counted from 0 (`sharded-overlap ...`) and its kernels held at its
+         largest launch; (f)'s launches happen in its children, uncounted
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
 three E3 runs of disk-tier, each check of obs, each side of each overlap
 path, each oracle run that launches K1, each in-process resilience
-run, each leg of harness (c)) then
+run, each leg of harness (c), each in-process sharded run) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -1937,16 +1967,17 @@ def phase_overlap():
 
 def _oracle_path(model, oracle, path_kernels, **knobs):
     """One path held against the port's oracle: the oracle's BFS on the
-    host, check() on the card with collect_levels (counted from 0), then
-    each level decoded (unpacked on the card, one copy to the host) and
-    compared with the oracle's level as a set, up to the violation level
-    on a violation.  -> (result, oracle result, counts, walls, held note)."""
+    host, check() on the card with collect_levels (counted from 0), both to
+    the knobs' max_depth if any, then each level decoded (unpacked on the
+    card, one copy to the host) and compared with the oracle's level as a
+    set, up to the violation level on a violation.  -> (result, oracle
+    result, counts, walls, held note)."""
     from kafka_specification_tpu_torch import check
     from kafka_specification_tpu_torch.engine.decode import decode_rows
     from kafka_specification_tpu_torch.oracle import oracle_bfs
 
     t0 = time.perf_counter()
-    ores = oracle_bfs(oracle)
+    ores = oracle_bfs(oracle, max_depth=knobs.get("max_depth"))
     o_wall = time.perf_counter() - t0
     packed = []
     _reset_counts()
@@ -1998,8 +2029,12 @@ def _oracle_paths():
     base, weak = Config(2, 2, 1, 1), ("TypeOk", "WeakIsr")
     thw = "KafkaTruncateToHighWatermark"
     return [
-        ("Kip320 3r", build_model("Kip320", kip), build_model("Kip320", kip, oracle=True),
-         ("fingerprint",), {}, (None, 737_794, 25)),
+        # cut at depth 12 (162,721 states; the whole space is the cli
+        # oracle subprocess's): the oracle's and the decode's host Python
+        # grow with the states
+        ("Kip320 3r to depth 12", build_model("Kip320", kip),
+         build_model("Kip320", kip, oracle=True), ("fingerprint",), dict(max_depth=12),
+         (None, 162_721, 12)),
         ("Kip320FirstTry StrongIsr device-hash", build_model("Kip320FirstTry", first_try),
          build_model("Kip320FirstTry", first_try, oracle=True),
          ("fingerprint", "hash_probe_insert"), dict(visited_backend="device-hash"),
@@ -2129,13 +2164,14 @@ def _kip320_model():
     return build_model("Kip320", load_config("configs/Kip320.cfg"))
 
 
-def _chain_is_jax(ckpt, what):
-    """The newest checkpoint's digest chain in `ckpt` against KIP320_CHAIN."""
+def _chain_is_jax(ckpt, what, basename=None):
+    """The newest checkpoint's digest chain in `ckpt` (check()'s file, or
+    `basename`) against KIP320_CHAIN."""
     from kafka_specification_tpu_torch.engine.bfs import CHECKPOINT_BASENAME
     from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
 
     want = np.array(KIP320_CHAIN, dtype=np.uint64)
-    chain = verify_file(str(ckpt / CHECKPOINT_BASENAME))["digest_chain"]
+    chain = verify_file(str(ckpt / (basename or CHECKPOINT_BASENAME)))["digest_chain"]
     if chain.shape != want.shape or not np.array_equal(chain, want):
         raise AssertionError(f"{what}: the digest chain {chain.shape} is not the JAX package's")
 
@@ -3308,15 +3344,59 @@ def _replay_first_try(v):
         raise AssertionError("the trace's last state satisfies StrongIsr in the oracle")
 
 
+# phase sharded-overlap (d)'s memory budget of the disk tier: 128 KB a
+# shard, so each shard's ~92,000 fingerprints spill and merge
+SHARDED_TIER_BUDGET = "1M"
+# phase sharded (a)'s (sent, raw) exchange bytes by (backend, exchange);
+# phase sharded-overlap (b)'s raw wire must send exactly those raw bytes
+SHARDED_DEFAULT_BYTES: dict = {}
+
+
+def _jax_default_wire(name, res, compressed):
+    """A default sharded run took the JAX package's default path on the
+    card: the overlap layer on, the all_to_all compressed with its sent
+    bytes under the raw wire's for the same chunks (at the port's exact
+    widths the stream is 64 bits a row of the widest bucket, so the saving
+    is the u8 action ids'), `host` staging its commits (one chunk deep
+    where every level is one chunk, as Kip320 3r's are at D = 8 and the
+    default chunk size).  -> the phase line's note of its bytes and
+    staging."""
+    s = res.stats
+    sent, raw = s["exchange_bytes_total"], s["exchange_raw_bytes_total"]
+    if not s["overlap"]["enabled"] or s["exchange_compressed"] is not compressed:
+        raise AssertionError(f"{name}: overlap {s['overlap']}, compressed "
+                             f"{s['exchange_compressed']}")
+    if compressed and not 0 < sent < raw:
+        raise AssertionError(f"{name}: sent {sent} bytes against a raw wire of {raw}")
+    peak = s["overlap"]["staged_chunks_peak"]
+    if (peak in (1, 2)) != (s["visited_backend"] == "host") or peak > 2:
+        raise AssertionError(f"{name}: staged_chunks_peak {peak}")
+    return (f"compressed, sent {sent} B of the raw wire's {raw} ({raw / sent:.3f}x)"
+            if compressed else "raw") + f", staged peak {peak}"
+
+
+def _serial_path(name, res):
+    """A run with overlap=False took the serial path: no codec, no staged
+    commit, no checkpoint worker."""
+    s = res.stats
+    if (s["overlap"]["enabled"] or s["exchange_compressed"] or s["overlap"]["staged_chunks_peak"]
+            or "ckpt_worker" in s["overlap"]):
+        raise AssertionError(f"{name}: overlap {s['overlap']}, compressed "
+                             f"{s['exchange_compressed']}")
+
+
 def phase_sharded():
     """The sharded engine (parallel/sharded.py) at D = SHARDS logical shards
     on cuda:0: (a) Kip320 3r on device, device-hash and host with
-    all_to_all and on device with all_gather: the pinned levels and the
+    all_to_all and on device with all_gather, JAX's default path (the
+    overlap layer on, the all_to_all compressed): the pinned levels and the
     JAX package's chain; (b) Kip320FirstTry StrongIsr at depth 12, its
     trace replayed through the oracle; (c) crash@shard3:level:6 with a
-    checkpoint every level, resumed at D = 8 and elastically at D = 4; (d)
-    a world-size-1 NCCL group at D = 1 on device.  Each run counted from 0
-    and its kernels held at its largest launch."""
+    checkpoint every level, resumed at D = 8 on the serial path
+    (overlap=False: the raw wire, checkpoints saved on the calling thread)
+    and elastically at D = 4 with the layer on; (d) a world-size-1 NCCL
+    group at D = 1 on device.  Each run counted from 0 and its kernels
+    held at its largest launch."""
     from kafka_specification_tpu_torch import build_model, load_config
     from kafka_specification_tpu_torch.parallel import ShardMesh, multihost
 
@@ -3336,8 +3416,11 @@ def phase_sharded():
         res, chain, wall, c, note = _sharded_run(name, kip, kernels, visited_backend=backend,
                                                  exchange=exchange)
         _sharded_full(name, res, chain)
+        wire = _jax_default_wire(name, res, compressed=exchange == "all_to_all")
+        SHARDED_DEFAULT_BYTES[backend, exchange] = (res.stats["exchange_bytes_total"],
+                                                    res.stats["exchange_raw_bytes_total"])
         counts[name] = c
-        parts.append(f"{name} {wall:.2f} s (launches {c})")
+        parts.append(f"{name} {wall:.2f} s (launches {c}; {wire})")
         held.append(note)
 
     # (b) the first violation and its trace
@@ -3359,21 +3442,25 @@ def phase_sharded():
                  f"through the oracle, {wall:.2f} s")
     held.append(note)
 
-    # (c) a shard-scoped crash, resumed on the same mesh and elastically
-    for to in (SHARDS, SHARDS // 2):
+    # (c) a shard-scoped crash, resumed on the same mesh (the serial path)
+    # and elastically (the layer on)
+    for to, overlap in ((SHARDS, False), (SHARDS // 2, None)):
         ckpt = WORK / f"sharded-crash-{to}"
         shutil.rmtree(ckpt, ignore_errors=True)
+        tag = " overlap off" if overlap is False else ""
         _res, _c, w1, c1, _n = _sharded_run(f"crash to {to}", kip, ("fingerprint",),
                                             fault="crash@shard3:level:6",
-                                            checkpoint_dir=str(ckpt))
+                                            checkpoint_dir=str(ckpt), overlap=overlap)
         res, chain, w2, c2, note = _sharded_run(f"resume at D={to}", kip, ("fingerprint",),
                                                 mesh=ShardMesh(to, DEV),
-                                                checkpoint_dir=str(ckpt))
+                                                checkpoint_dir=str(ckpt), overlap=overlap)
         _sharded_full(f"resume at D={to}", res, chain)
-        counts[f"crash D={SHARDS} for D={to}"] = c1
-        counts[f"resume D={to}"] = c2
-        parts.append(f"crash@shard3:level:6 at D={SHARDS} ({w1:.2f} s) resumed at D={to} "
-                     f"({w2:.2f} s) to the pinned levels and chain")
+        if overlap is False:
+            _serial_path(f"resume at D={to}{tag}", res)
+        counts[f"crash D={SHARDS} for D={to}{tag}"] = c1
+        counts[f"resume D={to}{tag}"] = c2
+        parts.append(f"crash@shard3:level:6 at D={SHARDS}{tag} ({w1:.2f} s) resumed at D={to}"
+                     f"{tag} ({w2:.2f} s) to the pinned levels and chain")
         held.append(note)
 
     # (d) the NCCL route: a world-size-1 group, every exchange a collective
@@ -3395,6 +3482,209 @@ def phase_sharded():
     return {"line": f"Kip320 3r {res.total} states, diameter 25, the pinned levels and the JAX "
                     f"package's chain on every run; {'; '.join(parts)}; walls on {card}, one "
                     f"card, so no multi-device speedup is measured; {'; '.join(held)}",
+            "counts": counts}
+
+
+def _sharded_raises(name, model_fn, exc_type, path_kernels, fault=None, **knobs):
+    """check_sharded() at D = SHARDS on the card, counted from 0, which
+    must stop with `exc_type` (under the fault plan `fault`, if any); then
+    the path's kernels held at its largest launch.  -> (the exception,
+    counts, note)."""
+    from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+
+    _reset_counts()
+    if fault:
+        os.environ["KSPEC_FAULT"] = fault
+    try:
+        check_sharded(model_fn(), mesh=ShardMesh(SHARDS, DEV), **knobs)
+    except exc_type as e:
+        err = e
+    else:
+        raise AssertionError(f"{name}: no {exc_type.__name__}")
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    torch.cuda.synchronize()
+    return err, _read_counts(path_kernels), _hold_path_shapes(_largest(), 0)
+
+
+def _sharded_fleet_start():
+    """(f) scripts/torch_resilient_run.py --fleet 1 around `cli check
+    --sharded` with a shard crash, started in the background."""
+    d = WORK / "sharded-fleet"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cmd = [sys.executable, "scripts/torch_resilient_run.py", "--run-dir", str(d / "run"),
+           "--fleet", "1", "--stall-timeout", "300", "--max-restarts", "2", "--backoff", "0.05",
+           "--", sys.executable, "-m", "kafka_specification_tpu_torch.cli", "check",
+           "configs/Kip320.cfg", "--sharded", "--checkpoint", str(d / "ck"), "--fault",
+           "crash@shard0:level:10", "--json"]
+    env = dict(os.environ, KSPEC_RUNS_ROOT=str(d / "runs"))
+    env.pop("KSPEC_FAULT", None)
+    return d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                               env=env), time.perf_counter()
+
+
+def _sharded_fleet_end(d, proc, t0):
+    try:
+        _out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    evs = _jsonl(d / "run" / "events.jsonl")
+    kinds = [e["event"] for e in evs]
+    want = ["fleet-start", "shard-exit", "fleet-teardown", "restart", "fleet-start",
+            "fleet-teardown", "fleet-complete"]
+    if proc.returncode != 0 or kinds != want:
+        raise AssertionError(f"fleet: exit {proc.returncode}, events {kinds}: {err[-800:]}")
+    log = (d / "run" / "logs" / "attempt-02-proc0.log").read_text(errors="replace")
+    rec = json.loads(log.strip().splitlines()[-1])
+    if rec["distinct_states"] != 737_794 or rec["levels"] != KIP320_LEVELS:
+        raise AssertionError(f"fleet: the last attempt's record {rec}")
+    from kafka_specification_tpu_torch.parallel.sharded import CHECKPOINT_BASENAME
+
+    _chain_is_jax(d / "ck", "fleet", CHECKPOINT_BASENAME)
+    secs = [e["seconds"] for e in evs if e["event"] == "fleet-teardown"]
+    return wall, secs
+
+
+def phase_sharded_overlap():
+    """The sharded engine's overlap and storage legs at D = SHARDS on
+    cuda:0 (Kip320 3r): (b) the all_to_all raw, and `host` on the serial
+    path (overlap=False: its commits unstaged); (c) flip@exchange through
+    the codec; (d) the disk tier, crashed and resumed at D = 8 and 4; (e)
+    a disk budget's typed exit and its resume; (f) a world-size-1 NCCL
+    fleet under the fleet supervisor, crashed and restarted (started
+    first, in the background)."""
+    from kafka_specification_tpu_torch.parallel import ShardMesh
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_checkpoint_dir
+    from kafka_specification_tpu_torch.resilience.integrity import IntegrityError
+    from kafka_specification_tpu_torch.resilience.resources import ResourceExhausted
+    from kafka_specification_tpu_torch.utils.timing import card_line
+
+    fleet = _sharded_fleet_start()
+    try:
+        card = card_line()
+        kip = _kip320_model
+        counts, parts, held = {}, [], []
+        # (b) the raw all_to_all on the three backends
+        os.environ["KSPEC_EXCHANGE_COMPRESS"] = "0"
+        try:
+            for backend, kernels in (("device", ("fingerprint",)),
+                                     ("device-hash", ("fingerprint", "hash_probe_insert")),
+                                     ("host", ("fingerprint",))):
+                name = f"D={SHARDS} {backend} raw"
+                res, chain, wall, c, note = _sharded_run(name, kip, kernels,
+                                                         visited_backend=backend)
+                _sharded_full(name, res, chain)
+                s = res.stats
+                sent = s["exchange_bytes_total"]
+                if s["exchange_compressed"] or sent != s["exchange_raw_bytes_total"]:
+                    raise AssertionError(f"{name}: compressed {s['exchange_compressed']}, sent "
+                                         f"{sent}, raw {s['exchange_raw_bytes_total']}")
+                comp = SHARDED_DEFAULT_BYTES.get((backend, "all_to_all"))
+                if comp and comp[1] != sent:
+                    raise AssertionError(f"{name}: the raw wire sent {sent} B, phase sharded's "
+                                         f"compressed run counted {comp[1]} raw")
+                counts[name] = c
+                parts.append(f"(b) {name} {wall:.2f} s (launches {c}), the raw wire {sent} B"
+                             + (f", phase sharded's compressed one {comp[0]} B ("
+                                f"{comp[0] / sent:.3f}x of it)" if comp else ""))
+                held.append(note)
+        finally:
+            os.environ.pop("KSPEC_EXCHANGE_COMPRESS", None)
+
+        # the serial path on `host`: the commit of each chunk before the next
+        name = f"D={SHARDS} host all_to_all overlap off"
+        res, chain, wall, c, note = _sharded_run(name, kip, ("fingerprint",),
+                                                 visited_backend="host", overlap=False)
+        _sharded_full(name, res, chain)
+        _serial_path(name, res)
+        counts[name] = c
+        parts.append(f"(b) {name} {wall:.2f} s (launches {c}), unstaged, raw")
+        held.append(note)
+
+        # the staged commit two deep: chunks of 4096 rows a shard
+        name = f"D={SHARDS} host chunk 4096"
+        res, chain, wall, c, note = _sharded_run(name, kip, ("fingerprint",),
+                                                 visited_backend="host", chunk_size=4096)
+        _sharded_full(name, res, chain)
+        if res.stats["overlap"]["staged_chunks_peak"] != 2 or not res.stats[
+                "exchange_compressed"]:
+            raise AssertionError(f"{name}: {res.stats['overlap']}, compressed "
+                                 f"{res.stats['exchange_compressed']}")
+        counts[name] = c
+        parts.append(f"{name}: staged two chunks deep, compressed, {wall:.2f} s (launches {c})")
+        held.append(note)
+
+        # (c) a flipped bit in flight, seen through the codec
+        err, c, note = _sharded_raises("flip@exchange", kip, IntegrityError, ("fingerprint",),
+                                       fault="flip@exchange:6")
+        if err.site != "exchange":
+            raise AssertionError(f"flip@exchange: site {err.site}")
+        counts["flip@exchange compressed"] = c
+        parts.append(f"(c) flip@exchange:6 through the codec: IntegrityError at site exchange, "
+                     f"depth {err.depth} (launches {c})")
+        held.append(note)
+
+        # (d) the disk tier: a crash resumed at D = 8 and elastically at 4
+        os.environ["KSPEC_SPILL_RUNS_PER_MERGE"] = "2"
+        try:
+            ck, ck4 = WORK / "sharded-tier", WORK / "sharded-tier-4"
+            for p in (ck, ck4):
+                shutil.rmtree(p, ignore_errors=True)
+            tier = dict(mem_budget=SHARDED_TIER_BUDGET, checkpoint_dir=str(ck))
+            _r, _c, w1, c1, _n = _sharded_run("tier crash", kip, ("fingerprint",),
+                                              fault="crash@shard3:level:14", **tier)
+            shutil.copytree(ck, ck4)
+            res, chain, w2, c2, note = _sharded_run("tier resume D=8", kip, ("fingerprint",),
+                                                    **tier)
+            _sharded_full("tier resume D=8", res, chain)
+            spill = [s for s in res.stats["spill"] if s]
+            spills, merges = sum(s["spills"] for s in spill), sum(s["merges"] for s in spill)
+            if not spills or not merges or sum(s["disk"] + s["hot"] for s in spill) != res.total:
+                raise AssertionError(f"tier: {spills} spills, {merges} merges, {spill}")
+            res4, chain4, w3, c3, note4 = _sharded_run(
+                "tier resume D=4", kip, ("fingerprint",), mesh=ShardMesh(SHARDS // 2, DEV),
+                mem_budget=SHARDED_TIER_BUDGET, checkpoint_dir=str(ck4))
+            _sharded_full("tier resume D=4", res4, chain4)
+            tier_bytes = _dir_bytes(ck)
+            counts.update({"tier crash": c1, "tier resume D=8": c2, "tier resume D=4": c3})
+            parts.append(f"(d) the tier at {SHARDED_TIER_BUDGET}, crash@shard3:level:14 "
+                         f"({w1:.2f} s), resumed at "
+                         f"D={SHARDS} ({w2:.2f} s; {spills} spills, {merges} merges, "
+                         f"{tier_bytes} B under the checkpoint directory) and at D="
+                         f"{SHARDS // 2} ({w3:.2f} s), the pinned levels and chain")
+            held += [note, note4]
+
+            # (e) the governor: half of (d)'s directory as the disk budget
+            ck_e = WORK / "sharded-governor"
+            shutil.rmtree(ck_e, ignore_errors=True)
+            budget = tier_bytes // 2
+            err, c, note = _sharded_raises("disk budget", kip, ResourceExhausted, ("fingerprint",),
+                                           mem_budget=SHARDED_TIER_BUDGET,
+                                           checkpoint_dir=str(ck_e),
+                                           disk_budget=budget)
+            if err.reason != "disk" or not verify_checkpoint_dir(str(ck_e))["ok"]:
+                raise AssertionError(f"governor: {err.reason} {err}")
+            res, chain, w5, c5, note5 = _sharded_run("governor resume", kip, ("fingerprint",),
+                                                     mem_budget=SHARDED_TIER_BUDGET,
+                                                     checkpoint_dir=str(ck_e))
+            _sharded_full("governor resume", res, chain)
+            counts.update({"disk budget": c, "governor resume": c5})
+            parts.append(f"(e) disk_budget {budget} B: ResourceExhausted (disk) at depth "
+                         f"{err.depth}, the checkpoint verifies, resumed ({w5:.2f} s) to the "
+                         f"pinned levels and chain")
+            held += [note, note5]
+        finally:
+            os.environ.pop("KSPEC_SPILL_RUNS_PER_MERGE", None)
+    finally:
+        wall, secs = _sharded_fleet_end(*fleet)
+    parts.append(f"(f) a world-size-1 NCCL fleet, crash@shard0:level:10, torn down and "
+                 f"restarted to 737,794 states and the JAX chain, {wall:.1f} s from the start "
+                 f"(attempts {secs} s)")
+    return {"line": f"{'; '.join(parts)}; walls on {card}; {'; '.join(held)}",
             "counts": counts}
 
 
@@ -3438,6 +3728,7 @@ def main() -> int:
     fleet = ph.run("fleet", phase_fleet)
     harness = ph.run("harness", phase_harness)
     sharded = ph.run("sharded", phase_sharded)
+    sharded_overlap = ph.run("sharded-overlap", phase_sharded_overlap)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -3457,7 +3748,8 @@ def main() -> int:
                **{f"serve {p}": c for p, c in serve["counts"].items()},
                **{f"fleet {p}": c for p, c in fleet["counts"].items()},
                **harness["counts"],
-               **{f"sharded {p}": c for p, c in sharded["counts"].items()}}
+               **{f"sharded {p}": c for p, c in sharded["counts"].items()},
+               **{f"sharded-overlap {p}": c for p, c in sharded_overlap["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

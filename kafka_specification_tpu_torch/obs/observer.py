@@ -165,13 +165,19 @@ class RunObserver:
         s = result.stats or {}
         m.inc("kspec_transient_retries_total", s.get("transient_retries", 0))
         m.set_gauge("kspec_degradations", len(s.get("degradations", ())))
-        sp = s.get("spill")
-        if sp:
-            m.set_gauge("kspec_spill_runs", sp.get("runs", 0))
-            m.set_gauge("kspec_spill_hot_fps", sp.get("hot", 0))
-            m.set_gauge("kspec_spill_disk_fps", sp.get("disk", 0))
-            m.set_gauge("kspec_spill_spills", sp.get("spills", 0))
-            m.set_gauge("kspec_spill_merges", sp.get("merges", 0))
+        # the sharded engine's tier reports one record a shard (None where
+        # another process owns it): one gauge a shard, labeled
+        spill = s.get("spill")
+        spills = spill if isinstance(spill, list) else [spill]
+        for d, sp in enumerate(spills):
+            if not sp:
+                continue
+            labels = {"shard": d} if isinstance(spill, list) else {}
+            m.set_gauge("kspec_spill_runs", sp.get("runs", 0), **labels)
+            m.set_gauge("kspec_spill_hot_fps", sp.get("hot", 0), **labels)
+            m.set_gauge("kspec_spill_disk_fps", sp.get("disk", 0), **labels)
+            m.set_gauge("kspec_spill_spills", sp.get("spills", 0), **labels)
+            m.set_gauge("kspec_spill_merges", sp.get("merges", 0), **labels)
             bt = sp.get("bloom_totals")
             if bt:
                 m.inc("kspec_bloom_maybe_total", bt["bloom_maybe"])

@@ -16,7 +16,9 @@ exchange routes each candidate to its owner with :func:`all_to_all_shards`
   for a CUDA device, gloo for the CPU.
 - :class:`ShardMesh` stands in for ``jax.sharding.Mesh``: D shards, each
   with its process and its ``torch.device``.  Several shards may share one
-  device (D logical shards on ``cuda:0``, or on the CPU in the tests).
+  device (D logical shards on ``cuda:0``, or on the CPU in the tests; a
+  CPU process's default mesh holds ``$KSPEC_CPU_SHARDS_PER_PROC`` of
+  them, as XLA's forced host device count gives a JAX CPU process).
   Shards go to processes in contiguous equal blocks, as a JAX mesh of
   ``jax.devices()`` lays them out.
 
@@ -41,6 +43,10 @@ import torch
 from ..engine.bfs import resolve_device
 
 MULTIHOST_ENV = "KSPEC_MULTIHOST"
+#: shards each process of a CPU mesh holds in ``ShardMesh.default`` (the
+#: counterpart of XLA's ``--xla_force_host_platform_device_count``, which
+#: the JAX package's CPU fleets use; read on the CPU only)
+CPU_SHARDS_ENV = "KSPEC_CPU_SHARDS_PER_PROC"
 
 
 def _dist():
@@ -169,8 +175,8 @@ class ShardMesh:
     @classmethod
     def default(cls, device=None) -> "ShardMesh":
         """One shard per device the runtime exposes (the JAX rule): world
-        size x the visible cards on the card, one shard per process on the
-        CPU."""
+        size x the visible cards on the card; on the CPU, world size x
+        $KSPEC_CPU_SHARDS_PER_PROC (default 1)."""
         dev = resolve_device(device)
         P = process_count()
         if dev.type == "cuda":
@@ -179,7 +185,7 @@ class ShardMesh:
                 return cls(P, device=torch.device("cuda", torch.cuda.current_device()))
             n = torch.cuda.device_count()
             return cls(n, devices=[torch.device("cuda", i) for i in range(n)])
-        return cls(P, device=dev)
+        return cls(P * int(os.environ.get(CPU_SHARDS_ENV) or 1), device=dev)
 
     @property
     def size(self) -> int:

@@ -1,10 +1,10 @@
 """Mesh-sharded BFS on torch.distributed: the per-chunk path (PyTorch).
 
 Counterpart of ``kafka_specification_tpu/parallel/sharded.py::
-check_sharded`` on its per-chunk step, the bit-identity oracle the JAX
-package holds every other sharded pipeline against.  The frontier and the
-fingerprint set are sharded over D shards (``multihost.ShardMesh``);
-every candidate successor is owned by the shard ``fp_lo mod D``:
+check_sharded`` on its per-chunk step, with its overlap and storage legs
+(below).  The frontier and the fingerprint set are sharded over D shards
+(``multihost.ShardMesh``); every candidate successor is owned by the
+shard ``fp_lo mod D``:
 
 - each shard expands its chunk of the frontier with the per-chunk stages
   of the single-device engine (``engine/pipeline.py``: the action kernels
@@ -13,8 +13,9 @@ every candidate successor is owned by the shard ``fp_lo mod D``:
 - the candidates go to their owners: "all_to_all" routes each source
   shard's candidates into D per-owner buckets and sends each bucket to its
   owner; "all_gather" sends every candidate to every shard, which keeps
-  the ones it owns.  The payload is one int32 tensor a chunk, [W, 2 + K +
-  2] rows (hi, lo, the K lanes, the level-global parent, the action);
+  the ones it owns.  The raw payload is one int32 tensor a chunk, [W, 2 +
+  K + 2] rows (hi, lo, the K lanes, the level-global parent, the action);
+  the compressed one (below) packs the fingerprint lanes;
 - each owner sees its candidates source shard by source shard, each in
   candidate order, sorts them stably by fingerprint (the first copy
   wins) and dedups them against its own visited set: the sorted set of
@@ -61,18 +62,55 @@ mesh or elastically on another (``_elastic_reshard``).  With a trace
 asked for, a checkpointed run writes per-shard parent logs under
 ``<checkpoint_dir>/plog`` (``storage/parent_log.py::ShardedParentLog``).
 
-Left for ROADMAP item 8b, each refused with an error that names it: the
-device-resident sharded level (``pipeline="device"``), the compressed
-exchange (``KSPEC_EXCHANGE_COMPRESS=1``), the overlap legs (an explicit
-``overlap`` on, or ``KSPEC_OVERLAP`` on; the default is the serial path,
-which stats["overlap"] records), the disk tier and the resource governor
-(``store="disk"``, ``mem_budget``, ``disk_budget`` and the governor's
-environment).
+The overlap layer (``overlap``, ``$KSPEC_OVERLAP``, on by default, as in
+the JAX package; off is the serial path, the bit-identity oracle):
+
+- the compressed ``all_to_all`` (``ops/fpcompress.py``): on with the
+  layer where the shards sit on a CUDA device (the JAX package's "not the
+  CPU backend"), with fewer than 255 actions; ``KSPEC_EXCHANGE_COMPRESS=
+  1``/``0`` forces it either way.  Each owner bucket is sorted stably by
+  fingerprint (sentinels last), its fingerprint lanes bit-packed and
+  delta-encoded, its rows and parents sent at the compact width ``Wr``,
+  its action ids as u8; the receiver decodes them into the raw layout, so
+  the received framing digest is taken over the decoded lanes.  Widths:
+  the raw wire is exactly W rows (the largest bucket); the compressed one
+  is ``max(32, 2 W)`` rows wide (``Wr`` is then at least W), doubling
+  while a stream overflows its ``default_stream_words`` budget, and a
+  chunk whose stream still overflows at full width (a bucket as wide as
+  a whole source's candidates) goes raw: the JAX package's ladder and its
+  fallback.  ``exchange_raw_bytes`` are the bytes the raw wire sends for
+  the same chunks (at its exact width W), so ``exchange_raw_bytes /
+  exchange_bytes`` is what the codec saves.  The stream's budget at the
+  compressed width is ``2 W`` words, 64 bits a row of the widest bucket:
+  the raw fingerprint lanes' own size.  So at these widths the codec
+  saves no fingerprint bytes, and the saving is the u8 action ids' (3
+  bytes a row) less the headers (ROADMAP "Not followed");
+- the staged host commit (``visited_backend="host"``): chunk k+1 is
+  dispatched before chunk k's commit; commits run in dispatch order, so
+  at most two chunks are staged (``staged_chunks_peak``);
+- checkpoint writes on the ``kspec-ckpt`` thread (each process writes its
+  own ``.host<p>`` part), and the disk tier's merges on ``kspec-io``.
+
+The disk tier (``store="disk"``, or ``mem_budget`` with ``store="auto"``)
+turns the host backend's per-shard sets into ``TieredFpSet``s under
+``<spill_dir or checkpoint_dir/spill or a temporary directory>/shard<d>``,
+each with ``budget // (shards this process owns)`` bytes; checkpoints
+record each shard's run manifest and hot dump.  The resource governor
+(``disk_budget``, ``$KSPEC_DISK_BUDGET``/``RSS_BUDGET``/``LEVEL_DEADLINE``,
+``stall@level``) watches the spill and checkpoint directories: a soft
+breach reclaims, a hard one checkpoints and raises ``ResourceExhausted``
+(CLI exit 75).
+
+Left for ROADMAP item 8c: the device-resident sharded level
+(``pipeline="device"``), refused with an error that names it.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import tempfile
 import time
 from typing import Optional
 
@@ -86,18 +124,21 @@ from ..engine.pipeline import (compacts, deadlock_rows, expand_stage, first_copi
 from ..interop import from_u32, to_u32
 from ..obs import metrics as _met
 from ..obs.observer import RunObserver
-from ..ops import dedup, hashset
+from ..ops import dedup, fpcompress, hashset
 from ..ops.cuda_hashset import probe_insert
-from ..overlap import OVERLAP_ENV, overlap_enabled
+from ..overlap import AsyncWorker, close_workers, overlap_enabled, worker_counters
 from ..pipeline_registry import resolve_pipeline
 from ..resilience import integrity as _integ
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.faults import WIRED_SHARDED, FaultPlan
 from ..resilience.heartbeat import append_jsonl, heartbeat_record
 from ..resilience.integrity import IntegrityError
-from ..resilience.resources import ResourceExhausted, is_disk_full
+from ..resilience.resources import ResourceExhausted, ResourceGovernor, is_disk_full
 from ..resilience.retry import ChunkRetryHandler
+from ..storage import DEFAULT_MEM_BUDGET, TieredFpSet, parse_mem_budget, resolve_store
+from ..storage.atomic import sweep_tmp
 from ..storage.parent_log import ParentLogCorrupt, ShardedParentLog
+from ..storage.runs import RunCorrupt, SortedRun
 from .multihost import (ShardMesh, all_gather_shards, all_to_all_shards, fetch_global,
                         gather_rows, is_coordinator, is_multiprocess, max_across_processes,
                         mesh_layouts, or_across_processes, process_count)
@@ -109,13 +150,16 @@ _HASH_MIN_CAP = 1 << 14
 # capacity on the host backend: its placeholder arrays' width
 _NO_SORTED_CAP = 64
 CHECKPOINT_BASENAME = "sharded_checkpoint.npz"
-ITEM_8B = "ROADMAP Queue A item 8b"
+ITEM_8C = "ROADMAP Queue A item 8c"
+COMPRESS_ENV = "KSPEC_EXCHANGE_COMPRESS"
 _U32 = 0xFFFFFFFF
+# the u8 wire of an action id: a sentinel row's -1 rides as 255
+_NO_ACT = 255
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the sharded engine yet ({ITEM_8B}); the per-chunk "
+        f"{what} is not ported to the sharded engine yet ({ITEM_8C}); the per-chunk "
         f"path does not stand in for it")
 
 
@@ -199,24 +243,111 @@ def _sentinel_rows(n: int, F: int, device) -> torch.Tensor:
     return rows
 
 
+def _raw_bytes(D: int, W: int, K: int) -> int:
+    """Bytes of one raw all_to_all at width W: D x D buckets of W rows of
+    (hi, lo, K lanes, parent, action), 4 bytes each."""
+    return D * D * (fpcompress.raw_bytes(W) + W * 4 * (K + 2))
+
+
+def _bucket_order(payload: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
+    """A source shard's candidates grouped by owner, each owner's bucket
+    ascending by fingerprint with ties in candidate order: the stable sort
+    by order key, then the stable sort by owner."""
+    key = dedup.order_key(payload[:, 0].to(torch.int64) & _U32,
+                          payload[:, 1].to(torch.int64) & _U32)
+    by_key = torch.sort(key, stable=True).indices
+    return by_key[torch.sort(owner[by_key], stable=True).indices]
+
+
 def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
-    """The per-chunk candidate exchange.  -> route(payloads, owners) with
-    `payloads`: local source shard -> int32[n, 2 + K + 2] candidate rows in
-    candidate order, `owners`: their owner shards; it returns, per local
-    owner shard, (int32[R, 2 + K + 2], mine): what every source shard sent
-    it, source by source, each in candidate order, padded with sentinel
-    rows, and `mine` None (all_to_all), or every candidate with `mine`
-    masking the owner's (all_gather); and the width W of the exchange (rows
-    a bucket)."""
+    """The per-chunk candidate exchange.  -> route(payloads, owners,
+    compress) with `payloads`: local source shard -> int32[n, 2 + K + 2]
+    candidate rows in candidate order, `owners`: their owner shards; it
+    returns, per local owner shard, (int32[R, 2 + K + 2], mine): what every
+    source shard sent it, source by source, padded with sentinel rows, and
+    `mine` None (all_to_all), or every candidate with `mine` masking the
+    owner's (all_gather); and the wire record {"compressed": the chunk
+    went compressed, "sent": bytes on the all_to_all wire, "raw": the raw
+    wire's bytes for the same chunk, at its exact width}.  Raw, each source's rows keep candidate
+    order; compressed, each bucket is in fingerprint order with ties in
+    candidate order, which elects the same first copies."""
     if exchange not in ("all_to_all", "all_gather"):
         raise ValueError(f"unknown exchange {exchange!r}")
     D = mesh.size
     F = 2 + K + 2
 
-    def route_a2a(payloads: dict, owners: dict):
+    def bucket_frames(payloads, owners, counts, orders, W, Wr, NW):
+        """Every local source's D buckets at width W, packed: -> ({d:
+        int32[D, NW + header + Wr * (K + 1)] (the words, the header, the
+        lanes and parent of the first Wr rows)}, {d: uint8[D, Wr] action
+        ids}, this process's stream overflow)."""
+        frames, acts, ovf = {}, {}, False
+        for d in mesh.my_shards:
+            p, c, order = payloads[d], counts[d], orders[d]
+            dev = p.device
+            b_hi = torch.full((D * W,), _U32, dtype=torch.int64, device=dev)
+            b_lo = torch.full((D * W,), _U32, dtype=torch.int64, device=dev)
+            rows = torch.zeros((D * Wr, K + 1), dtype=torch.int32, device=dev)
+            rows[:, K] = -1
+            act = torch.full((D * Wr,), _NO_ACT, dtype=torch.uint8, device=dev)
+            if p.shape[0]:
+                ps, oo = p[order], owners[d][order]
+                rank = torch.arange(oo.shape[0], device=dev) - (torch.cumsum(c, 0) - c)[oo]
+                b_hi[oo * W + rank] = ps[:, 0].to(torch.int64) & _U32
+                b_lo[oo * W + rank] = ps[:, 1].to(torch.int64) & _U32
+                rows[oo * Wr + rank] = ps[:, 2 : 2 + K + 1]
+                act[oo * Wr + rank] = ps[:, F - 1].to(torch.uint8)
+            words, header, over = fpcompress.pack_sorted(b_hi.view(D, W), b_lo.view(D, W), c, NW)
+            ovf |= bool(over.any())
+            frames[d] = torch.cat([words.to(torch.int32), header.to(torch.int32),
+                                   rows.view(D, Wr * (K + 1))], dim=1)
+            acts[d] = act.view(D, Wr)
+        return frames, acts, ovf
+
+    def route_compressed(payloads, owners, counts, cmax):
+        """The compressed wire, or None when a stream overflows at full
+        width (the chunk then goes raw)."""
+        orders = {d: _bucket_order(payloads[d], owners[d]) for d in mesh.my_shards}
+        W = max(32, 2 * cmax)
+        # full width: one bucket as wide as a whole source's candidates
+        T = max(W, max_across_processes(max(p.shape[0] for p in payloads.values())))
+        while True:
+            Wr = max(32, W // 2)
+            NW = fpcompress.default_stream_words(W)
+            frames, acts, ovf = bucket_frames(payloads, owners, counts, orders, W, Wr, NW)
+            if not or_across_processes(np.array([ovf]))[0]:
+                break
+            if W >= T:
+                return None
+            W = min(T, 2 * W)
+        HW = fpcompress.header_words(W)
+        got = all_to_all_shards([frames[d] for d in mesh.my_shards], mesh)
+        got_act = all_to_all_shards([acts[d] for d in mesh.my_shards], mesh)
+        recv = {}
+        for d, f, a in zip(mesh.my_shards, got, got_act):
+            f = f.to(torch.int64)
+            hi, lo = fpcompress.unpack_sorted(f[:, :NW] & _U32, f[:, NW : NW + HW] & _U32, W)
+            r = _sentinel_rows(D * W, F, f.device).view(D, W, F)
+            r[:, :, 0] = hi.to(torch.int32)
+            r[:, :, 1] = lo.to(torch.int32)
+            r[:, :Wr, 2 : 2 + K + 1] = f[:, NW + HW :].view(D, Wr, K + 1).to(torch.int32)
+            a = a.to(torch.int32)
+            r[:, :Wr, F - 1] = torch.where(a == _NO_ACT, -1, a)
+            recv[d] = (r.reshape(D * W, F), None)
+        # each bucket: its stream and header, then Wr rows of K lanes and
+        # the parent (4 bytes each) and the u8 action id
+        sent = D * D * (fpcompress.packed_bytes(W, NW) + Wr * (4 * (K + 1) + 1))
+        return recv, {"compressed": True, "sent": sent, "raw": _raw_bytes(D, cmax, K)}
+
+    def route_a2a(payloads: dict, owners: dict, compress: bool):
         counts = {d: torch.bincount(owners[d], minlength=D) for d in mesh.my_shards}
         local_max = max((int(c.max()) for c in counts.values()), default=0)
-        W = max(1, max_across_processes(local_max))
+        cmax = max(1, max_across_processes(local_max))
+        if compress:
+            got = route_compressed(payloads, owners, counts, cmax)
+            if got is not None:
+                return got
+        W = cmax
         sends = []
         for d in mesh.my_shards:
             p, o, c = payloads[d], owners[d], counts[d]
@@ -229,9 +360,11 @@ def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
                 buf[slot] = p[order]
             sends.append(buf.view(D, W, F))
         recv = all_to_all_shards(sends, mesh)
-        return {d: (r.reshape(D * W, F), None) for d, r in zip(mesh.my_shards, recv)}, W
+        raw = _raw_bytes(D, W, K)
+        return ({d: (r.reshape(D * W, F), None) for d, r in zip(mesh.my_shards, recv)},
+                {"compressed": False, "sent": raw, "raw": raw})
 
-    def route_gather(payloads: dict, owners: dict):
+    def route_gather(payloads: dict, owners: dict, compress: bool):
         local_max = max((p.shape[0] for p in payloads.values()), default=0)
         T = max(1, max_across_processes(local_max))
         sends = []
@@ -242,8 +375,9 @@ def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
             sends.append(buf)
         allc = all_gather_shards(sends, mesh).reshape(D * T, F)
         owner = (allc[:, 1].to(torch.int64) & _U32) % D
-        return {d: (allc.to(mesh.device(d)), (owner == d).to(mesh.device(d)))
-                for d in mesh.my_shards}, T
+        return ({d: (allc.to(mesh.device(d)), (owner == d).to(mesh.device(d)))
+                 for d in mesh.my_shards},
+                {"compressed": False, "sent": 0, "raw": 0})
 
     return route_a2a if exchange == "all_to_all" else route_gather
 
@@ -251,15 +385,17 @@ def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
 def _make_sharded_step(model, mesh: ShardMesh, exchange: str, visited_backend: str,
                        compact_shift: int, compact_gate: int, check_deadlock: bool):
     """One chunk over every local shard: expansion, the exchange and each
-    owner's dedup.  -> step(frontier, base, bucket, vis) where `frontier`:
-    local shard -> int64[rows, K] (this chunk's rows of its pending), `base`:
-    local shard -> the level-global index of its first row.  Returns
-    (flags, outs, W): `flags`, local shard -> int64 vector [inv_any (I),
+    owner's dedup.  -> step(frontier, base, bucket, vis, compress) where
+    `frontier`: local shard -> int64[rows, K] (this chunk's rows of its
+    pending), `base`: local shard -> the level-global index of its first
+    row, `compress`: send the all_to_all compressed.  Returns (flags, outs,
+    wire): `flags`, local shard -> int64 vector [inv_any (I),
     inv_row (I), deadlock, deadlock_row, enabled per action (A), sent
     digest (5), received digest (5)]; `outs`, local owner shard -> int64[n,
     K + 4] (the lanes, parent, action, hi, lo) of its winners in
     fingerprint order: the new states on the device backends, the first
-    copies on the host backend (the host set judges them at the commit)."""
+    copies on the host backend (the host set judges them at the commit);
+    `wire`, the exchange's record (``_make_exchange``)."""
     spec = model.spec
     K = spec.num_lanes
     D = mesh.size
@@ -294,14 +430,14 @@ def _make_sharded_step(model, mesh: ShardMesh, exchange: str, visited_backend: s
                              cact[:, None]], dim=1).to(torch.int32)
         return torch.cat([inv_any, inv_row, dl, act_en]), payload, lo % D, (hi, lo)
 
-    def step(frontier: dict, base: dict, bucket: int, vis) -> tuple:
+    def step(frontier: dict, base: dict, bucket: int, vis, compress: bool) -> tuple:
         action_major = compacts(bucket, compact_shift, compact_gate)
         heads, payloads, owners, sent = {}, {}, {}, {}
         for d in mesh.my_shards:
             head, payloads[d], owners[d], (hi, lo) = expand(frontier[d], base[d], action_major)
             heads[d] = head
             sent[d] = _fp_digest(hi, lo, torch.ones_like(hi, dtype=torch.bool))
-        recv, W = route(payloads, owners)
+        recv, wire = route(payloads, owners, compress)
         # each owner: first copies in fingerprint order, then its visited set
         firsts = {}
         for d in mesh.my_shards:
@@ -327,7 +463,7 @@ def _make_sharded_step(model, mesh: ShardMesh, exchange: str, visited_backend: s
             lanes = w[:, 2 : 2 + K].to(torch.int64) & _U32
             outs[d] = torch.cat([lanes, w[:, 2 + K :].to(torch.int64), hi[idx, None],
                                  lo[idx, None]], dim=1)
-        return heads, outs, W
+        return heads, outs, wire
 
     return step
 
@@ -443,7 +579,8 @@ class _ShardSets:
 
 
 def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, mesh, spec,
-                     visited_backend: str, sets: _ShardSets, device):
+                     visited_backend: str, sets: _ShardSets, device, use_disk: bool = False,
+                     spill_base: Optional[str] = None):
     """Re-bucket a checkpoint of another shard or process count onto this
     mesh (the JAX helper's rules).  Ownership is fingerprint arithmetic
     (owner = fp_lo mod D), so this is a deterministic re-dealing of every
@@ -453,9 +590,16 @@ def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, 
       within a shard the old concatenated order is kept, so the re-dealing
       is deterministic and the parent log's boundary rewrite can mirror it;
     - device and device-hash shards are rebuilt from the snapshot's
-      fingerprint pairs, host sets from the (per-host part) dumps.
+      fingerprint pairs, host sets from the (per-host part) dumps;
+    - the disk tier's sets (already in `sets.host`, fresh) take every old
+      shard's hot dump and run files, run by run, spilling past their
+      budgets as usual.  The old run files are not deleted: they go behind
+      the deletion barrier of new set ``k mod D`` (old shard k), and the
+      new sets number their runs past every old one, so each retained
+      pre-reshard generation still resolves until it rotates away.
 
-    -> (pending uint32 arrays per new shard, shard_visited)."""
+    -> (pending uint32 arrays per new shard, shard_visited; None on the
+    tier, whose sets count themselves)."""
     D = mesh.size
     K = spec.num_lanes
     rows_all = (np.concatenate(old_pending) if any(p.shape[0] for p in old_pending)
@@ -480,6 +624,45 @@ def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, 
             pairs[d] = (from_u32(hi, mesh.device(d)), from_u32(lo, mesh.device(d)))
         return pairs, lens
 
+    if use_disk:
+        srcs = [part_arrays[f"host{p}"] for p in range(old_P)] if old_P > 1 else [snap]
+        old_mans = [None] * old_D
+        old_hots = [np.empty(0, np.uint64)] * old_D
+        for src in srcs:
+            mans = json.loads(str(src["spill_manifest"]))
+            hot_flat, at = src["host_hot"], 0
+            for d, ln in enumerate(src["host_hot_lens"]):
+                ln = int(ln)
+                if mans[d] is not None:
+                    old_mans[d] = mans[d]
+                    old_hots[d] = np.asarray(hot_flat[at : at + ln], np.uint64)
+                at += ln
+        next_seq = max((int(m["seq"]) for m in old_mans if m is not None), default=0)
+        for d in mesh.my_shards:
+            sets.host[d].seq = next_seq
+
+        def deal(fps: np.ndarray) -> None:
+            fo = (fps & np.uint64(_U32)).astype(np.int64) % D
+            for d in mesh.my_shards:
+                sel = fps[fo == d]
+                if len(sel):
+                    sets.host[d].insert(sel)
+
+        for k in range(old_D):
+            old_files = []
+            deal(old_hots[k])
+            if old_mans[k] is not None:
+                shard_dir = os.path.join(spill_base, f"shard{k}")
+                for m in old_mans[k]["runs"]:
+                    r = SortedRun(shard_dir, m, verify=True)
+                    deal(np.asarray(r.arr))
+                    old_files.append(r.path)
+                old_files.extend(os.path.normpath(os.path.join(shard_dir, p))
+                                 for _, p in old_mans[k].get("pending_delete", ()))
+            tgt = sets.host[k % D]
+            if tgt is not None and old_files:
+                tgt.deleter.schedule(old_files)
+        return pending, None
     if visited_backend == "host":
         if old_P > 1:
             all_fps = np.concatenate([np.asarray(part_arrays[f"host{p}"]["host_fps"], np.uint64)
@@ -504,25 +687,23 @@ def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, 
     return pending, lens
 
 
-def _refuse_8b(pipe_name: str, overlap, store: str, mem_budget, disk_budget) -> None:
-    """The items of ROADMAP 8b raise here, before anything runs."""
+def _refuse_8c(pipe_name: str) -> None:
+    """What ROADMAP item 8c still has to port raises here, before anything
+    runs."""
     if pipe_name == "device":
         raise _not_ported("pipeline='device' (the device-resident sharded level)")
-    if os.environ.get("KSPEC_EXCHANGE_COMPRESS", "") == "1":
-        raise _not_ported("the compressed exchange (KSPEC_EXCHANGE_COMPRESS=1)")
-    explicit = overlap is not None or os.environ.get(OVERLAP_ENV, "").strip()
-    if explicit and overlap_enabled(overlap):
-        raise _not_ported("the overlap layer (staged host commit, background merges, async "
-                          "checkpoint writes); pass overlap=False or leave it unset")
-    if store == "disk" or mem_budget is not None:
-        raise _not_ported("the disk tier (store='disk', mem_budget)")
-    if store not in ("auto", "ram"):
-        raise ValueError(f"store must be 'auto', 'ram' or 'disk', got {store!r}")
-    governed = [k for k in ("KSPEC_DISK_BUDGET", "KSPEC_RSS_BUDGET", "KSPEC_LEVEL_DEADLINE")
-                if os.environ.get(k)]
-    if disk_budget is not None or governed:
-        raise _not_ported("the resource governor (disk_budget" +
-                          "".join(f", ${k}" for k in governed) + ")")
+
+
+def _compress_on(overlap_on: bool, exchange: str, model, mesh: ShardMesh) -> bool:
+    """The JAX package's rule for the compressed all_to_all: with the
+    overlap layer, the all_to_all exchange and fewer than 255 actions (the
+    ids ride the wire as u8), where $KSPEC_EXCHANGE_COMPRESS is 1, or is
+    not 0 and the shards sit on a CUDA device (the JAX package's "the
+    backend is not the CPU": on one host's memory the codec is pure
+    compute)."""
+    env = os.environ.get(COMPRESS_ENV, "")
+    return (overlap_on and exchange == "all_to_all" and len(model.actions) < 255
+            and (env == "1" or (env != "0" and mesh.device(mesh.my_shards[0]).type == "cuda")))
 
 
 def check_sharded(
@@ -572,28 +753,32 @@ def check_sharded(
     appends one line a level to ``proc<i>.jsonl``.  exchange:
     "all_to_all" or "all_gather".  visited_backend: "device",
     "device-hash" or "host".  compact_shift/compact_gate select the
-    candidate order of a chunk (``pipeline.compacts``).  pipeline: "legacy"
-    and "fused" run the per-chunk step; "device" raises (ROADMAP 8b), as
-    do the compressed exchange, the overlap legs, the disk tier and the
-    resource governor (module docstring).  $KSPEC_FAULT arms the faults of
-    ``faults.WIRED_SHARDED``; a shard-scoped one fires only on the process
-    owning its shard, and a plan naming another site is refused.
+    candidate order of a chunk (``pipeline.compacts``).  overlap: the
+    overlap layer (module docstring; $KSPEC_OVERLAP, default on).
+    store/mem_budget/spill_dir: the disk tier, which runs on the host
+    backend.  disk_budget: the resource governor's byte budget over the
+    spill and checkpoint directories.  pipeline: "legacy" and "fused" run
+    the per-chunk step; "device" raises (ROADMAP 8c).  $KSPEC_FAULT arms
+    the faults of ``faults.WIRED_SHARDED``; a shard-scoped one fires only
+    on the process owning its shard, and a plan naming another site is
+    refused.
     """
     require_encoding_sound(model)
     pipe_name = resolve_pipeline(pipeline)
-    _refuse_8b(pipe_name, overlap, store, mem_budget, disk_budget)
+    _refuse_8c(pipe_name)
+    use_disk = resolve_store(store, mem_budget)
     if visited_backend not in ("device", "device-hash", "host"):
         raise ValueError(f"visited_backend must be 'device', 'device-hash' or 'host', "
                          f"got {visited_backend!r}")
+    if use_disk:
+        # the disk tier spills the host level of the hierarchy
+        visited_backend = "host"
     if exchange not in ("all_to_all", "all_gather"):
         raise ValueError(f"unknown exchange {exchange!r}")
     if mesh is None:
         mesh = ShardMesh.default(resolve_device(device))
     for dev in set(mesh.devices):
         resolve_device(dev)
-    D = mesh.size
-    my_proc, my_shards = mesh.my_proc, mesh.my_shards
-    P = process_count()
     fault = FaultPlan.from_env()
     unwired = fault.unwired(WIRED_SHARDED)
     if unwired:
@@ -601,8 +786,46 @@ def check_sharded(
             f"fault plan {fault.spec!r}: site(s) {', '.join(unwired)} are not wired in the "
             f"sharded engine (it wires {', '.join(sorted(f'{k}@{p}' for k, p in WIRED_SHARDED))})")
     # shard-scoped faults fire only on the process hosting the shard
-    fault.set_local_shards(my_shards)
-    fault.validate_shards(D)
+    fault.set_local_shards(mesh.my_shards)
+    fault.validate_shards(mesh.size)
+    # the overlap layer: kspec-io carries the tier's merges, kspec-ckpt the
+    # checkpoint writes; the env-replicated resolution takes every process
+    # down the same path
+    overlap_on = overlap_enabled(overlap)
+    io_worker = AsyncWorker("kspec-io") if overlap_on else None
+    ckpt_worker = (AsyncWorker("kspec-ckpt")
+                   if overlap_on and checkpoint_dir is not None else None)
+    try:
+        return _check_sharded(
+            model, mesh=mesh, max_depth=max_depth, max_states=max_states,
+            min_bucket=min_bucket, progress=progress, check_deadlock=check_deadlock,
+            chunk_size=chunk_size, store_trace=store_trace, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            stats_path=stats_path, compact_shift=compact_shift, compact_gate=compact_gate,
+            exchange=exchange, visited_backend=visited_backend, mem_budget=mem_budget,
+            spill_dir=spill_dir, use_disk=use_disk, disk_budget=disk_budget, run=run,
+            shard_heartbeat_dir=shard_heartbeat_dir, pipe_name=pipe_name, fault=fault,
+            io_worker=io_worker, ckpt_worker=ckpt_worker,
+            compress_on=_compress_on(overlap_on, exchange, model, mesh))
+    finally:
+        # no worker outlives the call: a completed run drained and closed
+        # them; any other ending closes them here, discarding what they hold
+        close_workers((io_worker, ckpt_worker), drain=False)
+
+
+def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, check_deadlock,
+                   chunk_size, store_trace, checkpoint_dir, checkpoint_every, checkpoint_keep,
+                   stats_path, compact_shift, compact_gate, exchange, visited_backend,
+                   mem_budget, spill_dir, use_disk, disk_budget, run, shard_heartbeat_dir,
+                   pipe_name, fault, io_worker, ckpt_worker, compress_on) -> CheckResult:
+    """check_sharded past its argument checks, with the overlap layer's
+    workers (None where the layer is off, or kspec-ckpt without
+    checkpoints) and the compression decision."""
+    overlap_on = io_worker is not None
+    workers = (io_worker, ckpt_worker)
+    D = mesh.size
+    my_proc, my_shards = mesh.my_proc, mesh.my_shards
+    P = process_count()
 
     hb_dir = shard_heartbeat_dir or os.environ.get("KSPEC_SHARD_HEARTBEAT_DIR")
     if hb_dir is None and run is not None:
@@ -642,8 +865,8 @@ def check_sharded(
                 obs_.close()
                 return res
     obs_.config(model=model.name, devices=D, exchange=exchange,
-                visited_backend=visited_backend, store="ram", mem_budget=mem_budget,
-                checkpoint_dir=checkpoint_dir,
+                visited_backend=visited_backend, store="disk" if use_disk else "ram",
+                mem_budget=mem_budget, checkpoint_dir=checkpoint_dir,
                 platform="gpu" if home.type == "cuda" else home.type)
 
     # the inits, dealt to their owners; each shard's set
@@ -652,6 +875,25 @@ def check_sharded(
     sets = _ShardSets(visited_backend, mesh)
     pending = [init_packed[owner0 == d] for d in range(D)]  # uint32 lanes kept as int64
     shard_visited = np.bincount(owner0, minlength=D).astype(np.int64)
+
+    spill_base = ephemeral_spill = None
+    if use_disk:
+        budget = parse_mem_budget(mem_budget) if mem_budget is not None else DEFAULT_MEM_BUDGET
+        spill_base = spill_dir or (os.path.join(checkpoint_dir, "spill") if checkpoint_dir
+                                   else None)
+        if spill_base is None:
+            # anonymous spill space, removed after a completed run
+            spill_base = ephemeral_spill = tempfile.mkdtemp(prefix="kspec-spill-")
+        # one tiered set a shard this process owns, each with its share of
+        # the budget (mem_budget is per process, as in check()); the inits
+        # go in at the fresh/resume decision (a resume must not wipe the
+        # runs its manifest references)
+        for d in my_shards:
+            sets.host[d] = TieredFpSet(
+                os.path.join(spill_base, f"shard{d}"), max(1, budget // len(my_shards)),
+                runs_per_merge=int(os.environ.get("KSPEC_SPILL_RUNS_PER_MERGE", "8")),
+                gc_barrier=checkpoint_keep if checkpoint_dir else 0,
+                fault_plan=fault, merge_worker=io_worker)
 
     def init_pairs():
         pairs = {}
@@ -671,7 +913,8 @@ def check_sharded(
     depth = 0
     violation = None
     result_levels: list = []
-    exch_bytes_total = 0
+    exch_bytes_total = exch_raw_bytes_total = 0
+    staged_peak = 0  # most chunks staged at once (<= 2)
 
     chain = _integ.LevelDigestChain() if _integ.enabled() else None
     hb_path = None
@@ -694,7 +937,8 @@ def check_sharded(
     # the mesh layout is NOT part of the identity: a checkpoint binds to the
     # search, and another layout resumes it elastically; the writing layout
     # is stamped as mesh_D / mesh_P instead
-    fields_ident = ",".join(f"{f.name}:{f.shape}:{f.lo}:{f.hi}" for f in spec.fields)
+    fields_ident = ",".join(f"{f.name}:{f.shape}:{f.lo}:{f.hi}" for f in spec.fields) + (
+        "|store=disk" if use_disk else "")
     ckpt_ident = (f"{model.name}|lanes={K}|backend={visited_backend}|"
                   f"inv={inv_names}|dl={check_deadlock}|" + fields_ident)
     # the pre-elastic ident baked the layout in: accepted for THIS mesh only
@@ -705,11 +949,27 @@ def check_sharded(
         store_trace = False
         last_ckpt_depth = 0
         checkpoint_every = max(1, int(checkpoint_every))
+
+        def spill_ref_errors(arrays: dict) -> list:
+            """The disk tier's load validator: every spill run a generation
+            references must pass its CRC, else the generation falls back to
+            an older one (flip@spill)."""
+            if not use_disk or "spill_manifest" not in arrays:
+                return []
+            errs = []
+            for d, man in enumerate(json.loads(str(arrays["spill_manifest"]))):
+                errs += _integ.spill_run_errors(os.path.join(spill_base, f"shard{d}"),
+                                                (man or {}).get("runs", ()))
+            return errs
+
         ckpt_store = CheckpointStore(
             checkpoint_dir, CHECKPOINT_BASENAME, ident=ckpt_ident, keep=checkpoint_keep,
             fault_plan=fault, ident_aliases=(ckpt_ident_legacy,),
-            validators=(_integ.checkpoint_chain_errors,) if chain is not None else (),
+            validators=((_integ.checkpoint_chain_errors, spill_ref_errors) if chain is not None
+                        else (spill_ref_errors,)),
         )
+        if ckpt_worker is not None:
+            ckpt_store.attach_writer(ckpt_worker)
         if want_trace:
             plog = ShardedParentLog(os.path.join(checkpoint_dir, "plog"), K, D,
                                     local_shards=my_shards, epoch_writer=is_coordinator(),
@@ -749,9 +1009,12 @@ def check_sharded(
             # crash faults at or below the resume level count as fired
             fault.set_start_depth(depth)
             if elastic_resumed:
-                pending, shard_visited = _elastic_reshard(
+                pending, lens = _elastic_reshard(
                     snap, part_arrays, old_D, old_P, pending, mesh=mesh, spec=spec,
-                    visited_backend=visited_backend, sets=sets, device=home)
+                    visited_backend=visited_backend, sets=sets, device=home,
+                    use_disk=use_disk, spill_base=spill_base)
+                if lens is not None:
+                    shard_visited = lens
                 if plog is not None and is_multiprocess():
                     # the boundary rewrite replaces segments other processes
                     # may be reading: a multi-process elastic resume stays
@@ -764,6 +1027,18 @@ def check_sharded(
                 _obs_t.event("elastic-reshard", depth=depth, from_shards=old_D, to_shards=D,
                              from_procs=old_P, to_procs=P)
                 _met.inc("kspec_elastic_reshards_total")
+            elif use_disk:
+                # each tiered set restored in place from its run manifest and
+                # hot dump (the runs stay on disk; the checkpoint references
+                # them)
+                src = part_arrays[f"host{my_proc}"] if is_multiprocess() else snap
+                mans = json.loads(str(src["spill_manifest"]))
+                hot_flat, at = src["host_hot"], 0
+                for d, ln in enumerate(src["host_hot_lens"]):
+                    ln = int(ln)
+                    if sets.host[d] is not None:
+                        sets.host[d].restore(mans[d], hot_flat[at : at + ln])
+                    at += ln
             elif visited_backend == "host":
                 src = part_arrays[f"host{my_proc}"] if is_multiprocess() else snap
                 fps_flat, lens = np.asarray(src["host_fps"], np.uint64), src["host_lens"]
@@ -801,8 +1076,17 @@ def check_sharded(
                     "generations (per-host part corruption?) — restore or delete "
                     f"{checkpoint_dir} and restart")
     if not resumed:
-        sets.build(init_pairs(), shard_visited,
-                   cap=next_pow2(max(1024, 4 * n0)) if visited_backend == "device" else None)
+        if use_disk:
+            # a fresh run on the tier: each owned shard claims its run
+            # directory and takes its init fingerprints
+            for d in my_shards:
+                sets.host[d].start_fresh()
+                sel = np.nonzero(owner0 == d)[0]
+                if len(sel):
+                    sets.host[d].insert(_integ.pair_u64(hi0[sel], lo0[sel]))
+        else:
+            sets.build(init_pairs(), shard_visited,
+                       cap=next_pow2(max(1024, 4 * n0)) if visited_backend == "device" else None)
         if chain is not None:
             chain.fold(_integ.pair_u64(hi0, lo0))
             chain.seal(0, n0)
@@ -811,23 +1095,117 @@ def check_sharded(
     step = _make_sharded_step(model, mesh, exchange, visited_backend, compact_shift,
                               compact_gate, check_deadlock)
 
+    # the async writer's bookkeeping: `last_ckpt_depth` is the newest
+    # submitted save, `ckpt_durable_depth` the newest promoted one, on which
+    # level-keyed faults defer; each save's completion callback runs on
+    # this thread, in submission order, as saves promote
+    ckpt_durable_depth = last_ckpt_depth
+    ckpt_cbs: list = []
+
+    def ckpt_poll(block: bool = False) -> None:
+        nonlocal ckpt_durable_depth
+        if ckpt_worker is None or ckpt_store is None:
+            return
+        for d, path in (ckpt_store.drain_async() if block else ckpt_store.poll_async()):
+            cb = ckpt_cbs.pop(0) if ckpt_cbs else None
+            if cb is not None:
+                cb(path)
+            ckpt_durable_depth = d if ckpt_durable_depth is None else max(ckpt_durable_depth, d)
+
+    def store_save(arrays, part=None, on_done=None, sync: bool = False) -> None:
+        """One checkpoint-store write, on the writer thread or (sync, or
+        the layer off) here; `on_done(path)` runs on this thread once the
+        write promoted."""
+        nonlocal ckpt_durable_depth
+        if ckpt_worker is not None and not sync:
+            ckpt_cbs.append(on_done)
+            ckpt_store.save_async(depth, arrays, part=part)
+            return
+        path = ckpt_store.save(depth, arrays, part=part)
+        if on_done is not None:
+            on_done(path)
+        ckpt_durable_depth = depth if ckpt_durable_depth is None else max(ckpt_durable_depth,
+                                                                          depth)
+
+    def advance_spill_gc(marks=None) -> None:
+        # a new durable generation: each tiered set's deletion barrier
+        # advances, for the files scheduled before the save's snapshot
+        # (`marks`) when the save was async
+        if use_disk:
+            for d in my_shards:
+                s = sets.host[d]
+                s.deleter.on_save(upto=None if marks is None else marks.get(id(s)))
+
+    def gc_marks():
+        return {id(sets.host[d]): sets.host[d].deleter.mark() for d in my_shards} \
+            if use_disk else None
+
     def levels_for_save():
         levels_arr = np.asarray(levels)
         if chain is not None and chain.anchored and fault.flip("ckpt", depth,
-                                                                ckpt_depth=last_ckpt_depth):
+                                                                ckpt_depth=ckpt_durable_depth):
             levels_arr = levels_arr.copy()
             _integ.flip_bit(levels_arr)
         return levels_arr
 
-    def save_checkpoint():
+    def chain_stamp() -> dict:
+        return {"digest_chain": chain.to_array()} if chain is not None and chain.anchored else {}
+
+    def readback(path: str, at_depth: int) -> None:
+        if chain is not None and chain.anchored:
+            _integ.readback_chain(path, depth=at_depth)
+
+    def pending_arrays() -> dict:
+        pend = [to_u32(p).reshape(-1, K) for p in pending]
+        return dict(pending=np.concatenate(pend) if any(p.shape[0] for p in pend)
+                    else np.empty((0, K), np.uint32),
+                    pending_lens=np.asarray([p.shape[0] for p in pend]))
+
+    def save_checkpoint(sync: bool = False):
+        if use_disk:
+            # the run manifests and hot dumps: the runs ARE the durable
+            # state, the checkpoint references them
+            hots = [sets.host[d].hot_dump() if sets.host[d] is not None
+                    else np.empty(0, np.uint64) for d in range(D)]
+            payload = {
+                "host_hot": np.concatenate(hots),
+                "host_hot_lens": np.asarray([len(x) for x in hots]),
+                "spill_manifest": json.dumps([s.manifest() if s is not None else None
+                                              for s in sets.host]),
+                "mesh_D": D,
+                "mesh_P": P,
+            }
+            marks = gc_marks()
+            if is_multiprocess():
+                # a non-coordinator's part is its only write: its barrier
+                # advances when the part promotes
+                store_save(payload, part=f"host{my_proc}",
+                           on_done=None if is_coordinator()
+                           else lambda _p, m=marks: advance_spill_gc(m), sync=sync)
+                extra = {}
+            else:
+                extra = payload
+            if not is_coordinator():
+                return
+            main = dict(**pending_arrays(), vcap=sets.cap, levels=levels_for_save(),
+                        total=total, **extra, **chain_stamp())
+            main["mesh_D"] = D
+            main["mesh_P"] = P
+
+            def main_done(path, m=marks, d=depth):
+                advance_spill_gc(m)
+                readback(path, d)
+
+            store_save(main, on_done=main_done, sync=sync)
+            return
         if visited_backend == "host":
             dumps = [s.dump() if s is not None else np.empty(0, np.uint64) for s in sets.host]
             if is_multiprocess():
                 # each process persists its own shards in a part file; the
                 # mesh stamps pair parts with mains
-                ckpt_store.save(depth, dict(
-                    host_fps=np.concatenate(dumps), host_lens=np.asarray([len(x) for x in dumps]),
-                    mesh_D=D, mesh_P=P), part=f"host{my_proc}")
+                store_save(dict(host_fps=np.concatenate(dumps),
+                                host_lens=np.asarray([len(x) for x in dumps]), mesh_D=D,
+                                mesh_P=P), part=f"host{my_proc}", sync=sync)
                 extra = {}
             else:
                 extra = {"host_fps": np.concatenate(dumps) if dumps else np.empty(0, np.uint64),
@@ -859,23 +1237,59 @@ def check_sharded(
                 chain.verify_visited(_integ.visited_fps(extra), depth=depth)
         if not is_coordinator():
             return
-        pend = [to_u32(p).reshape(-1, K) for p in pending]
-        arrays = dict(
-            pending=np.concatenate(pend) if any(p.shape[0] for p in pend)
-            else np.empty((0, K), np.uint32),
-            pending_lens=np.asarray([p.shape[0] for p in pend]),
-            vcap=sets.cap, levels=levels_for_save(), total=total, mesh_D=D, mesh_P=P,
-            **extra,
-            **({"digest_chain": chain.to_array()} if chain is not None and chain.anchored
-               else {}),
-        )
-        path = ckpt_store.save(depth, arrays)
-        if chain is not None and chain.anchored:
-            _integ.readback_chain(path, depth=depth)
+        store_save(dict(**pending_arrays(), vcap=sets.cap, levels=levels_for_save(),
+                        total=total, mesh_D=D, mesh_P=P, **extra, **chain_stamp()),
+                   on_done=lambda p, d=depth: readback(p, d), sync=sync)
+
+    # the resource governor: per process, over its spill and checkpoint
+    # directories (in a fleet the breaching process exits typed and the
+    # fleet supervisor classifies it)
+    governor = ResourceGovernor.from_env(disk_budget=disk_budget,
+                                         watch_dirs=[spill_base, checkpoint_dir],
+                                         fault_plan=fault)
+
+    def final_save():
+        """Checkpoint-then-clean-exit: the level just completed, off the
+        cadence if need be, synchronously and after the async tail (the
+        typed exit promises a durable state)."""
+        nonlocal last_ckpt_depth
+        if ckpt_store is None:
+            return
+        ckpt_poll(block=True)
+        if last_ckpt_depth != depth or ckpt_durable_depth != depth:
+            save_checkpoint(sync=True)
+            last_ckpt_depth = depth
+
+    def reclaim():
+        """Soft-breach reclamation: tmp janitor and eager merges per owned
+        shard (each merge worker quiesced before its directory is swept),
+        a fresh checkpoint, the older generations pruned (coordinator),
+        each owned shard's deletion barrier flushed."""
+        nonlocal last_ckpt_depth
+        merged = False
+        if use_disk:
+            for d in my_shards:
+                s = sets.host[d]
+                s.quiesce()
+                sweep_tmp(s.dir)
+                if len(s.runs) > 1:
+                    s.merge()
+                    merged = True
+        if ckpt_store is not None:
+            ckpt_poll(block=True)
+            if merged or last_ckpt_depth != depth or ckpt_durable_depth != depth:
+                save_checkpoint(sync=True)
+                last_ckpt_depth = depth
+            if is_coordinator():
+                ckpt_store.prune(keep_gens=1)
+            if use_disk:
+                for d in my_shards:
+                    sets.host[d].deleter.flush()
 
     if elastic_resumed:
         # one generation in the new layout at once: a crash before the next
-        # save resumes into it without re-dealing
+        # save resumes into it without re-dealing, and the tier's re-dealt
+        # runs are referenced before any old run can age out
         save_checkpoint()
 
     trace_store = []
@@ -896,16 +1310,32 @@ def check_sharded(
             return walk_trace(plog.view(), model.actions, decode_row, inv_name, d_level, idx)
         return None
 
+    def owned_tiers():
+        return [sets.host[d] for d in my_shards] if use_disk else []
+
     n_inv = len(model.invariants)
     A = len(model.actions)
+    # the staged commit: the host backend's chunks touch no visited state
+    # until their commit, so chunk k+1 can be dispatched before chunk k is
+    # committed; the device backends carry their sets from chunk to chunk
+    stage_chunks = overlap_on and visited_backend == "host"
     shard_beat(depth, event="start", resumed=bool(resumed))
     cut = False
     exhausted = integrity_fail = None
     try:
         while any(p.shape[0] for p in pending):
-            fault.crash("level", depth, ckpt_depth=last_ckpt_depth)
+            # the async join point: adopt finished merges and checkpoint
+            # promotes, surface the workers' errors; blocking under an armed
+            # fault plan, so an injection never depends on thread timing
+            ckpt_poll(block=bool(fault.specs))
+            for s in owned_tiers():
+                if fault.specs:
+                    s.quiesce()
+                s.poll_merge()
+            lvl_io0 = worker_counters(workers)
+            fault.crash("level", depth, ckpt_depth=ckpt_durable_depth)
             if chain is not None:
-                sp = fault.flip("frontier", depth, ckpt_depth=last_ckpt_depth)
+                sp = fault.flip("frontier", depth, ckpt_depth=ckpt_durable_depth)
                 if sp:
                     # a shard scope targets that shard's pending rows (the
                     # first non-empty one when it holds none this level)
@@ -929,6 +1359,7 @@ def check_sharded(
             t_level = time.perf_counter()
             lens = [p.shape[0] for p in pending]
             obs_.level_begin(depth + 1, int(sum(lens)))
+            governor.level_begin(depth + 1)  # arm the per-level deadline
             next_pending = [[] for _ in range(D)]
             next_parent = [[] for _ in range(D)]
             next_act = [[] for _ in range(D)]
@@ -936,15 +1367,19 @@ def check_sharded(
             lvl_new_per_shard = np.zeros(D, np.int64)
             lvl_en_per_shard = np.zeros(D, np.int64)
             lvl_recv_per_shard = np.zeros(D, np.int64)
-            lvl_exch_bytes = 0
+            lvl_exch_bytes = lvl_exch_raw_bytes = 0
             lvl_dispatches = 0
             offs = [0] * D
             prev_base = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-            verdict = None  # (invariant name, frontier row, level index)
-            while verdict is None:
+            verdict = None  # (invariant name, shard, frontier row, level index)
+
+            def build_chunk():
+                """The next chunk's rows of every local shard, or None when
+                the level is done."""
                 rem = max(n - o for n, o in zip(lens, offs))
                 if rem <= 0:
-                    break
+                    return None
+                governor.poll(depth)  # the deadline watchdog
                 bucket = min(next_pow2(max(rem, min_bucket // D, 32)), chunk)
                 chunk_off = list(offs)
                 took = [min(bucket, lens[d] - offs[d]) for d in range(D)]
@@ -953,7 +1388,12 @@ def check_sharded(
                 frontier = {d: pending[d][chunk_off[d] : chunk_off[d] + took[d]].to(mesh.device(d))
                             for d in my_shards}
                 base = {d: int(prev_base[d] + chunk_off[d]) for d in my_shards}
-                t_chunk = time.perf_counter()
+                return bucket, frontier, base, chunk_off, time.perf_counter()
+
+            def dispatch(ctx):
+                """The chunk's step under the failure ladder."""
+                nonlocal chunk, lvl_dispatches
+                bucket, frontier, base = ctx[:3]
                 chunk_retry.reset_chunk()
                 while True:
                     try:
@@ -961,9 +1401,9 @@ def check_sharded(
                         if injected is not None:
                             raise injected
                         sets.reserve(shard_visited)
-                        heads, outs, W = step(frontier, base, bucket, sets)
+                        out = step(frontier, base, bucket, sets, compress_on)
                         lvl_dispatches += 1
-                        break
+                        return out
                     except Exception as e:  # noqa: BLE001 -- the failure ladder decides
                         # transient: re-run the attempt; a device allocation
                         # failure halves the chunk from the next one on, and
@@ -973,6 +1413,15 @@ def check_sharded(
                                                     retry_transient=not is_multiprocess())
                         if action == "degrade_chunk":
                             chunk = max(next_pow2(max(32, min_bucket // D)), chunk >> 1)
+
+            def commit(ctx, out) -> bool:
+                """One dispatched chunk's commit, in dispatch order: the
+                framing check, the verdicts, the owners' new states (the host
+                sets insert here), the chain fold.  -> True on a verdict."""
+                nonlocal verdict, lvl_exch_bytes, lvl_exch_raw_bytes, shard_visited
+                nonlocal lvl_recv_per_shard, lvl_new_per_shard, lvl_act_en, lvl_en_per_shard
+                bucket, _frontier, _base, chunk_off, t_chunk = ctx
+                heads, outs, wire = out
                 # every shard's flags, digests and winners, on every process
                 g = fetch_global(torch.stack([heads[d].to(home) for d in my_shards]))
                 o = 0
@@ -984,10 +1433,10 @@ def check_sharded(
                 sd = g[:, o + 2 + A : o + 7 + A]
                 rd = np.array(g[:, o + 7 + A : o + 12 + A])
                 # the exchange framing check: across the mesh the received
-                # multiset combines to exactly the sent one; flip@exchange
-                # drives the detector's observation
+                # multiset (decoded, when compressed) combines to exactly the
+                # sent one; flip@exchange drives the detector's observation
                 if chain is not None:
-                    sp = fault.flip("exchange", depth + 1, ckpt_depth=last_ckpt_depth)
+                    sp = fault.flip("exchange", depth + 1, ckpt_depth=ckpt_durable_depth)
                     if sp:
                         rd[sp.shard if sp.shard is not None else 0, 1] ^= 0x10
                     _integ.count_check()
@@ -999,9 +1448,10 @@ def check_sharded(
                             f"({exchange}; a routed fingerprint was corrupted in flight)",
                             depth=depth)
                 if exchange == "all_to_all":
-                    lvl_exch_bytes += D * D * W * (8 + 4 * K + 4 + 4)
+                    lvl_exch_bytes += wire["sent"]
+                    lvl_exch_raw_bytes += wire["raw"]
                 obs_.chunk_span("exchange", time.perf_counter() - t_chunk, depth=depth,
-                                bucket=bucket, exchange=exchange, compressed=False)
+                                bucket=bucket, exchange=exchange, compressed=wire["compressed"])
                 # the chunk's verdicts (the states expanded are level `depth`)
                 if viol_any.any():
                     inv_i = int(np.argmax(viol_any.any(axis=0)))
@@ -1009,13 +1459,13 @@ def check_sharded(
                     idx = int(viol_idx[d, inv_i])
                     verdict = (model.invariants[inv_i].name, d, chunk_off[d] + idx,
                                int(prev_base[d] + chunk_off[d] + idx))
-                    break
+                    return True
                 if check_deadlock and dl_any.any():
                     d = int(np.argmax(dl_any))
                     idx = int(dl_idx[d])
                     verdict = ("Deadlock", d, chunk_off[d] + idx,
                                int(prev_base[d] + chunk_off[d] + idx))
-                    break
+                    return True
                 got = [t.to(home) for t in gather_rows([outs[d] for d in my_shards], K + 4)]
                 counts = np.asarray([t.shape[0] for t in got], np.int64)
                 lvl_recv_per_shard += counts
@@ -1050,6 +1500,24 @@ def check_sharded(
                 if obs_.collect:
                     lvl_act_en += act_en.sum(axis=0)
                     lvl_en_per_shard += act_en.sum(axis=1)
+                return False
+
+            staged = None
+            while verdict is None:
+                ctx = build_chunk()
+                if ctx is None:
+                    break
+                cur = (ctx, dispatch(ctx))
+                if stage_chunks:
+                    staged_peak = max(staged_peak, 2 if staged is not None else 1)
+                    if staged is not None and commit(*staged):
+                        staged = None
+                        break
+                    staged = cur
+                elif commit(*cur):
+                    break
+            if staged is not None and verdict is None:
+                commit(*staged)
 
             if verdict is not None:
                 inv_name, d, row, gidx = verdict
@@ -1060,6 +1528,7 @@ def check_sharded(
 
             n_new = int(lvl_new_per_shard.sum())
             exch_bytes_total += lvl_exch_bytes
+            exch_raw_bytes_total += lvl_exch_raw_bytes
             depth += 1
             if n_new:
                 levels.append(n_new)
@@ -1091,19 +1560,23 @@ def check_sharded(
                                        for a, c in zip(model.actions, lvl_act_en.tolist())},
                 )
                 # in memory only, as in the JAX package: the exchange bytes
-                # (at the port's exact widths) and the per-shard launches
+                # (at the port's widths), the per-shard launches and the
+                # overlap layer's hidden and exposed I/O
+                busy1, blk1 = worker_counters(workers)
                 result_levels.append({
                     **rec,
                     "exch_bytes": int(lvl_exch_bytes),
-                    "exch_raw_bytes": int(lvl_exch_bytes),
+                    "exch_raw_bytes": int(lvl_exch_raw_bytes),
                     "shard_launches": int(lvl_dispatches),
-                    "io_hidden_ms": 0.0,
-                    "io_exposed_ms": 0.0,
+                    "io_hidden_ms": round(max(0.0, (busy1 - lvl_io0[0])
+                                              - (blk1 - lvl_io0[1])) * 1e3, 2),
+                    "io_exposed_ms": round((blk1 - lvl_io0[1]) * 1e3, 2),
                 })
                 _met.set_gauge("kspec_shard_launches_level", int(lvl_dispatches))
-                if lvl_exch_bytes:
+                if lvl_exch_raw_bytes:
                     _met.set_gauge("kspec_exchange_bytes_level", int(lvl_exch_bytes))
-                    _met.set_gauge("kspec_exchange_compression_ratio", 1.0)
+                    _met.set_gauge("kspec_exchange_compression_ratio",
+                                   round(lvl_exch_raw_bytes / max(lvl_exch_bytes, 1), 3))
             if progress:
                 progress(depth, n_new, total)
             shard_beat(depth, new=n_new, total=total)
@@ -1125,17 +1598,32 @@ def check_sharded(
                 last_ckpt_depth = depth
             if store_trace:
                 trace_store.append((torch.cat(pending), torch.cat(parents), torch.cat(acts)))
+            # the level boundary's governance: pressure, an injected stall,
+            # a soft breach's reclaim, a hard breach's typed exit.  With
+            # several processes there is no reclaim or save hook: both reach
+            # collectives, and a breach can be one process's own, so a lone
+            # breacher exits typed from the last lockstep checkpoint
+            multi = is_multiprocess()
+            governor.level_end(depth, reclaim=None if multi else reclaim,
+                               save_hook=None if multi else final_save)
+        # the async tail inside the typed-error scope: a pending save's
+        # ENOSPC or a background merge's fault maps to the same exits
+        ckpt_poll(block=True)
+        for s in owned_tiers():
+            s.quiesce()
     except ResourceExhausted as e:
         exhausted = e
     except IntegrityError as e:
         integrity_fail = e
-    except ParentLogCorrupt as e:
+    except (RunCorrupt, ParentLogCorrupt) as e:
+        # a storage read failed its checksum (a spill run, a parent-log
+        # segment): silent on-disk corruption caught where it is read
         integrity_fail = IntegrityError("storage", str(e), depth=depth)
     except OSError as e:
         if not is_disk_full(e):
             raise
-        # ENOSPC from a checkpoint or parent-log writer: every writer cleaned
-        # up its tmp, so the promoted state is intact
+        # ENOSPC from a checkpoint, spill or parent-log writer: every
+        # writer cleaned up its tmp, so the promoted state is intact
         exhausted = ResourceExhausted("enospc", str(e), depth=depth)
     if integrity_fail is not None:
         try:
@@ -1154,7 +1642,7 @@ def check_sharded(
             shard_beat(depth, event="resource-exhausted", reason=exhausted.reason,
                        detail=exhausted.detail[:200])
             obs_.abort("resource-exhausted", reason=exhausted.reason, depth=exhausted.depth,
-                       detail=exhausted.detail, distinct_states=total)
+                       detail=exhausted.detail, distinct_states=total, **governor.stats())
             obs_.close()
         except OSError:
             pass
@@ -1177,6 +1665,7 @@ def check_sharded(
     if home.type == "cuda":
         torch.cuda.synchronize(home)
     dt = time.perf_counter() - t0
+    close_workers(workers, drain=True)
     shard_beat(depth, event="finish", ok=violation is None)
     stats = {
         "devices": D,
@@ -1191,15 +1680,25 @@ def check_sharded(
         "adaptive_compile_fallback": False,
         "transient_retries": chunk_retry.retries_total,
         "degradations": chunk_retry.degradations,
-        "overlap": {"enabled": False, "staged_chunks_peak": 0},
-        "exchange_compressed": False,
+        "overlap": {
+            "enabled": overlap_on,
+            "staged_chunks_peak": staged_peak,
+            **({"io_worker": io_worker.stats()} if io_worker is not None else {}),
+            **({"ckpt_worker": ckpt_worker.stats()} if ckpt_worker is not None else {}),
+        },
+        "exchange_compressed": compress_on,
         "exchange_bytes_total": int(exch_bytes_total),
-        "exchange_raw_bytes_total": int(exch_bytes_total),
+        "exchange_raw_bytes_total": int(exch_raw_bytes_total),
     }
     if visited_backend == "host":
         stats["host_fpset_sizes"] = [len(s) if s is not None else None for s in sets.host]
     if visited_backend == "device-hash":
         stats["shard_visited"] = shard_visited.tolist()
+    if use_disk:
+        stats["spill"] = [s.stats() if s is not None else None for s in sets.host]
+        stats["spill_dir"] = spill_base
+    if ephemeral_spill is not None:
+        shutil.rmtree(ephemeral_spill, ignore_errors=True)
     res = CheckResult(
         model=model.name,
         levels=levels,

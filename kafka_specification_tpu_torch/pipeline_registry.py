@@ -18,8 +18,9 @@ level pipeline (``engine/pipeline.py::DevicePipeline``); on the
 ``device-hash`` backend it degrades to "fused".  The ``sharded`` engine
 cells carry the JAX package's flags but for "device": "legacy" runs the
 sharded per-chunk step (``parallel/sharded.py``), "fused" names the same
-step, and the device-resident sharded level is not ported yet (ROADMAP
-Queue A item 8b), so ``check_sharded(pipeline="device")`` raises.
+step (its overlap legs, the disk tier and the governor included), and the
+device-resident sharded level is not ported yet (ROADMAP Queue A item 8c),
+so ``check_sharded(pipeline="device")`` raises.
 """
 
 from __future__ import annotations
@@ -102,9 +103,10 @@ PIPELINE_REGISTRY = {
             "sharded": {
                 "supported": False,
                 "detail": (
-                    "not ported yet (ROADMAP 8b): the device-resident sharded "
-                    "level; check_sharded(pipeline='device') raises rather "
-                    "than run the per-chunk step in its place"
+                    "not ported yet (ROADMAP 8c): the device-resident sharded "
+                    "level and its compressed variant; "
+                    "check_sharded(pipeline='device') raises rather than run "
+                    "the per-chunk step in its place"
                 ),
             },
         },
@@ -148,7 +150,8 @@ PIPELINE_REGISTRY = {
                 "supported": False,
                 "detail": (
                     "runs the per-chunk sharded step: the expansion, the "
-                    "exchange and the owners' dedup are one step per chunk "
+                    "exchange (compressed on the card with the overlap "
+                    "layer) and the owners' dedup are one step per chunk "
                     "in this engine, so there is no separate fused variant — "
                     "the name runs the per-chunk path (identical results)"
                 ),
@@ -188,9 +191,11 @@ PIPELINE_REGISTRY = {
                 "supported": True,
                 "detail": (
                     "the per-chunk sharded step (parallel/sharded.py): K1 on "
-                    "each shard's chunk, the all_to_all or all_gather "
-                    "exchange, each owner's dedup (K2 on device-hash) — this "
-                    "engine's bit-identity oracle path"
+                    "each shard's chunk, the all_to_all (raw or compressed) "
+                    "or all_gather exchange, each owner's dedup (K2 on "
+                    "device-hash; the host set, staged a chunk behind, or "
+                    "the disk tier on host) — this engine's bit-identity "
+                    "oracle path"
                 ),
             },
         },

@@ -216,17 +216,18 @@ WIRED = frozenset({
 })
 
 #: the sharded engine's sites (``parallel/sharded.py``): the level, the
-#: checkpoint and parent-log writes, the chunk step and the bit flips,
-#: with its exchange; the disk tier, the governor and compile_oom (which
-#: fires on escalated attempts, and the port's sharded step never
-#: escalates) wait for it (ROADMAP item 8b), so a plan naming them is
-#: refused there
+#: checkpoint and parent-log writes, the chunk step, the disk tier's spills
+#: and merges, the governor's stall and the bit flips, with its exchange;
+#: compile_oom fires on escalated attempts, and the port's sharded step
+#: never escalates, so a plan naming it is refused there
 WIRED_SHARDED = frozenset({
     ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
     ("kill", "host"), ("partition", "host"), ("skew", "host"),
-    ("crash", "level"), ("crash", "ckpt"), ("corrupt_ckpt", "ckpt"),
-    ("enospc", "ckpt"), ("enospc", "plog"), ("transient_device_err", None),
-    ("flip", "frontier"), ("flip", "fpset"), ("flip", "ckpt"), ("flip", "exchange"),
+    ("crash", "level"), ("crash", "ckpt"), ("crash", "merge"), ("corrupt_ckpt", "ckpt"),
+    ("enospc", "spill"), ("enospc", "merge"), ("enospc", "ckpt"), ("enospc", "plog"),
+    ("stall", "level"), ("transient_device_err", None),
+    ("flip", "frontier"), ("flip", "fpset"), ("flip", "spill"), ("flip", "ckpt"),
+    ("flip", "exchange"),
 })
 
 

@@ -35,8 +35,8 @@ Every timing decision goes through ``utils/clock.py``.  This module
 imports no torch, directly or through its imports: the parent must never
 hold a CUDA context that a wedged child could fight over.
 ``daemon_supervisor_config`` points the same watchdog at the serving
-daemon's heartbeat (``cli serve --supervised``).  (The JAX package's fleet
-half, ``FleetConfig``/``supervise_fleet``, is not ported yet.)
+daemon's heartbeat (``cli serve --supervised``), and ``supervise_fleet``
+watches a whole torch.distributed fleet (below).
 """
 
 from __future__ import annotations
@@ -324,3 +324,242 @@ def daemon_supervisor_config(
         max_restarts=max_restarts,
         env=dict(env if env is not None else os.environ),
     )
+
+
+# --- fleet supervision (a multi-process torch.distributed run) --------------
+#
+# A sharded run over P processes is one torch.distributed group; losing any
+# process wedges the rest in their next collective (they wait on a peer that
+# will never answer), so the unit of recovery is the whole fleet.
+# `supervise_fleet`:
+#
+# - launches all P processes of the job with torchrun's variables
+#   (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK, which
+#   parallel/multihost.py reads), on a fresh port each attempt (the old
+#   group dies with the fleet),
+# - watches one heartbeat file per process (`<heartbeat_dir>/proc<i>.jsonl`,
+#   appended every level by parallel/sharded.py under
+#   KSPEC_SHARD_HEARTBEAT_DIR), so a stalled process is seen even while its
+#   peers' heartbeats grow,
+# - on a process's death or stall records which process and pid failed,
+#   tears the WHOLE fleet down (SIGTERM to the process groups, then
+#   SIGKILL), and
+# - restarts the whole job under the usual bounded budget with jittered
+#   backoff; the processes resume from the newest generation every shard
+#   agrees on (resilience/checkpoints.py pairs the coordinator's main file
+#   with every per-host part by level), as a single-process restart would.
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@dataclass
+class FleetConfig:
+    cmd: list  # one command, launched num_processes times
+    num_processes: int
+    events: str = "RESILIENT_EVENTS.jsonl"
+    heartbeat_dir: Optional[str] = None  # per-process shard heartbeats
+    log_dir: Optional[str] = None  # per-attempt, per-process child logs
+    stall_timeout: float = 1800.0
+    max_restarts: int = 8
+    backoff_base: float = 5.0
+    backoff_cap: float = 300.0
+    jitter: float = 0.25
+    poll: float = 0.5
+    term_grace: float = 10.0
+    env: Optional[dict] = None
+    run_id: Optional[str] = None
+    coordinator_host: str = "127.0.0.1"
+    # CPU fleets (tests, rehearsals): the shards each process's default mesh
+    # holds ($KSPEC_CPU_SHARDS_PER_PROC, parallel/multihost.py); None leaves
+    # the environment alone
+    devices_per_proc: Optional[int] = None
+    # resource-exit policy, as in SupervisorConfig: one process exiting
+    # EXIT_RESOURCE_EXHAUSTED (its peers wedge in the next collective and
+    # are torn down) halts the fleet with a verdict, or reclaims and
+    # retries exactly once under reclaim=True
+    reclaim: bool = False
+    reclaim_dirs: tuple = ()
+    rng: random.Random = field(default_factory=random.Random, repr=False)
+
+    backoff = SupervisorConfig.backoff
+    event = SupervisorConfig.event
+
+
+def _child_env(cfg: FleetConfig, proc: int, port: int) -> dict:
+    env = dict(cfg.env if cfg.env is not None else os.environ)
+    env["MASTER_ADDR"] = cfg.coordinator_host
+    env["MASTER_PORT"] = str(port)
+    env["WORLD_SIZE"] = str(cfg.num_processes)
+    env["RANK"] = str(proc)
+    env["LOCAL_RANK"] = str(proc)  # every process of the fleet runs on this host
+    if cfg.heartbeat_dir is not None:
+        env["KSPEC_SHARD_HEARTBEAT_DIR"] = cfg.heartbeat_dir
+    if cfg.devices_per_proc is not None:
+        env["KSPEC_CPU_SHARDS_PER_PROC"] = str(cfg.devices_per_proc)
+    return env
+
+
+def _signal_pg(pid: int, sig) -> None:
+    try:
+        os.killpg(pid, sig)  # pgid == pid (start_new_session)
+    except (OSError, ProcessLookupError):
+        try:
+            os.kill(pid, sig)
+        except (OSError, ProcessLookupError):
+            pass
+
+
+def _teardown_fleet(cfg: FleetConfig, children: list) -> None:
+    """SIGTERM every live process group, grace, then SIGKILL: a partial
+    fleet must never be left holding a card or the checkpoint directory."""
+    live = [c for c in children if c is not None and c.poll() is None]
+    for c in live:
+        _signal_pg(c.pid, signal.SIGTERM)
+    deadline = _clk.monotonic() + cfg.term_grace
+    for c in live:
+        while c.poll() is None and _clk.monotonic() < deadline:
+            _clk.sleep(0.05)
+        if c.poll() is None:
+            _signal_pg(c.pid, signal.SIGKILL)
+            c.wait()
+
+
+def _run_fleet_attempt(cfg: FleetConfig, attempt: int) -> str:
+    """One whole-fleet launch -> 'ok' | 'dead' | 'resource'.
+
+    'resource': a process made a RESOURCE_EXHAUSTED clean exit (a full disk,
+    a breached budget; resilience/resources.py); its wedged peers are torn
+    down like any fleet failure, but the classification survives, so
+    supervise_fleet never restarts into the full disk."""
+    port = _free_port()
+    if cfg.heartbeat_dir is not None:
+        os.makedirs(cfg.heartbeat_dir, exist_ok=True)
+    log_fhs = []
+    children = []
+    try:
+        for i in range(cfg.num_processes):
+            fh = None
+            if cfg.log_dir is not None:
+                os.makedirs(cfg.log_dir, exist_ok=True)
+                fh = open(os.path.join(cfg.log_dir, f"attempt-{attempt:02d}-proc{i}.log"), "wb")
+            log_fhs.append(fh)
+            children.append(subprocess.Popen(
+                cfg.cmd,
+                stdout=fh or None,
+                stderr=subprocess.STDOUT if fh else None,
+                env=_child_env(cfg, i, port),
+                start_new_session=True,
+            ))
+        hb_paths = [os.path.join(cfg.heartbeat_dir, f"proc{i}.jsonl")
+                    if cfg.heartbeat_dir is not None else None
+                    for i in range(cfg.num_processes)]
+        hb_sizes = [_hb_size(p) for p in hb_paths]
+        last_progress = [_clk.monotonic()] * cfg.num_processes
+        done = [None] * cfg.num_processes  # rc once exited
+        while True:
+            now = _clk.monotonic()
+            stalled = None
+            for i, child in enumerate(children):
+                if done[i] is not None:
+                    continue
+                rc = child.poll()
+                if rc is not None:
+                    done[i] = rc
+                    continue
+                if hb_paths[i] is not None:
+                    size = _hb_size(hb_paths[i])
+                    if size != hb_sizes[i]:
+                        hb_sizes[i] = size
+                        last_progress[i] = now
+                    elif stalled is None and now - last_progress[i] > cfg.stall_timeout:
+                        stalled = i
+            # classify only after a full sweep: a peer noticing a lost
+            # rc-75 process can itself die non-zero within the same poll
+            # window, and child order must never let that crash mask the
+            # typed exit (the restart-into-a-full-disk loop)
+            failed = next((i for i, rc in enumerate(done) if rc not in (0, None)), None)
+            if failed is not None and done[failed] != EXIT_RESOURCE_EXHAUSTED:
+                # one more poll cycle of grace for the reverse order: the
+                # peer's crash landing just before the typed exit
+                _clk.sleep(cfg.poll)
+                for i, child in enumerate(children):
+                    if done[i] is None:
+                        done[i] = child.poll()
+            resource = next((i for i, rc in enumerate(done) if rc == EXIT_RESOURCE_EXHAUSTED),
+                            None)
+            if resource is not None:
+                # a process ran out of disk, memory or time and exited typed;
+                # its peers wedge in the next collective: tear down as for
+                # any fleet failure, but carry the classification up
+                cfg.event(event="shard-resource-exhausted", attempt=attempt, proc=resource,
+                          pid=children[resource].pid, rc=done[resource])
+                return "resource"
+            if failed is not None:
+                # a shard's process died: the rest are (or will be) wedged
+                # in a collective, so the whole attempt failed
+                if done[failed] == EXIT_INTEGRITY:
+                    # typed integrity exit: restartable like a crash (the
+                    # resume skips chain-failed generations), recorded for
+                    # attribution
+                    cfg.event(event="shard-integrity-violation", attempt=attempt, proc=failed,
+                              pid=children[failed].pid, rc=done[failed])
+                cfg.event(event="shard-exit", attempt=attempt, proc=failed,
+                          pid=children[failed].pid, rc=done[failed])
+                return "dead"
+            if stalled is not None:
+                cfg.event(event="shard-stall", attempt=attempt, proc=stalled,
+                          pid=children[stalled].pid, stall_timeout=cfg.stall_timeout,
+                          heartbeat=hb_paths[stalled])
+                return "dead"
+            if all(rc == 0 for rc in done):
+                return "ok"
+            _clk.sleep(cfg.poll)
+    finally:
+        _teardown_fleet(cfg, children)
+        for fh in log_fhs:
+            if fh is not None:
+                fh.close()
+
+
+def supervise_fleet(cfg: FleetConfig) -> int:
+    """Run the whole fleet to success or budget exhaustion; 0 on success."""
+    reclaimed = False
+    attempt = 0
+    restarts_used = 0
+    # the restart accounting of supervise(): the one --reclaim retry is
+    # guaranteed even on the last budgeted attempt
+    while True:
+        attempt += 1
+        cfg.event(event="fleet-start", attempt=attempt, processes=cfg.num_processes,
+                  cmd=cfg.cmd)
+        t0 = _clk.now()
+        status = _run_fleet_attempt(cfg, attempt)
+        cfg.event(event="fleet-teardown", attempt=attempt, ok=status == "ok", status=status,
+                  seconds=round(_clk.now() - t0, 1))
+        if status == "ok":
+            cfg.event(event="fleet-complete", attempt=attempt)
+            return 0
+        if status == "resource":
+            # as supervise(): a resource exit never burns the restart budget
+            # into a full disk; one reclaim-retry at most, else the verdict
+            if cfg.reclaim and not reclaimed:
+                reclaimed = True
+                _try_reclaim(cfg, attempt)
+                continue
+            return _resource_verdict(cfg, attempt, EXIT_RESOURCE_EXHAUSTED, reclaimed)
+        if restarts_used >= cfg.max_restarts:
+            break
+        restarts_used += 1
+        delay = cfg.backoff(restarts_used)
+        cfg.event(event="restart", attempt=attempt, backoff_s=round(delay, 2))
+        _clk.sleep(delay)
+    cfg.event(event="fleet-give-up", attempts=attempt)
+    print(f"[supervisor] fleet giving up after {attempt} attempts; see {cfg.events}",
+          file=sys.stderr)
+    return 1

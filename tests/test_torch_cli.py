@@ -414,7 +414,7 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
     """Names, order, default, each entry's fallback, every backend cell's
     flag and the (device, device-hash) detail are JAX's; the sharded
     engine cells carry JAX's flags but for "device", whose sharded level
-    is not ported yet (ROADMAP 8b)."""
+    is not ported yet (ROADMAP 8c)."""
     from kafka_specification_tpu.pipeline_registry import list_pipelines as jax_list
     from kafka_specification_tpu_torch import pipeline_registry as reg
 
@@ -434,7 +434,7 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
         assert e["engines"]["single-device"]["supported"] is True
         sharded = e["engines"]["sharded"]
         if e["name"] == "device":
-            assert sharded["supported"] is False and "not ported yet (ROADMAP 8b)" in \
+            assert sharded["supported"] is False and "not ported yet (ROADMAP 8c)" in \
                 sharded["detail"]
         else:
             assert sharded["supported"] == j["engines"]["sharded"]["supported"]
@@ -477,7 +477,7 @@ def test_pipelines_text_has_jax_layout(capsys):
 
     assert out[0] == jout[0]
     for a, b in zip(out[1:], jout[1:]):
-        if a.startswith("      [sharded] degrades: not ported yet (ROADMAP 8b)"):
+        if a.startswith("      [sharded] degrades: not ported yet (ROADMAP 8c)"):
             continue
         assert head(a) == head(b), (a, b)
     assert out[1] == ("  device: one K1 launch per chunk, one host read per LEVEL -> "

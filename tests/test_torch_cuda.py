@@ -839,15 +839,17 @@ def _sharded(mesh, backend, exchange, **kw):
                                               ("host", "all_to_all"), ("device", "all_gather")])
 def test_sharded_eight_shards_on_card_equal_cpu(card, backend, exchange, tmp_path):
     """D = 8 shards on cuda:0 against the same D = 8 run on the CPU: levels,
-    per-level records, the checkpoint's search arrays; K1 launched (and
-    K2 on device-hash)."""
+    per-level records, the checkpoint's search arrays; K1 launched where a
+    state takes more than two lanes (Kip320 2r takes two: a state is its
+    own fingerprint, so no K1), and K2 on device-hash."""
     from kafka_specification_tpu_torch.parallel import ShardMesh
     from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
 
     cpu = _sharded(ShardMesh(8, "cpu"), backend, exchange, checkpoint_dir=str(tmp_path / "c"))
     k1, k2 = cuda_fingerprint.LAUNCHES, cuda_hashset.LAUNCHES
     gpu = _sharded(ShardMesh(8, card), backend, exchange, checkpoint_dir=str(tmp_path / "g"))
-    assert cuda_fingerprint.LAUNCHES > k1
+    lanes = kip320.make_model(Config(2, 2, 2, 2)).spec.num_lanes
+    assert (cuda_fingerprint.LAUNCHES > k1) == (lanes > 2)
     assert (cuda_hashset.LAUNCHES > k2) == (backend == "device-hash")
     assert gpu.ok and (gpu.levels, gpu.total) == (cpu.levels, cpu.total) == (gpu.levels, 5973)
     a = verify_file(str(tmp_path / "c" / "sharded_checkpoint.npz"))
@@ -867,3 +869,34 @@ def test_sharded_violation_trace_on_card_equals_cpu(card):
     cpu, gpu = run("cpu"), run(card)
     assert (gpu.violation.invariant, gpu.violation.depth) == ("WeakIsr", 8)
     assert gpu.violation.trace == cpu.violation.trace and gpu.levels == cpu.levels
+
+
+def test_fpcompress_on_the_card_equals_the_numpy_twin(card):
+    """The exchange codec (ops/fpcompress.py) on cuda tensors: a [D, W]
+    batch of seeded buckets (empty, half full, full, clustered) packs to
+    pack_np's words, headers and flags, and unpacks to the lanes."""
+    from kafka_specification_tpu_torch.ops import fpcompress as fpc
+
+    rng = np.random.default_rng(5)
+    W, D = 200, 8
+    counts = np.array([0, W // 2, W, 17, 90, 3, 150, 64])
+    his, los = [], []
+    for d in range(D):
+        vals = np.sort(rng.integers(0, 2**64 - 2, size=int(counts[d]), dtype=np.uint64))
+        if d == 3:
+            vals = np.sort(np.uint64(1 << 40) + rng.integers(0, 1 << 20, size=17).astype(np.uint64))
+        full = np.concatenate([vals, np.full(W - vals.shape[0], np.uint64(2**64 - 1))])
+        his.append((full >> np.uint64(32)).astype(np.uint32))
+        los.append((full & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    hi, lo = np.stack(his), np.stack(los)
+    for NW in (fpc.default_stream_words(W), fpc.BLK):
+        t = lambda a: torch.from_numpy(a.astype(np.int64)).to(card)  # noqa: E731
+        words, hdr, ovf = fpc.pack_sorted(t(hi), t(lo), t(counts), NW)
+        for d in range(D):
+            wn, hn, on = fpc.pack_np(hi[d], lo[d], int(counts[d]), NW)
+            assert np.array_equal(words[d].cpu().numpy(), wn) and np.array_equal(
+                hdr[d].cpu().numpy(), hn) and bool(ovf[d]) == on, (NW, d)
+        h2, l2 = fpc.unpack_sorted(words, hdr, W)
+        ok = ~ovf.cpu().numpy()
+        assert np.array_equal(h2.cpu().numpy()[ok], hi[ok])
+        assert np.array_equal(l2.cpu().numpy()[ok], lo[ok])

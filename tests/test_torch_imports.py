@@ -72,6 +72,12 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
         from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
         res = check_sharded(frl.make_model(2, 2, 2), mesh=ShardMesh(4, "cpu"), min_bucket=32)
         assert res.ok and res.total == 49, res
+        # its compressed exchange (ops/fpcompress.py) and its disk tier
+        os.environ["KSPEC_EXCHANGE_COMPRESS"] = "1"
+        res = check_sharded(frl.make_model(2, 2, 2), mesh=ShardMesh(4, "cpu"), min_bucket=32,
+                            mem_budget=64)
+        os.environ.pop("KSPEC_EXCHANGE_COMPRESS")
+        assert res.ok and res.total == 49 and res.stats["exchange_compressed"], res
         assert cli.main(["check", "configs/IdSequence.cfg", "--sharded", "--cpu", "--json"]) == 0
         # the reference interpreter, the pipeline registry, the static analysis
         assert cli.main(["oracle", "configs/IdSequence.cfg"]) == 0
@@ -100,7 +106,7 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                      "resilience.simfleet", "resilience.simfleet.kernel",
                      "resilience.simfleet.oracles", "resilience.simfleet.search",
                      "resilience.simfleet.simclock", "parallel", "parallel.multihost",
-                     "parallel.sharded"):
+                     "parallel.sharded", "ops.fpcompress"):
             assert "kafka_specification_tpu_torch." + name in sys.modules, name
         bad = sorted(
             m for m in sys.modules
@@ -158,13 +164,13 @@ def test_no_source_file_imports_jax_or_the_jax_package():
             "resilience/simfleet/__init__.py", "resilience/simfleet/kernel.py",
             "resilience/simfleet/oracles.py", "resilience/simfleet/search.py",
             "resilience/simfleet/simclock.py", "parallel/__init__.py",
-            "parallel/multihost.py", "parallel/sharded.py"} <= names
+            "parallel/multihost.py", "parallel/sharded.py", "ops/fpcompress.py"} <= names
     files.append(REPO / "chip_smoke.py")
     # the port's scripts
     files += [REPO / "scripts" / name for name in (
         "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
         "torch_slice_walls.py", "torch_gate_cost.py", "torch_overlap_walls.py",
-        "torch_resilient_run.py")]
+        "torch_resilient_run.py", "torch_run_product.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)

@@ -14,9 +14,10 @@ backend, all_gather: its fixed width compiles fewer step shapes than
 all_to_all's width ladder) holds the port's whole backend x exchange matrix,
 with one JAX host run for the host backend's duplicate counts.  The port
 side runs a ShardMesh of D shards on the CPU.  Also: the registry's
-sharded cells, the loud refusals of what ROADMAP item 8b still has to
-port, the default mesh's device rule, the fault plan's sharded sites and
-the multihost helpers without a process group."""
+sharded cells, the loud refusal of what ROADMAP item 8c still has to
+port, the settings that item 8b's refusals covered (each now runs to JAX's
+result), the default mesh's device rule, the fault plan's sharded sites
+and the multihost helpers without a process group."""
 
 import jax
 import numpy as np
@@ -163,7 +164,11 @@ def test_sharded_equals_jax(name, backend, exchange, tmp_path, tmp_path_factory,
         D, backend, exchange, "fused")
     assert s["mesh_layouts"] == {k: str(v.spec) for k, v in jsharded.mesh_layouts(
         jax_mesh(D)).items()}
-    assert s["overlap"] == {"enabled": False, "staged_chunks_peak": 0}
+    # the overlap layer is on by default, as in the JAX package: the host
+    # backend stages its commits, and the CPU mesh sends the exchange raw
+    assert s["overlap"]["enabled"] is True and not s["exchange_compressed"]
+    assert 0 < s["overlap"]["staged_chunks_peak"] <= 2 if backend == "host" else \
+        s["overlap"]["staged_chunks_peak"] == 0
     if backend == "host" and res.ok:
         assert sum(s["host_fpset_sizes"]) == res.total
     if backend == "device-hash" and res.ok:
@@ -218,11 +223,11 @@ def test_cut_frontier_invariant_pass_and_max_states_equal_jax(tmp_path, monkeypa
 
 def test_registry_sharded_cells_and_pipeline_names(tmp_path, monkeypatch):
     """legacy runs the per-chunk step, fused names it, device is not ported
-    yet (ROADMAP 8b); `pipeline=` lands in the stats."""
+    yet (ROADMAP 8c); `pipeline=` lands in the stats."""
     cells = {n: pipeline_registry.engine_support(n, "sharded") for n in pipeline_registry.PIPELINES}
     assert cells["legacy"]["supported"] is True
     assert cells["fused"]["supported"] is False and "per-chunk" in cells["fused"]["detail"]
-    assert cells["device"]["supported"] is False and "ROADMAP 8b" in cells["device"]["detail"]
+    assert cells["device"]["supported"] is False and "ROADMAP 8c" in cells["device"]["detail"]
     _, tm = models("FRL(2,2,2)")
     for name in ("legacy", "fused"):
         res = check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32, pipeline=name)
@@ -235,6 +240,23 @@ def test_registry_sharded_cells_and_pipeline_names(tmp_path, monkeypatch):
 REFUSED = {
     "pipeline=device": (dict(pipeline="device"), {}),
     "KSPEC_PIPELINE=device": ({}, {"KSPEC_PIPELINE": "device"}),
+}
+
+
+@pytest.mark.parametrize("what", list(REFUSED))
+def test_items_of_8b_raise_loudly(what, monkeypatch):
+    """The device-resident sharded level, the one leg of the former item 8b
+    left (ROADMAP item 8c), is refused before anything runs."""
+    kw, env = REFUSED[what]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    _, tm = models("FRL(2,2,2)")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32, **kw)
+
+
+# the settings item 8b's refusals covered, each of which now runs
+FORMER_8B = {
     "KSPEC_EXCHANGE_COMPRESS=1": ({}, {"KSPEC_EXCHANGE_COMPRESS": "1"}),
     "overlap=True": (dict(overlap=True), {}),
     "overlap=on": (dict(overlap="on"), {}),
@@ -243,18 +265,29 @@ REFUSED = {
     "mem_budget": (dict(mem_budget="1M"), {}),
     "disk_budget": (dict(disk_budget=1 << 30), {}),
     "KSPEC_DISK_BUDGET": ({}, {"KSPEC_DISK_BUDGET": "1G"}),
-    "KSPEC_LEVEL_DEADLINE": ({}, {"KSPEC_LEVEL_DEADLINE": "5"}),
+    "KSPEC_LEVEL_DEADLINE": ({}, {"KSPEC_LEVEL_DEADLINE": "600"}),
 }
 
 
-@pytest.mark.parametrize("what", list(REFUSED))
-def test_items_of_8b_raise_loudly(what, monkeypatch):
-    kw, env = REFUSED[what]
+@pytest.mark.parametrize("what", list(FORMER_8B))
+def test_former_8b_settings_run_to_jax_result(what, tmp_path, tmp_path_factory, monkeypatch):
+    """Each setting the port refused under item 8b runs FRL(2,2,2) at D = 4
+    to the JAX package's levels, stats records, chain and verdict."""
+    jres, jstats, jchain = jax_reference("FRL(2,2,2)", tmp_path_factory, monkeypatch)
+    kw, env = FORMER_8B[what]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    _, tm = models("FRL(2,2,2)")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32, **kw)
+    if kw.get("store") == "disk" or "mem_budget" in kw:
+        kw = dict(kw, spill_dir=str(tmp_path / "spill"))
+    res, stats, chain = port_run("FRL(2,2,2)", tmp_path, monkeypatch, **kw)
+    assert (res.levels, res.total, res.diameter, res.ok) == (jres.levels, jres.total,
+                                                              jres.diameter, jres.ok)
+    assert deterministic(stats) == deterministic(jstats)
+    assert np.array_equal(chain, jchain)
+    if what == "KSPEC_EXCHANGE_COMPRESS=1":
+        assert res.stats["exchange_compressed"] is True
+    if "spill_dir" in kw:
+        assert res.stats["visited_backend"] == "host" and res.stats["spill"]
 
 
 def test_serial_overlap_settings_run(monkeypatch):
@@ -284,11 +317,11 @@ def test_runs_on_the_card_unless_told_the_cpu(monkeypatch):
 
 
 def test_fault_sites_of_the_sharded_engine(monkeypatch):
-    """A plan naming a site the sharded engine does not wire (the governor's
-    stall, the disk tier's spill) is refused, as is a shard scope outside
-    the mesh; flip@exchange is wired here and refused by check()."""
+    """A plan naming a site the sharded engine does not wire (compile_oom:
+    its per-chunk step never escalates) is refused, as is a shard scope
+    outside the mesh; flip@exchange is wired here and refused by check()."""
     _, tm = models("FRL(2,2,2)")
-    for plan, match in (("stall@level:2", "stall@level"), ("enospc@spill:1", "enospc@spill"),
+    for plan, match in (("compile_oom", "compile_oom"),
                         ("crash@shard5:level:2", "shard 5 is out of range")):
         monkeypatch.setenv("KSPEC_FAULT", plan)
         with pytest.raises(ValueError, match=match):
