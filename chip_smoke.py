@@ -75,17 +75,19 @@ print no result:
          configs/AsyncIsr.cfg --json` in a subprocess: exit 0 and the JAX
          package's record (4,088 states, diameter 16; pinned below)
   product  TINY^3, the product of three Kip320 2r L2 R1 E1 partitions
-         (27 actions, all four invariants), through check() with no knobs:
-         ok, 21,253,933 states, diameter 33, per-level counts equal to the
-         closed form (the base's 12 JAX levels convolved three times,
-         computed here), K1 launched; then TruncateToHW 2r (TypeOk, WeakIsr)
+         (27 actions, all four invariants), through check() with no knobs
+         cut at depth 16: ok, 7,566,133 states, per-level counts equal to
+         the first 17 of the closed form (the base's 12 JAX levels
+         convolved three times, computed here; the whole of it, 21,253,933
+         states over 33 levels, runs in phase device-pipeline), K1
+         launched; then TruncateToHW 2r (TypeOk, WeakIsr)
          x 2 with no knobs: WeakIsr at depth 8 after 15,997 states with the
          JAX package's trace (pinned below as a digest of the whole trace)
   simulate  `cli simulate` in a subprocess, twice: configs/
          KafkaTruncateToHighWatermark.cfg --walks 200 --depth 30 --seed 0
          (exit 1, WeakIsr at depth 12 after 1,673 states, the JAX package's
          rendered trace, pinned as a digest) and configs/Kip320Stretch.cfg
-         --module Kip320 --walks 10 --depth 50 --seed 0 (exit 0, "498
+         --module Kip320 --walks 10 --depth 10 --seed 0 (exit 0, "110
          states visited, no violations"); each run's process wall and the
          states/s it printed
   device-pipeline  check(pipeline="device"), the device-resident level
@@ -314,6 +316,20 @@ print no result:
          checkpoint's chain the JAX package's.  Each in-process run
          counted from 0 (`sharded-overlap ...`) and its kernels held at its
          largest launch; (f)'s launches happen in its children, uncounted
+  sharded-device  the device-resident sharded level
+         (check_sharded(pipeline="device")) at D = 8 on cuda:0, Kip320 3r:
+         (a) `device` and `host` with the all_to_all compressed and raw,
+         and `device` with all_gather, each to the pinned levels and the
+         JAX chain with levels on the device level and no fallback; (b)
+         `device` and `host` at chunk_size 4096, each level's launches
+         beside the per-chunk path's chunks (a level of several chunks in
+         fewer launches); (c) device-hash to depth 10, degraded with the
+         JAX package's reason; (d) crash@shard3:level:6 on the device level
+         resumed on the per-chunk path, and the reverse, to depth 14 (the
+         levels and the chain's prefix); (e) compile_oom to depth 10,
+         degraded at the first device level; (f) a world-size-1 NCCL group
+         at D = 1.  Each run counted from 0 (`sharded-device ...`) and its
+         kernels held at its largest launch
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
@@ -596,11 +612,11 @@ SIM_THW_HEAD = [
 ]
 SIM_THW_TRACE_SHA = "bbe403f0f02c486d20d8e347650c438f3dddd07470e9b66e1b5f5dd3df9ffb0e"
 # JAX package, `cli simulate configs/Kip320Stretch.cfg --module Kip320
-# --walks 10 --depth 50 --seed 0 --cpu --hand`: exit 0 and this line, up to
-# its rate
+# --walks 10 --depth 10 --seed 0 --cpu`: exit 0 and this line, up to its
+# rate
 SIM_STRETCH_ARGS = ["configs/Kip320Stretch.cfg", "--module", "Kip320", "--walks", "10",
-                    "--depth", "50", "--seed", "0"]
-SIM_STRETCH_LINE = "Simulation: 10 walks x depth 50, 498 states visited, no violations ("
+                    "--depth", "10", "--seed", "0"]
+SIM_STRETCH_LINE = "Simulation: 10 walks x depth 10, 110 states visited, no violations ("
 # levels run device-resident at check()'s default knobs: Kip320.cfg
 # (`device` and `host`) and the trace model from the JAX package's
 # check(pipeline="device") on the CPU; AsyncIsr 4r M3 V3 and TINY^3 from
@@ -1274,9 +1290,14 @@ def phase_async_isr():
             "counts": counts}
 
 
+# phase product's cut of TINY^3 (the first 17 levels, 7,566,133 of its
+# 21,253,933 states; phase device-pipeline runs it to the end)
+PRODUCT_DEPTH = 16
+
+
 def phase_product():
-    """TINY^3 to the end against the closed form; a product violation's
-    trace against the JAX pin."""
+    """TINY^3 cut at PRODUCT_DEPTH against the closed form; a product
+    violation's trace against the JAX pin."""
     import hashlib
 
     from kafka_specification_tpu_torch.models import kip320, variants
@@ -1284,10 +1305,11 @@ def phase_product():
     from kafka_specification_tpu_torch.models.product import product_model
 
     want = np.convolve(np.convolve(TINY_LEVELS, TINY_LEVELS), TINY_LEVELS).tolist()
+    want = want[: PRODUCT_DEPTH + 1]
     model = product_model(kip320.make_model(Config(2, 2, 1, 1), (
         "TypeOk", "LeaderInIsr", "WeakIsr", "StrongIsr")), 3)
-    res, wall, counts, held = _timed_check(model, ("fingerprint",))
-    if (res.ok, res.total, res.diameter) != (True, 21_253_933, 33):
+    res, wall, counts, held = _timed_check(model, ("fingerprint",), max_depth=PRODUCT_DEPTH)
+    if (res.ok, res.total, res.diameter) != (True, sum(want), PRODUCT_DEPTH):
         raise AssertionError(f"TINY^3: ok={res.ok} total={res.total} diameter={res.diameter}")
     if res.levels != want:
         raise AssertionError(f"TINY^3 per-level counts differ from the closed form: {res.levels}")
@@ -1305,7 +1327,8 @@ def phase_product():
     sha = hashlib.sha256(json.dumps(canon(v.trace)).encode()).hexdigest()
     if sha != PRODUCT_VIOLATION_SHA:
         raise AssertionError(f"the trace differs from the JAX package's (sha256 {sha})")
-    return {"line": f"TINY^3 ok, {res.total} states, diameter 33, levels = the closed form; "
+    return {"line": f"TINY^3 to depth {PRODUCT_DEPTH} ok, {res.total} states, levels = the "
+                    f"closed form's; "
                     f"{wall:.2f} s, {res.total / wall:.0f} states/s, {res.stats['lanes']} "
                     f"lanes, launches {counts}; {held}; TruncateToHW 2r x 2: WeakIsr at depth 8 "
                     f"after {vres.total} states, trace as pinned, {vwall:.2f} s, launches "
@@ -1508,7 +1531,7 @@ def phase_simulate():
     if not (line.startswith(SIM_STRETCH_LINE) and len(out2.splitlines()) == 1):
         raise AssertionError(f"Stretch simulate printed {out2[-500:]!r}")
     return {"line": f"TruncateToHW 200 x 30 seed 0: exit 1, WeakIsr at depth 12 after 1673 "
-                    f"states, trace as pinned, {rate}, process {wall:.1f} s; Stretch 10 x 50 "
+                    f"states, trace as pinned, {rate}, process {wall:.1f} s; Stretch 10 x 10 "
                     f"seed 0: exit 0, {line.split(', ', 1)[1]} process {wall2:.1f} s"}
 
 
@@ -3688,6 +3711,168 @@ def phase_sharded_overlap():
             "counts": counts}
 
 
+# --- phase sharded-device: the device-resident sharded level ---------------
+
+
+def _per_chunk_dispatches(shard_frontier, chunk, min_bucket=256):
+    """The chunks the per-chunk path dispatches for a level of these
+    per-shard rows (its plan: a bucket of min(next_pow2(max(rem, min_bucket
+    // D, 32)), chunk) rows while any shard has rows left)."""
+    D = len(shard_frontier)
+    offs, n = [0] * D, 0
+    while True:
+        rem = max(f - o for f, o in zip(shard_frontier, offs))
+        if rem <= 0:
+            return n
+        bucket = min(next_pow2_cap(max(rem, min_bucket // D, 32)), chunk)
+        offs = [min(f, o + bucket) for f, o in zip(shard_frontier, offs)]
+        n += 1
+
+
+def _device_level_ran(name, res):
+    """A run of the sharded device level: levels on the card, no fallback.
+    -> its launches a level (the device level's, 1 or 2, and the per-chunk
+    tail's)."""
+    dev = res.stats.get("device")
+    if not dev or dev["fallback"] is not None or dev["levels"] < 1:
+        raise AssertionError(f"{name}: stats['device'] {dev}")
+    return [lvl["shard_launches"] for lvl in res.stats["levels"]]
+
+
+def _prefix_run(name, res, chain, depth):
+    """A run cut at `depth`: the pinned levels and the JAX package's chain
+    up to it."""
+    want = np.array(KIP320_CHAIN, dtype=np.uint64)[: len(chain)]
+    if res.levels != KIP320_LEVELS[: depth + 1] or len(chain) != depth + 1 or not \
+            np.array_equal(chain, want):
+        raise AssertionError(f"{name}: levels {res.levels}, chain of {len(chain)}")
+
+
+def phase_sharded_device():
+    """The device-resident sharded level (check_sharded(pipeline="device"))
+    at D = SHARDS logical shards on cuda:0, Kip320 3r: (a) `device` and
+    `host` with the all_to_all compressed (the default on the card) and
+    raw, and `device` with all_gather; (b) `device` and `host` at
+    chunk_size 4096, a shard's levels in several chunks, the launches a
+    level beside the per-chunk path's chunks; (c) device-hash, degraded
+    with the JAX package's reason; (d) crash@shard3:level:6 on the device
+    level resumed on the per-chunk path, and the reverse; (e) compile_oom,
+    degraded; (f) a world-size-1 NCCL group at D = 1.  Each run counted
+    from 0, to the pinned levels and the JAX package's chain, its kernels
+    held at its largest launch."""
+    from kafka_specification_tpu_torch.parallel import ShardMesh, multihost
+    from kafka_specification_tpu_torch.pipeline_registry import DEVICE_HASH_REASON
+    from kafka_specification_tpu_torch.resilience.faults import OOM_MARKER
+    from kafka_specification_tpu_torch.utils.timing import card_line
+
+    card = card_line()
+    kip = _kip320_model
+    counts, parts, held = {}, [], []
+    dev = dict(pipeline="device", stats_path=str(WORK / "sharded-device-stats.jsonl"))
+
+    def run(name, cut=None, kernels=("fingerprint",), **knobs):
+        res, chain, wall, c, note = _sharded_run(name, kip, kernels,
+                                                 **{**dev, "max_depth": cut, **knobs})
+        if cut is None:
+            _sharded_full(name, res, chain)
+        else:
+            _prefix_run(name, res, chain, cut)
+        counts[name] = c
+        held.append(note)
+        print(f"[sharded-device] {name}: {wall:.2f} s, launches {c}", file=sys.stderr,
+              flush=True)
+        return res, wall, c
+
+    # (a) the three wires on `device`, two on `host`
+    for backend, exchange, compress in (("device", "all_to_all", None),
+                                        ("device", "all_to_all", "0"),
+                                        ("host", "all_to_all", None),
+                                        ("host", "all_to_all", "0"),
+                                        ("device", "all_gather", None)):
+        name = (f"D={SHARDS} {backend} {exchange}"
+                + (" raw" if compress == "0" else " compressed" if exchange == "all_to_all"
+                   else ""))
+        if compress is not None:
+            os.environ["KSPEC_EXCHANGE_COMPRESS"] = compress
+        try:
+            res, wall, c = run(name, visited_backend=backend, exchange=exchange)
+        finally:
+            os.environ.pop("KSPEC_EXCHANGE_COMPRESS", None)
+        launches = _device_level_ran(name, res)
+        if res.stats["exchange_compressed"] is not (exchange == "all_to_all" and compress is None):
+            raise AssertionError(f"{name}: exchange_compressed {res.stats['exchange_compressed']}")
+        parts.append(f"(a) {name} {wall:.2f} s, {res.stats['device']['levels']} levels on the "
+                     f"device level, launches a level {launches} (K1 {c['fingerprint']})")
+
+    # (b) several chunks a shard's level
+    for backend in ("device", "host"):
+        name = f"D={SHARDS} {backend} chunk 4096"
+        res, wall, c = run(name, visited_backend=backend, chunk_size=4096)
+        launches = _device_level_ran(name, res)
+        chunks = [_per_chunk_dispatches(lvl["shard_frontier"], 4096)
+                  for lvl in res.stats["levels"]]
+        # a level of several chunks took fewer launches than chunks
+        if not any(k >= 2 and n < k for n, k in zip(launches, chunks)):
+            raise AssertionError(f"{name}: launches {launches}, per-chunk chunks {chunks}")
+        parts.append(f"(b) {name} {wall:.2f} s, launches a level {launches} against the "
+                     f"per-chunk path's chunks {chunks} (K1 {c['fingerprint']})")
+
+    # (c) device-hash degrades before any level (cut past the first level a
+    # gate would put on the card, depth 8)
+    name = f"D={SHARDS} device-hash to depth 10"
+    res, wall, c = run(name, cut=10, kernels=("fingerprint", "hash_probe_insert"),
+                       visited_backend="device-hash")
+    if res.stats["device"] != {"levels": 0, "fallback": DEVICE_HASH_REASON}:
+        raise AssertionError(f"{name}: stats['device'] {res.stats['device']}")
+    parts.append(f"(c) {name} {wall:.2f} s, 0 levels, the JAX package's reason")
+
+    # (d) a shard crash on one path resumed on the other, to depth 14
+    for first, second in (("device", "legacy"), ("legacy", "device")):
+        ckpt = WORK / f"sharded-device-crash-{first}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _r, _c, w1, c1, _n = _sharded_run(f"crash {first}", kip, ("fingerprint",),
+                                          fault="crash@shard3:level:6", pipeline=first,
+                                          checkpoint_dir=str(ckpt))
+        counts[f"crash {first}"] = c1
+        res, w2, c2 = run(f"resume {second}", cut=14, pipeline=second,
+                          checkpoint_dir=str(ckpt))
+        if second == "device":
+            _device_level_ran(f"resume {second}", res)
+        parts.append(f"(d) crash@shard3:level:6 on {first} ({w1:.2f} s) resumed on {second} "
+                     f"to depth 14 ({w2:.2f} s)")
+
+    # (e) compile_oom: the first device level (depth 8) fails, the run
+    # falls back
+    name = "compile_oom to depth 10"
+    os.environ["KSPEC_FAULT"] = "compile_oom"
+    try:
+        res, wall, c = run(name, cut=10)
+    finally:
+        os.environ.pop("KSPEC_FAULT", None)
+    want = {"levels": 0, "fallback": f"RuntimeError: {OOM_MARKER}"}
+    if res.stats["device"] != want:
+        raise AssertionError(f"{name}: stats['device'] {res.stats['device']}")
+    parts.append(f"(e) compile_oom: degraded at the first level, {wall:.2f} s")
+
+    # (f) the NCCL route at world size 1
+    os.environ["KSPEC_MULTIHOST"] = "1"
+    try:
+        info = multihost.init_distributed(DEV)
+        backend = torch.distributed.get_backend()
+        res, wall, c = run("nccl D=1 device", mesh=ShardMesh(1, DEV))
+    finally:
+        os.environ.pop("KSPEC_MULTIHOST", None)
+        multihost.leave_distributed()
+    if backend != "nccl" or info["process_count"] != 1:
+        raise AssertionError(f"the group is {backend} of {info['process_count']}")
+    launches = _device_level_ran("nccl D=1 device", res)
+    parts.append(f"(f) NCCL world size 1, D=1 device {wall:.2f} s, launches a level {launches}")
+    return {"line": f"Kip320 3r {res.total} states, the pinned levels and the JAX package's "
+                    f"chain on every run; {'; '.join(parts)}; walls on {card}; "
+                    f"{'; '.join(held)}",
+            "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3729,6 +3914,7 @@ def main() -> int:
     harness = ph.run("harness", phase_harness)
     sharded = ph.run("sharded", phase_sharded)
     sharded_overlap = ph.run("sharded-overlap", phase_sharded_overlap)
+    sharded_device = ph.run("sharded-device", phase_sharded_device)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -3749,7 +3935,8 @@ def main() -> int:
                **{f"fleet {p}": c for p, c in fleet["counts"].items()},
                **harness["counts"],
                **{f"sharded {p}": c for p, c in sharded["counts"].items()},
-               **{f"sharded-overlap {p}": c for p, c in sharded_overlap["counts"].items()}}
+               **{f"sharded-overlap {p}": c for p, c in sharded_overlap["counts"].items()},
+               **{f"sharded-device {p}": c for p, c in sharded_device["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

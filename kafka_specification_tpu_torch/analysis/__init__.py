@@ -159,10 +159,11 @@ OWNERSHIP_MODULES = (
     "kafka_specification_tpu_torch/storage/tiered.py",
     "kafka_specification_tpu_torch/resilience/checkpoints.py",
 )
-#: the modules of the device-resident level pipeline: a host read inside a
-#: `# kspec: traced` function there would put a sync into the level
+#: the modules of the device-resident level pipelines: a host read inside
+#: a `# kspec: traced` function there would put a sync into the level
 PURITY_MODULES = (
     "kafka_specification_tpu_torch/engine/pipeline.py",
+    "kafka_specification_tpu_torch/parallel/sharded.py",
     "kafka_specification_tpu_torch/ops/devlevel.py",
 )
 

@@ -488,6 +488,43 @@ def chunk_novelty(okeys: torch.Tensor, lkeys: torch.Tensor, vkeys: Optional[torc
 
 
 # kspec: traced
+def compact_stage(model: Model, states: dict, fvalid: torch.Tensor, widths: tuple, ar_lat: list,
+                  ar_W: list):
+    """Stages 1-2 of a level chunk at fixed widths: every action kernel on
+    the chunk (rows outside `fvalid` masked out of the guards), then each
+    action's guard-enabled cells compacted into its segment of
+    ``widths[a]`` slots, in action-major order (state then choice); cells
+    past a segment go to a dump slot and raise the overflow flag.
+    `ar_lat`/`ar_W` are the aranges of each action's lattice and width.
+    -> (en_pre, rows int64[T, K] packed, valid bool[T], parent int64[T]
+    chunk-local, guard int64[A] guard-enabled cells, a_en int64[A] enabled
+    successors, exp_ovf bool[]) with T = sum(widths)."""
+    spec = model.spec
+    en_pre, parts = expand_stage(model, states)
+    fields = {f.name: [] for f in spec.fields}
+    valid, parent, guard, a_en = [], [], [], []
+    exp_ovf = torch.zeros((), dtype=torch.bool, device=fvalid.device)
+    for ai, (a, (en, nxt), W) in enumerate(zip(model.actions, parts, widths)):
+        g = (en_pre[ai] & fvalid[:, None]).reshape(-1)
+        cnt = g.sum()
+        guard.append(cnt)
+        exp_ovf = exp_ovf | (cnt > W)
+        slot = torch.where(g, torch.cumsum(g, 0) - 1, W).clamp(max=W)
+        cidx = torch.zeros(W + 1, dtype=torch.int64, device=g.device)
+        cidx = cidx.index_copy_(0, slot, ar_lat[ai])[:W]
+        sidx, ch = cidx // a.n_choices, cidx % a.n_choices
+        ok = en[sidx, ch] & (ar_W[ai] < cnt)
+        for name, v in nxt.items():
+            fields[name].append(v[sidx, ch])
+        valid.append(ok)
+        parent.append(sidx)
+        a_en.append(ok.sum())
+    rows = spec.pack({name: torch.cat(v) for name, v in fields.items()})
+    return (en_pre, rows, torch.cat(valid), torch.cat(parent), torch.stack(guard),
+            torch.stack(a_en), exp_ovf)
+
+
+# kspec: traced
 def candidate_dedup_stage(order: torch.Tensor, take_sorted: torch.Tensor):
     """The host mode's winner emission: the novelty decided in key order
     (the stable sort's first copy, the row the serial host insert keeps),
@@ -701,32 +738,11 @@ class DevicePipeline:
             inv_hit, inv_i, inv_row = invariant_flags(model, states, fvalid)
         else:
             inv_hit, inv_i, inv_row = st.false, st.zero, st.zero
-        # stage 1: every action on every cell
-        en_pre, parts = expand_stage(model, states)
+        # stages 1-2: every action on every cell, compacted per action
+        en_pre, rows, valid, parent, guard, a_en, exp_ovf = compact_stage(
+            model, states, fvalid, st.widths, st.ar_lat, st.ar_W)
         deadlocked = deadlock_rows(en_pre, fvalid)
         dl_hit = deadlocked.any() if self.check_deadlock else st.false
-        # stage 2: per-action compaction of the guard-enabled cells
-        fields = {f.name: [] for f in spec.fields}
-        valid, parent, guard, a_en = [], [], [], []
-        exp_ovf = st.false
-        for ai, (a, (en, nxt), W) in enumerate(zip(model.actions, parts, st.widths)):
-            g = (en_pre[ai] & fvalid[:, None]).reshape(-1)
-            cnt = g.sum()
-            guard.append(cnt)
-            exp_ovf = exp_ovf | (cnt > W)
-            slot = torch.where(g, torch.cumsum(g, 0) - 1, W).clamp(max=W)
-            cidx = torch.zeros(W + 1, dtype=torch.int64, device=g.device)
-            cidx = cidx.index_copy_(0, slot, st.ar_lat[ai])[:W]
-            sidx, ch = cidx // a.n_choices, cidx % a.n_choices
-            ok = en[sidx, ch] & (st.ar_W[ai] < cnt)
-            for name, v in nxt.items():
-                fields[name].append(v[sidx, ch])
-            valid.append(ok)
-            parent.append(sidx)
-            a_en.append(ok.sum())
-        rows = spec.pack({name: torch.cat(v) for name, v in fields.items()})
-        valid = torch.cat(valid)
-        parent = torch.cat(parent)
         # stage 3: fingerprints (K1)
         hi, lo = fp_masked(spec, rows, valid)
         # stage 4: novelty against the level-new set (and the visited set)
@@ -760,8 +776,8 @@ class DevicePipeline:
             st.dig = devlevel.combine_digest(
                 st.dig, devlevel.masked_digest(sk ^ dedup.TOP_BIT, app))
         st.on = st.on + app_n
-        st.act_en = st.act_en + torch.where(commit_ok, torch.stack(a_en), 0)
-        st.agmax = torch.where(live, torch.maximum(st.agmax, torch.stack(guard)), st.agmax)
+        st.act_en = st.act_en + torch.where(commit_ok, a_en, 0)
+        st.agmax = torch.where(live, torch.maximum(st.agmax, guard), st.agmax)
         st.ovf = st.ovf | (live & (exp_ovf | ln_ovf))
         st.vkind = torch.where(take, kind, st.vkind)
         st.vinv = torch.where(take, inv_i, st.vinv)

@@ -230,15 +230,26 @@ def fetch_global(local: torch.Tensor) -> np.ndarray:
     return _all_gather(local).cpu().numpy()
 
 
-def gather_rows(local: list, width: int, dtype=torch.int64) -> list:
+def stack_global(local: torch.Tensor) -> torch.Tensor:
+    """This process's shards' rows, stacked along dim 0 in shard order ->
+    every shard's rows [D, ...], on `local`'s device: an all-gather on the
+    group's device, with no host read (fetch_global's queued half)."""
+    if not group_active():
+        return local
+    return _all_gather(local).to(local.device)
+
+
+def gather_rows(local: list, width: int, dtype=torch.int64, lens=None) -> list:
     """Per-shard tensors of different lengths (one per local shard, each
     [n, width] or [n] when `width` is 0) -> the list over all D shards, on
-    the first local tensor's device.  Lengths go first, then one gather of
-    the rows padded to the longest."""
+    the first local tensor's device.  Lengths go first (or `lens`, every
+    shard's, when the caller knows them), then one gather of the rows
+    padded to the longest."""
     if not group_active():
         return list(local)
     dev = local[0].device
-    lens = fetch_global(torch.tensor([t.shape[0] for t in local], dtype=torch.int64))
+    if lens is None:
+        lens = fetch_global(torch.tensor([t.shape[0] for t in local], dtype=torch.int64))
     nmax = int(lens.max()) if lens.size else 0
     shape = (nmax, width) if width else (nmax,)
     pad = torch.zeros((len(local),) + shape, dtype=dtype, device=comm_device())

@@ -101,8 +101,20 @@ record each shard's run manifest and hot dump.  The resource governor
 breach reclaims, a hard one checkpoints and raises ``ResourceExhausted``
 (CLI exit 75).
 
-Left for ROADMAP item 8c: the device-resident sharded level
-(``pipeline="device"``), refused with an error that names it.
+The device-resident sharded level (``pipeline="device"``,
+``$KSPEC_PIPELINE=device``; ``ShardedDeviceLevel``): each level's
+full-size gated chunks are queued on every local shard with no host read
+between them, the exchange at the JAX package's fixed widths (its
+overflow flags kept on the card), and the host reads the level once (twice
+when an overflow re-dispatches it at the exact widths).  On the
+``device`` backend each shard's visited set takes one merge a level and
+the chain folds the digests accumulated on the card; on ``host`` and the
+disk tier each owner's set takes the level's winners in one batched
+insert.  The smaller-bucket tail of a level runs per chunk at its serial
+offsets; ``device-hash``, unproven field hulls and a failed level degrade
+stickily to the per-chunk path (``stats["device"]``).  The result is the
+per-chunk path's; each level that the device level serves counts 1
+launch (2 after an overflow) in ``kspec_shard_launches_level``.
 """
 
 from __future__ import annotations
@@ -112,19 +124,20 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..analysis import require_encoding_sound
 from ..engine.bfs import CheckResult, Violation, resolve_device, walk_trace
-from ..engine.pipeline import (compacts, deadlock_rows, expand_stage, first_copies, fp_stage,
-                               next_pow2, squeeze_stage)
+from ..engine.pipeline import (PooledWidths, chunk_novelty, compact_stage, compacts,
+                               deadlock_rows, device_hull_fallback, expand_stage, first_copies,
+                               fp_masked, fp_stage, next_pow2, sorted_emit, squeeze_stage)
 from ..interop import from_u32, to_u32
 from ..obs import metrics as _met
 from ..obs.observer import RunObserver
-from ..ops import dedup, fpcompress, hashset
+from ..ops import dedup, devlevel, fpcompress, hashset
 from ..ops.cuda_hashset import probe_insert
 from ..overlap import AsyncWorker, close_workers, overlap_enabled, worker_counters
 from ..pipeline_registry import resolve_pipeline
@@ -141,7 +154,7 @@ from ..storage.parent_log import ParentLogCorrupt, ShardedParentLog
 from ..storage.runs import RunCorrupt, SortedRun
 from .multihost import (ShardMesh, all_gather_shards, all_to_all_shards, fetch_global,
                         gather_rows, is_coordinator, is_multiprocess, max_across_processes,
-                        mesh_layouts, or_across_processes, process_count)
+                        mesh_layouts, or_across_processes, process_count, stack_global)
 
 # per-shard hash-table floor (module-level so tests can shrink it to
 # exercise growth at small state counts)
@@ -150,17 +163,10 @@ _HASH_MIN_CAP = 1 << 14
 # capacity on the host backend: its placeholder arrays' width
 _NO_SORTED_CAP = 64
 CHECKPOINT_BASENAME = "sharded_checkpoint.npz"
-ITEM_8C = "ROADMAP Queue A item 8c"
 COMPRESS_ENV = "KSPEC_EXCHANGE_COMPRESS"
 _U32 = 0xFFFFFFFF
 # the u8 wire of an action id: a sentinel row's -1 rides as 255
 _NO_ACT = 255
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the sharded engine yet ({ITEM_8C}); the per-chunk "
-        f"path does not stand in for it")
 
 
 def _shard_tables_from_pairs(per_shard: dict, min_cap: int, device_of):
@@ -249,6 +255,33 @@ def _raw_bytes(D: int, W: int, K: int) -> int:
     return D * D * (fpcompress.raw_bytes(W) + W * 4 * (K + 2))
 
 
+def _default_dest_w(T: int, D: int) -> int:
+    """The device level's per-owner bucket width for T candidate rows a
+    source shard (the JAX package's rule)."""
+    return max(64, T // D)
+
+
+# kspec: traced
+def _acc_digest(acc: torch.Tensor, dig: torch.Tensor, enabled: torch.Tensor) -> torch.Tensor:
+    """Fold one chunk's framing digest `dig` (int64[5], ``_fp_digest``)
+    into a level accumulator by the host's combine rule (counts and
+    wrapping sums add, xors xor), where `enabled` (a bool[] that masks the
+    chunks the per-chunk path would not have compared)."""
+    d = torch.where(enabled, dig, 0)
+    return torch.stack([acc[0] + d[0], acc[1] ^ d[1], acc[2] ^ d[2], (acc[3] + d[3]) & _U32,
+                        (acc[4] + d[4]) & _U32])
+
+
+# kspec: traced
+def _owner_counts(owner: torch.Tensor, D: int) -> torch.Tensor:
+    """Rows a source shard sends each owner, int64[D + 1]: the last entry
+    counts the rows of no owner (``owner == D``, the invalid rows of a
+    fixed-width chunk)."""
+    return torch.zeros(D + 1, dtype=torch.int64, device=owner.device).scatter_add_(
+        0, owner, torch.ones_like(owner))
+
+
+# kspec: traced
 def _bucket_order(payload: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
     """A source shard's candidates grouped by owner, each owner's bucket
     ascending by fingerprint with ties in candidate order: the stable sort
@@ -257,6 +290,104 @@ def _bucket_order(payload: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
                           payload[:, 1].to(torch.int64) & _U32)
     by_key = torch.sort(key, stable=True).indices
     return by_key[torch.sort(owner[by_key], stable=True).indices]
+
+
+# kspec: traced
+def _bucket_slots(oo: torch.Tensor, counts: torch.Tensor, W: int, D: int) -> torch.Tensor:
+    """Each row's slot in the [D, W] bucket layout, for rows grouped by
+    owner (`oo`, ascending) with `counts` from ``_owner_counts``: owner *
+    W + its rank in the bucket, or the dump slot D * W for a row of no
+    owner or past its bucket's W."""
+    rank = torch.arange(oo.shape[0], device=oo.device) - (torch.cumsum(counts, 0) - counts)[oo]
+    return torch.where((oo < D) & (rank < W), oo * W + rank, D * W)
+
+
+# kspec: traced
+def _raw_frames(p: torch.Tensor, owner: torch.Tensor, counts: torch.Tensor, W: int,
+                D: int) -> torch.Tensor:
+    """The raw wire of one source shard: its payload rows in D buckets of
+    W rows, each in candidate order, padded with sentinel rows:
+    int32[D, W, F]."""
+    F = p.shape[1]
+    buf = _sentinel_rows(D * W + 1, F, p.device)
+    order = torch.sort(owner, stable=True).indices
+    buf.index_copy_(0, _bucket_slots(owner[order], counts, W, D), p[order])
+    return buf[: D * W].view(D, W, F)
+
+
+# kspec: traced
+def _packed_frames(p: torch.Tensor, owner: torch.Tensor, counts: torch.Tensor, W: int, Wr: int,
+                   NW: int, D: int):
+    """The compressed wire of one source shard: each of its D buckets at
+    width W sorted by fingerprint (``_bucket_order``), its fingerprint
+    lanes packed into NW stream words, the lanes and parent of its first
+    Wr rows, its action ids as u8.  -> (int32[D, NW + header + Wr * (K +
+    1)] (words, header, rows), uint8[D, Wr], bool[D] stream overflow)."""
+    dev = p.device
+    F = p.shape[1]
+    K = F - 4
+    order = _bucket_order(p, owner)
+    oo, ps = owner[order], p[order]
+    slot = _bucket_slots(oo, counts, W, D)
+    slot_r = _bucket_slots(oo, counts, Wr, D)
+    b_hi = torch.full((D * W + 1,), _U32, dtype=torch.int64, device=dev)
+    b_lo = torch.full((D * W + 1,), _U32, dtype=torch.int64, device=dev)
+    b_hi.index_copy_(0, slot, ps[:, 0].to(torch.int64) & _U32)
+    b_lo.index_copy_(0, slot, ps[:, 1].to(torch.int64) & _U32)
+    rows = torch.zeros((D * Wr + 1, K + 1), dtype=torch.int32, device=dev)
+    rows[:, K] = -1
+    rows.index_copy_(0, slot_r, ps[:, 2 : 2 + K + 1])
+    act = torch.full((D * Wr + 1,), _NO_ACT, dtype=torch.uint8, device=dev)
+    act.index_copy_(0, slot_r, ps[:, F - 1].to(torch.uint8))
+    words, header, over = fpcompress.pack_sorted(b_hi[: D * W].view(D, W),
+                                                 b_lo[: D * W].view(D, W), counts[:D], NW)
+    frame = torch.cat([words.to(torch.int32), header.to(torch.int32),
+                       rows[: D * Wr].view(D, Wr * (K + 1))], dim=1)
+    return frame, act[: D * Wr].view(D, Wr), over
+
+
+# kspec: traced
+def _unpacked_rows(f: torch.Tensor, a: torch.Tensor, W: int, Wr: int, NW: int,
+                   K: int) -> torch.Tensor:
+    """What an owner received on the compressed wire, decoded into the raw
+    layout: int32[D * W, F], source by source, each bucket's rows in
+    fingerprint order, then sentinel rows."""
+    D = f.shape[0]
+    F = K + 4
+    HW = fpcompress.header_words(W)
+    f = f.to(torch.int64)
+    hi, lo = fpcompress.unpack_sorted(f[:, :NW] & _U32, f[:, NW : NW + HW] & _U32, W)
+    r = _sentinel_rows(D * W, F, f.device).view(D, W, F)
+    r[:, :, 0] = hi.to(torch.int32)
+    r[:, :, 1] = lo.to(torch.int32)
+    r[:, :Wr, 2 : 2 + K + 1] = f[:, NW + HW :].view(D, Wr, K + 1).to(torch.int32)
+    a = a.to(torch.int32)
+    r[:, :Wr, F - 1] = torch.where(a == _NO_ACT, -1, a)
+    return r.reshape(D * W, F)
+
+
+# kspec: traced
+def _padded_rows(p: torch.Tensor, T: int) -> torch.Tensor:
+    """A source shard's payload padded with sentinel rows to T rows (the
+    all_gather wire)."""
+    buf = _sentinel_rows(T, p.shape[1], p.device)
+    buf[: p.shape[0]] = p
+    return buf
+
+
+def _gathered(allc: torch.Tensor, mesh: ShardMesh) -> dict:
+    """The all_gather wire's receive: every source's rows on every local
+    owner, with `mine` masking the candidates it owns."""
+    D = mesh.size
+    owner = (allc[:, 1].to(torch.int64) & _U32) % D
+    return {d: (allc.to(mesh.device(d)), (owner == d).to(mesh.device(d))) for d in mesh.my_shards}
+
+
+def _compressed_bytes(D: int, W: int, Wr: int, NW: int, K: int) -> int:
+    """Bytes of one compressed all_to_all: each bucket's stream and header,
+    then Wr rows of K lanes and the parent (4 bytes each) and the u8
+    action id."""
+    return D * D * (fpcompress.packed_bytes(W, NW) + Wr * (4 * (K + 1) + 1))
 
 
 def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
@@ -270,77 +401,39 @@ def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
     went compressed, "sent": bytes on the all_to_all wire, "raw": the raw
     wire's bytes for the same chunk, at its exact width}.  Raw, each source's rows keep candidate
     order; compressed, each bucket is in fingerprint order with ties in
-    candidate order, which elects the same first copies."""
+    candidate order, which elects the same first copies.  The widths are
+    exact, read from the chunk's bucket counts; the frames are the device
+    level's (``_level_route``), which sends at fixed widths."""
     if exchange not in ("all_to_all", "all_gather"):
         raise ValueError(f"unknown exchange {exchange!r}")
     D = mesh.size
-    F = 2 + K + 2
-
-    def bucket_frames(payloads, owners, counts, orders, W, Wr, NW):
-        """Every local source's D buckets at width W, packed: -> ({d:
-        int32[D, NW + header + Wr * (K + 1)] (the words, the header, the
-        lanes and parent of the first Wr rows)}, {d: uint8[D, Wr] action
-        ids}, this process's stream overflow)."""
-        frames, acts, ovf = {}, {}, False
-        for d in mesh.my_shards:
-            p, c, order = payloads[d], counts[d], orders[d]
-            dev = p.device
-            b_hi = torch.full((D * W,), _U32, dtype=torch.int64, device=dev)
-            b_lo = torch.full((D * W,), _U32, dtype=torch.int64, device=dev)
-            rows = torch.zeros((D * Wr, K + 1), dtype=torch.int32, device=dev)
-            rows[:, K] = -1
-            act = torch.full((D * Wr,), _NO_ACT, dtype=torch.uint8, device=dev)
-            if p.shape[0]:
-                ps, oo = p[order], owners[d][order]
-                rank = torch.arange(oo.shape[0], device=dev) - (torch.cumsum(c, 0) - c)[oo]
-                b_hi[oo * W + rank] = ps[:, 0].to(torch.int64) & _U32
-                b_lo[oo * W + rank] = ps[:, 1].to(torch.int64) & _U32
-                rows[oo * Wr + rank] = ps[:, 2 : 2 + K + 1]
-                act[oo * Wr + rank] = ps[:, F - 1].to(torch.uint8)
-            words, header, over = fpcompress.pack_sorted(b_hi.view(D, W), b_lo.view(D, W), c, NW)
-            ovf |= bool(over.any())
-            frames[d] = torch.cat([words.to(torch.int32), header.to(torch.int32),
-                                   rows.view(D, Wr * (K + 1))], dim=1)
-            acts[d] = act.view(D, Wr)
-        return frames, acts, ovf
 
     def route_compressed(payloads, owners, counts, cmax):
         """The compressed wire, or None when a stream overflows at full
         width (the chunk then goes raw)."""
-        orders = {d: _bucket_order(payloads[d], owners[d]) for d in mesh.my_shards}
         W = max(32, 2 * cmax)
         # full width: one bucket as wide as a whole source's candidates
         T = max(W, max_across_processes(max(p.shape[0] for p in payloads.values())))
         while True:
             Wr = max(32, W // 2)
             NW = fpcompress.default_stream_words(W)
-            frames, acts, ovf = bucket_frames(payloads, owners, counts, orders, W, Wr, NW)
+            frames = {d: _packed_frames(payloads[d], owners[d], counts[d], W, Wr, NW, D)
+                      for d in mesh.my_shards}
+            ovf = any(bool(f[2].any()) for f in frames.values())
             if not or_across_processes(np.array([ovf]))[0]:
                 break
             if W >= T:
                 return None
             W = min(T, 2 * W)
-        HW = fpcompress.header_words(W)
-        got = all_to_all_shards([frames[d] for d in mesh.my_shards], mesh)
-        got_act = all_to_all_shards([acts[d] for d in mesh.my_shards], mesh)
-        recv = {}
-        for d, f, a in zip(mesh.my_shards, got, got_act):
-            f = f.to(torch.int64)
-            hi, lo = fpcompress.unpack_sorted(f[:, :NW] & _U32, f[:, NW : NW + HW] & _U32, W)
-            r = _sentinel_rows(D * W, F, f.device).view(D, W, F)
-            r[:, :, 0] = hi.to(torch.int32)
-            r[:, :, 1] = lo.to(torch.int32)
-            r[:, :Wr, 2 : 2 + K + 1] = f[:, NW + HW :].view(D, Wr, K + 1).to(torch.int32)
-            a = a.to(torch.int32)
-            r[:, :Wr, F - 1] = torch.where(a == _NO_ACT, -1, a)
-            recv[d] = (r.reshape(D * W, F), None)
-        # each bucket: its stream and header, then Wr rows of K lanes and
-        # the parent (4 bytes each) and the u8 action id
-        sent = D * D * (fpcompress.packed_bytes(W, NW) + Wr * (4 * (K + 1) + 1))
-        return recv, {"compressed": True, "sent": sent, "raw": _raw_bytes(D, cmax, K)}
+        got = all_to_all_shards([frames[d][0] for d in mesh.my_shards], mesh)
+        got_act = all_to_all_shards([frames[d][1] for d in mesh.my_shards], mesh)
+        recv = {d: (_unpacked_rows(f, a, W, Wr, NW, K), None)
+                for d, f, a in zip(mesh.my_shards, got, got_act)}
+        return recv, {"compressed": True, "sent": _compressed_bytes(D, W, Wr, NW, K),
+                      "raw": _raw_bytes(D, cmax, K)}
 
     def route_a2a(payloads: dict, owners: dict, compress: bool):
-        counts = {d: torch.bincount(owners[d], minlength=D) for d in mesh.my_shards}
+        counts = {d: _owner_counts(owners[d], D) for d in mesh.my_shards}
         local_max = max((int(c.max()) for c in counts.values()), default=0)
         cmax = max(1, max_across_processes(local_max))
         if compress:
@@ -348,38 +441,54 @@ def _make_exchange(mesh: ShardMesh, exchange: str, K: int):
             if got is not None:
                 return got
         W = cmax
-        sends = []
-        for d in mesh.my_shards:
-            p, o, c = payloads[d], owners[d], counts[d]
-            buf = _sentinel_rows(D * W, F, p.device)
-            if p.shape[0]:
-                order = torch.sort(o, stable=True).indices
-                start = torch.cumsum(c, 0) - c
-                oo = o[order]
-                slot = oo * W + torch.arange(oo.shape[0], device=p.device) - start[oo]
-                buf[slot] = p[order]
-            sends.append(buf.view(D, W, F))
-        recv = all_to_all_shards(sends, mesh)
+        recv = all_to_all_shards([_raw_frames(payloads[d], owners[d], counts[d], W, D)
+                                  for d in mesh.my_shards], mesh)
         raw = _raw_bytes(D, W, K)
-        return ({d: (r.reshape(D * W, F), None) for d, r in zip(mesh.my_shards, recv)},
+        return ({d: (r.reshape(D * W, -1), None) for d, r in zip(mesh.my_shards, recv)},
                 {"compressed": False, "sent": raw, "raw": raw})
 
     def route_gather(payloads: dict, owners: dict, compress: bool):
         local_max = max((p.shape[0] for p in payloads.values()), default=0)
         T = max(1, max_across_processes(local_max))
-        sends = []
-        for d in mesh.my_shards:
-            p = payloads[d]
-            buf = _sentinel_rows(T, F, p.device)
-            buf[: p.shape[0]] = p
-            sends.append(buf)
-        allc = all_gather_shards(sends, mesh).reshape(D * T, F)
-        owner = (allc[:, 1].to(torch.int64) & _U32) % D
-        return ({d: (allc.to(mesh.device(d)), (owner == d).to(mesh.device(d)))
-                 for d in mesh.my_shards},
-                {"compressed": False, "sent": 0, "raw": 0})
+        allc = all_gather_shards([_padded_rows(payloads[d], T) for d in mesh.my_shards], mesh)
+        return _gathered(allc.reshape(D * T, -1), mesh), {"compressed": False, "sent": 0, "raw": 0}
 
     return route_a2a if exchange == "all_to_all" else route_gather
+
+
+# kspec: traced
+def _level_route(mesh: ShardMesh, exchange: str, compress: bool, payloads: dict, owners: dict,
+                 W: int, T: int, K: int):
+    """The device level's exchange at fixed widths, which reads nothing:
+    the per-chunk route's frames at W rows a bucket (all_to_all; the
+    compressed wire ``Wr = max(32, W // 2)`` rows and
+    ``default_stream_words(W)`` words) or T rows a source (all_gather).
+    `payloads`: local source shard -> int32[T, F], `owners`: each row's
+    owner, D for an invalid row.  -> ({local owner: (int32[R, F], mine)},
+    {local source: bool[] overflow}): a bucket wider than W (raw), and also
+    wider than Wr or past its stream (compressed)."""
+    D = mesh.size
+    if exchange == "all_gather":
+        allc = all_gather_shards([payloads[d] for d in mesh.my_shards], mesh)
+        return _gathered(allc.reshape(D * T, -1), mesh), {
+            d: torch.zeros((), dtype=torch.bool, device=payloads[d].device)
+            for d in mesh.my_shards}
+    counts = {d: _owner_counts(owners[d], D) for d in mesh.my_shards}
+    ovf = {d: (c[:D] > W).any() for d, c in counts.items()}
+    if not compress:
+        recv = all_to_all_shards([_raw_frames(payloads[d], owners[d], counts[d], W, D)
+                                  for d in mesh.my_shards], mesh)
+        return {d: (r.reshape(D * W, -1), None) for d, r in zip(mesh.my_shards, recv)}, ovf
+    Wr = max(32, W // 2)
+    NW = fpcompress.default_stream_words(W)
+    frames = {d: _packed_frames(payloads[d], owners[d], counts[d], W, Wr, NW, D)
+              for d in mesh.my_shards}
+    for d, (_f, _a, over) in frames.items():
+        ovf[d] = ovf[d] | (over | (counts[d][:D] > Wr)).any()
+    got = all_to_all_shards([frames[d][0] for d in mesh.my_shards], mesh)
+    got_act = all_to_all_shards([frames[d][1] for d in mesh.my_shards], mesh)
+    return ({d: (_unpacked_rows(f, a, W, Wr, NW, K), None)
+             for d, f, a in zip(mesh.my_shards, got, got_act)}, ovf)
 
 
 def _make_sharded_step(model, mesh: ShardMesh, exchange: str, visited_backend: str,
@@ -578,6 +687,331 @@ class _ShardSets:
         return [(to_u32(g[:, 0]), to_u32(g[:, 1])) for g in got]
 
 
+class _ShardAcc:
+    """One local shard's part of a queued device level: its frontier
+    buffer and what its chunks fold into, on the shard's device."""
+
+    def __init__(self, fbuf, flen: int, base: int, st: "_ShardLevel", actions, host_mode: bool):
+        dev = fbuf.device
+        K = fbuf.shape[1]
+        A = len(actions)
+        LN = st.LN
+        self.fbuf, self.flen, self.base = fbuf, flen, base
+        self.ar_B = torch.arange(st.B, device=dev)
+        self.ar_lat = [torch.arange(st.B * a.n_choices, device=dev) for a in actions]
+        self.ar_W = [torch.arange(w, device=dev) for w in st.widths]
+        self.act_ids = torch.cat([torch.full((w,), i, dtype=torch.int64, device=dev)
+                                  for i, w in enumerate(st.widths)])
+        # the winners: LN rows and a dump row
+        self.orows = torch.zeros((LN + 1, K), dtype=torch.int64, device=dev)
+        self.opar = torch.zeros(LN + 1, dtype=torch.int64, device=dev)
+        self.oact = torch.zeros(LN + 1, dtype=torch.int64, device=dev)
+        self.okeys = torch.zeros(LN + 1, dtype=torch.int64, device=dev) if host_mode else None
+        self.lkeys = torch.full((LN,), dedup.PAD, dtype=torch.int64, device=dev)
+        self.on = torch.zeros((), dtype=torch.int64, device=dev)
+        self.act_en = torch.zeros(A, dtype=torch.int64, device=dev)
+        self.agmax = torch.zeros(A, dtype=torch.int64, device=dev)
+        self.dig = devlevel.zero_digest(dev)
+        self.sacc = torch.zeros(5, dtype=torch.int64, device=dev)
+        self.racc = torch.zeros(5, dtype=torch.int64, device=dev)
+        self.merged = None  # device mode: the visited keys after the level's one merge
+
+
+class _ShardLevel:
+    """One dispatch of a sharded device level: every local shard's
+    ``_ShardAcc`` and the replicated verdict and overflow flags (on this
+    process's first shard's device)."""
+
+    def __init__(self, sdev: "ShardedDeviceLevel", pending: list, lens: list, prev_base,
+                 B: int, nc: int, widths: tuple, LN: int, W: int, compress: bool, vkeys):
+        mesh = sdev.mesh
+        self.B, self.nc, self.widths, self.LN, self.W = B, nc, widths, LN, W
+        self.T = sum(widths)
+        self.compress, self.vkeys = compress, vkeys
+        self.home = mesh.device(mesh.my_shards[0])
+        self.shards = {}
+        for d in mesh.my_shards:
+            n = min(nc * B, lens[d])
+            fbuf = pending[d][:n].to(mesh.device(d))
+            if nc * B > n:
+                fbuf = torch.cat([fbuf, fbuf.new_zeros((nc * B - n, fbuf.shape[1]))])
+            self.shards[d] = _ShardAcc(fbuf, n, int(prev_base[d]), self, sdev.model.actions,
+                                       sdev.host_mode)
+        z = torch.zeros((), dtype=torch.int64, device=self.home)
+        self.vkind, self.vshard, self.vinv, self.vidx, self.nclean = (z.clone() for _ in range(5))
+        self.ovf = torch.zeros((), dtype=torch.bool, device=self.home)
+
+
+class LevelRead(NamedTuple):
+    """A sharded device level's one host read, over every shard: the
+    replicated flags (overflow, verdict kind, shard, invariant and
+    frontier row, clean chunks) and each shard's [D] / [D, n] outcome."""
+
+    ovf: bool
+    vkind: int
+    vshard: int
+    vinv: int
+    vidx: int
+    nclean: int
+    on: np.ndarray
+    act_en: np.ndarray
+    agmax: np.ndarray
+    sacc: np.ndarray
+    racc: np.ndarray
+    dig: np.ndarray
+    keys: Optional[np.ndarray]
+
+
+class ShardedDeviceLevel:
+    """The sharded device-resident level (``pipeline="device"``): every
+    full-size gated chunk of a level queued on every local shard with no
+    host read between chunks, the host reading the level once (twice on
+    an overflow re-dispatch).  Counterpart of the JAX package's
+    ``ShardedDeviceLevel`` and its two level programs; the chunk's stages
+    are the single-device ``DevicePipeline``'s (``compact_stage``,
+    ``fp_masked``, ``chunk_novelty``, ``sorted_emit``, ``ops/devlevel``)
+    with the exchange (``_level_route``) between expansion and novelty.
+
+    A chunk, on each local shard: the frontier slice, the compacted
+    expansion at the plan's widths, K1, the parent as a level-global
+    index, the sent framing digest, the route, the received digest,
+    novelty against the shard's level-new set (and, on the ``device``
+    backend, the read-only visited shard), the merge of its winners into
+    the level-new set, their appends in fingerprint order (the per-chunk
+    path's emission order), the digest fold (``device``), and the framing
+    accumulators, the enablement, the guard maxima and the clean-chunk
+    count.  The verdict and the overflow flags are elected replicated
+    (every shard's flags gathered: a reduction over the local shards, an
+    all-gather on the group's device with one), with the serial priority:
+    invariants beat deadlock, then the first invariant in declaration
+    order, then the lowest shard, then its first row.  A Python loop
+    cannot stop at the verdict without a read, so every chunk runs; the
+    verdict chunk folds its guard maxima and framing digests and commits
+    nothing, and the chunks after it fold nothing.  After the loop, on
+    ``device``, one rank merge a shard into its visited set.  On ``host``
+    (and the disk tier) the level's winners go to each owner's host set
+    in one batched insert after the read.
+
+    The policy is the JAX package's: the plan (``plan_level``), the widths
+    (``PooledWidths``), the per-owner width ``_default_dest_w``, the
+    level-new ladder, and one re-dispatch on an overflow at the measured
+    maxima, W = T, the codec off and the safe level-new bound.  Any unmet
+    precondition, or a failure of the level that the retry handler does
+    not retry, degrades the run stickily to the per-chunk path
+    (``mark_fallback``)."""
+
+    def __init__(self, model, mesh: ShardMesh, visited_backend: str, check_deadlock: bool,
+                 compact_shift: int, compact_gate: int, exchange: str):
+        from ..pipeline_registry import backend_fallback_reason
+
+        self.model = model
+        self.mesh = mesh
+        self.check_deadlock = check_deadlock
+        self.compact_shift, self.compact_gate = compact_shift, compact_gate
+        self.exchange = exchange
+        self.pool = PooledWidths(model.actions)
+        self.ln_hw = 0  # the run's per-level new-state high water (per shard)
+        self.levels = 0  # levels run device-resident
+        # deferred probe: the level carries no visited shards; the host
+        # sets take each shard's level batch once
+        self.host_mode = visited_backend == "host"
+        self.fallback: Optional[str] = backend_fallback_reason("device", visited_backend)
+        if self.fallback is None:
+            self.fallback = device_hull_fallback(model)
+
+    def _gated(self, B: int) -> bool:
+        """The per-chunk path takes the compact (action-major) order at
+        this bucket; below the gate its state-major order is the per-chunk
+        path's alone."""
+        return compacts(B, self.compact_shift, self.compact_gate)
+
+    def plan_level(self, lens, chunk: int, min_bucket: int):
+        """-> (B, chunks) when the level serves (a prefix of) this level's
+        per-chunk plan, else None: the prefix of chunks whose per-chunk
+        bucket is the level's uniform one; a smaller-bucket tail runs per
+        chunk afterwards at its serial offsets."""
+        if self.fallback is not None:
+            return None
+        D = self.mesh.size
+        rem = max(lens) if lens else 0
+        if rem <= 0:
+            return None
+        mb = max(min_bucket // D, 32)
+        if rem <= chunk:
+            B = min(next_pow2(max(rem, mb)), chunk)
+            return (B, 1) if self._gated(B) else None
+        if not self._gated(chunk):
+            return None
+        nfull, r = 0, rem
+        while r > 0 and min(next_pow2(max(r, mb)), chunk) == chunk:
+            nfull += 1
+            r -= chunk
+        return (chunk, nfull) if nfull else None
+
+    def widths(self, B: int) -> tuple:
+        return self.pool.widths_for(B, np.zeros(len(self.model.actions)))
+
+    def exact_widths(self, B: int, agmax: np.ndarray) -> tuple:
+        return self.pool.widths_for(B, agmax.astype(np.float64))
+
+    def observe(self, agmax: np.ndarray, B: int, new_max: int) -> None:
+        """Fold one level's measured maxima into the sizing ladders."""
+        self.pool.hw = np.maximum(self.pool.hw, agmax.astype(np.float64) / max(B, 1))
+        self.ln_hw = max(self.ln_hw, int(new_max))
+        self.levels += 1
+
+    def mark_fallback(self, reason: str, depth: int) -> None:
+        self.fallback = reason
+        from ..obs import tracer as _obs_t
+
+        _obs_t.event("pipeline-fallback", depth=depth, pipeline="sharded-device", to="per-chunk",
+                     error=reason[:200])
+
+    # kspec: traced
+    def queue_level(self, pending: list, lens: list, prev_base, B: int, nc: int, widths: tuple,
+                    LN: int, W: int, compress: bool, vkeys, vn: dict) -> _ShardLevel:
+        """Queue every chunk of one dispatch on every local shard, then (on
+        ``device``) each shard's visited merge; reads nothing back."""
+        st = _ShardLevel(self, pending, lens, prev_base, B, nc, widths, LN, W, compress, vkeys)
+        for i in range(nc):
+            self._chunk(st, i)
+        if vkeys is not None:
+            for d, s in st.shards.items():
+                rank = dedup.rank_full(vkeys[d], s.lkeys)[1]
+                s.merged = dedup.merge_full(vkeys[d], vn[d], s.lkeys, rank, s.on)
+        return st
+
+    # kspec: traced
+    def _chunk(self, st: _ShardLevel, i: int) -> None:
+        model, spec, mesh = self.model, self.model.spec, self.mesh
+        D, B, K = mesh.size, st.B, spec.num_lanes
+        start = i * B
+        nI = max(len(model.invariants), 1)
+        payloads, owners, src = {}, {}, {}
+        for d, s in st.shards.items():
+            fvalid = s.ar_B < min(B, s.flen - start)
+            states = spec.unpack(s.fbuf[start : start + B])
+            if model.invariants:
+                bad = torch.stack([~inv.pred(states) for inv in model.invariants]) & fvalid
+                v_any, v_idx = bad.any(dim=1), torch.argmax(bad.to(torch.uint8), dim=1)
+            else:
+                v_any = torch.zeros(1, dtype=torch.bool, device=fvalid.device)
+                v_idx = torch.zeros(1, dtype=torch.int64, device=fvalid.device)
+            en_pre, rows, valid, parent, guard, a_en, exp_ovf = compact_stage(
+                model, states, fvalid, st.widths, s.ar_lat, s.ar_W)
+            dead = deadlock_rows(en_pre, fvalid)
+            hi, lo = fp_masked(spec, rows, valid)  # K1 on the card
+            payloads[d] = torch.cat([hi[:, None], lo[:, None], rows,
+                                     (parent + (s.base + start))[:, None], s.act_ids[:, None]],
+                                    dim=1).to(torch.int32)
+            owners[d] = torch.where(valid, lo % D, D)
+            head = torch.cat([v_any.to(torch.int64), v_idx,
+                              torch.stack([dead.any().to(torch.int64),
+                                           torch.argmax(dead.to(torch.uint8))])])
+            src[d] = (head, guard, a_en, exp_ovf, _fp_digest(hi, lo, valid))
+        recv, ovf_dest = _level_route(mesh, self.exchange, st.compress, payloads, owners, st.W,
+                                      st.T, K)
+        novel, flags = {}, []
+        for d, s in st.shards.items():
+            r, mine = recv[d]
+            hi = r[:, 0].to(torch.int64) & _U32
+            lo = r[:, 1].to(torch.int64) & _U32
+            valid = ~((hi == dedup.SENT) & (lo == dedup.SENT))
+            if mine is not None:
+                valid &= mine
+                hi = torch.where(valid, hi, dedup.SENT)
+                lo = torch.where(valid, lo, dedup.SENT)
+            sk, order, is_new, rank_l = chunk_novelty(
+                dedup.order_key(hi, lo), s.lkeys, None if st.vkeys is None else st.vkeys[d])
+            new_n = is_new.sum()
+            head, _g, _a, exp_ovf, _sd = src[d]
+            flags.append(torch.cat([head, torch.stack([
+                (exp_ovf | ovf_dest[d]).to(torch.int64),
+                (s.on + new_n > st.LN).to(torch.int64)])]).to(st.home))
+            novel[d] = (r, hi, lo, sk, order, is_new, rank_l, _fp_digest(hi, lo, valid))
+        # the replicated election over every shard's flags
+        g = stack_global(torch.stack(flags))
+        g_viol = g[:, :nI] > 0
+        g_vix = g[:, nI : 2 * nI]
+        g_dl, g_dl_idx = g[:, 2 * nI] > 0, g[:, 2 * nI + 1]
+        this_ovf = (g[:, 2 * nI + 2] > 0).any()
+        ln_over = (g[:, 2 * nI + 3] > 0).any()
+        inv_any = g_viol.any()
+        inv_i = torch.argmax(g_viol.any(dim=0).to(torch.uint8))
+        d_inv = torch.argmax(g_viol.index_select(1, inv_i.view(1))[:, 0].to(torch.uint8))
+        dl_any = g_dl.any() & self.check_deadlock
+        d_dl = torch.argmax(g_dl.to(torch.uint8))
+        kind = torch.where(inv_any, 1, torch.where(dl_any, 2, 0))
+        row = torch.where(inv_any, g_vix.reshape(-1).gather(0, (d_inv * nI + inv_i).view(1))[0],
+                          g_dl_idx.gather(0, d_dl.view(1))[0]) + start
+        live = st.vkind == 0
+        take = live & (kind != 0)
+        commit = live & (kind == 0)  # a verdict chunk commits nothing
+        ln_ovf = commit & ln_over
+        commit_ok = commit & ~st.ovf & ~ln_ovf
+        # the framing folds every chunk the per-chunk path would compare:
+        # a clean chunk, the verdict chunk included
+        clean = live & ~st.ovf & ~this_ovf & ~ln_ovf
+        st.ovf = st.ovf | (live & (this_ovf | ln_ovf))
+        st.nclean = st.nclean + clean.to(torch.int64)
+        st.vkind = torch.where(take, kind, st.vkind)
+        st.vshard = torch.where(take, torch.where(inv_any, d_inv, d_dl), st.vshard)
+        st.vinv = torch.where(take, inv_i, st.vinv)
+        st.vidx = torch.where(take, row, st.vidx)
+        for d, s in st.shards.items():
+            dev = s.fbuf.device
+            c_ok, cl, lv = commit_ok.to(dev), clean.to(dev), live.to(dev)
+            r, hi, lo, sk, order, is_new, rank_l, rdig = novel[d]
+            _h, guard, a_en, _e, sdig = src[d]
+            app = is_new & c_ok
+            app_n = app.sum()
+            R = sk.shape[0]
+            # the winners, sorted, merged into the level-new set
+            pos = torch.where(app, torch.cumsum(app, 0) - 1, R)
+            nk = torch.full((R + 1,), dedup.PAD, dtype=torch.int64, device=dev)
+            nr = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+            nk.index_copy_(0, pos, sk)
+            nr.index_copy_(0, pos, rank_l)
+            s.lkeys = dedup.merge_full(s.lkeys, s.on, nk[:R], nr[:R], app_n)
+            take_c, pos_c = sorted_emit(order, app)
+            slots = devlevel.append_slots(pos_c, take_c, s.on, st.LN)
+            devlevel.append_rows(s.orows, r[:, 2 : 2 + K].to(torch.int64) & _U32, slots)
+            devlevel.append_vec(s.opar, r[:, 2 + K].to(torch.int64), slots)
+            devlevel.append_vec(s.oact, r[:, 3 + K].to(torch.int64), slots)
+            if s.okeys is not None:
+                devlevel.append_vec(s.okeys, dedup.pair_key(hi, lo), slots)
+            else:
+                s.dig = devlevel.combine_digest(s.dig,
+                                                devlevel.masked_digest(sk ^ dedup.TOP_BIT, app))
+            s.on = s.on + app_n
+            s.act_en = s.act_en + torch.where(c_ok, a_en, 0)
+            s.agmax = torch.where(lv, torch.maximum(s.agmax, guard), s.agmax)
+            s.sacc = _acc_digest(s.sacc, sdig, cl)
+            s.racc = _acc_digest(s.racc, rdig, cl)
+
+    def read_level(self, st: _ShardLevel) -> LevelRead:
+        """The level's one host read, every shard's outcome on every
+        process."""
+        A = len(self.model.actions)
+        local = []
+        for d, s in st.shards.items():
+            head = torch.stack([st.ovf.to(torch.int64), st.vkind, st.vshard, st.vinv, st.vidx,
+                                st.nclean]).to(s.fbuf.device)
+            parts = [head, s.on.view(1), s.act_en, s.agmax, s.sacc, s.racc, s.dig]
+            if s.okeys is not None:
+                parts.append(s.okeys[: st.LN])
+            local.append(torch.cat(parts).to(st.home))
+        g = fetch_global(torch.stack(local))
+        o = 7
+        cols = {}
+        for name, n in (("act_en", A), ("agmax", A), ("sacc", 5), ("racc", 5), ("dig", 3)):
+            cols[name] = g[:, o : o + n]
+            o += n
+        ovf, vkind, vshard, vinv, vidx, nclean = (int(v) for v in g[0, :6])
+        return LevelRead(bool(ovf), vkind, vshard, vinv, vidx, nclean, g[:, 6].copy(),
+                         keys=g[:, o:] if self.host_mode else None, **cols)
+
+
 def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, mesh, spec,
                      visited_backend: str, sets: _ShardSets, device, use_disk: bool = False,
                      spill_base: Optional[str] = None):
@@ -687,13 +1121,6 @@ def _elastic_reshard(snap, part_arrays, old_D: int, old_P: int, old_pending, *, 
     return pending, lens
 
 
-def _refuse_8c(pipe_name: str) -> None:
-    """What ROADMAP item 8c still has to port raises here, before anything
-    runs."""
-    if pipe_name == "device":
-        raise _not_ported("pipeline='device' (the device-resident sharded level)")
-
-
 def _compress_on(overlap_on: bool, exchange: str, model, mesh: ShardMesh) -> bool:
     """The JAX package's rule for the compressed all_to_all: with the
     overlap layer, the all_to_all exchange and fewer than 255 actions (the
@@ -758,14 +1185,15 @@ def check_sharded(
     store/mem_budget/spill_dir: the disk tier, which runs on the host
     backend.  disk_budget: the resource governor's byte budget over the
     spill and checkpoint directories.  pipeline: "legacy" and "fused" run
-    the per-chunk step; "device" raises (ROADMAP 8c).  $KSPEC_FAULT arms
+    the per-chunk step; "device" the device-resident level
+    (``ShardedDeviceLevel``) where it serves, the per-chunk step
+    elsewhere.  $KSPEC_FAULT arms
     the faults of ``faults.WIRED_SHARDED``; a shard-scoped one fires only
     on the process owning its shard, and a plan naming another site is
     refused.
     """
     require_encoding_sound(model)
     pipe_name = resolve_pipeline(pipeline)
-    _refuse_8c(pipe_name)
     use_disk = resolve_store(store, mem_budget)
     if visited_backend not in ("device", "device-hash", "host"):
         raise ValueError(f"visited_backend must be 'device', 'device-hash' or 'host', "
@@ -777,7 +1205,7 @@ def check_sharded(
         raise ValueError(f"unknown exchange {exchange!r}")
     if mesh is None:
         mesh = ShardMesh.default(resolve_device(device))
-    for dev in set(mesh.devices):
+    for dev in dict.fromkeys(mesh.devices):
         resolve_device(dev)
     fault = FaultPlan.from_env()
     unwired = fault.unwired(WIRED_SHARDED)
@@ -1094,6 +1522,8 @@ def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, 
     pending = [from_u32(p, home) for p in pending]
     step = _make_sharded_step(model, mesh, exchange, visited_backend, compact_shift,
                               compact_gate, check_deadlock)
+    sdev = (ShardedDeviceLevel(model, mesh, visited_backend, check_deadlock, compact_shift,
+                               compact_gate, exchange) if pipe_name == "device" else None)
 
     # the async writer's bookkeeping: `last_ckpt_depth` is the newest
     # submitted save, `ckpt_durable_depth` the newest promoted one, on which
@@ -1369,6 +1799,7 @@ def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, 
             lvl_recv_per_shard = np.zeros(D, np.int64)
             lvl_exch_bytes = lvl_exch_raw_bytes = 0
             lvl_dispatches = 0
+            lvl_probe_ms = 0.0  # the device level's batched host inserts
             offs = [0] * D
             prev_base = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
             verdict = None  # (invariant name, shard, frontier row, level index)
@@ -1502,6 +1933,176 @@ def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, 
                     lvl_en_per_shard += act_en.sum(axis=1)
                 return False
 
+            def run_device_level():
+                """The level's full-size gated chunks as one queued level
+                (``ShardedDeviceLevel``), with at most one re-dispatch at
+                the exact widths, committed as the per-chunk commits would
+                have: on success `offs` advances past the handled prefix
+                (the tail runs per chunk below); on a failure the level is
+                marked fallen back and `offs` stays (the per-chunk path runs
+                the whole level)."""
+                nonlocal verdict, lvl_exch_bytes, lvl_exch_raw_bytes, lvl_dispatches
+                nonlocal lvl_probe_ms, shard_visited, lvl_recv_per_shard, lvl_new_per_shard
+                nonlocal lvl_act_en, lvl_en_per_shard
+                plan = sdev.plan_level(lens, chunk, min_bucket)
+                if plan is None:
+                    return
+                B, nc = plan
+                chunk_retry.reset_chunk()
+                widths = sdev.widths(B)
+                T = sum(widths)
+                W = _default_dest_w(T, D)
+                R = D * W if exchange == "all_to_all" else D * T
+                LN = devlevel.level_new_capacity(T, sdev.ln_hw, nc * R)
+                compress = compress_on
+                exact = False
+                dispatched = 0
+                t0l = time.perf_counter()
+                while True:
+                    try:
+                        injected = fault.chunk_error(escalated=True)
+                        if injected is not None:
+                            raise injected
+                        vkeys = None
+                        if not sdev.host_mode:
+                            # the sorted shards grown for the level's merge
+                            need = max_across_processes(max(sets.vn[d] for d in my_shards)) \
+                                + min(nc * R, LN + R)
+                            if need > sets.cap:
+                                sets.cap = next_pow2(need)
+                                sets.keys = _grow_sorted_shards(sets.keys, sets.cap)
+                            vkeys = sets.keys
+                        st = sdev.queue_level(pending, lens, prev_base, B, nc, widths, LN, W,
+                                              compress, vkeys, sets.vn)
+                        got = sdev.read_level(st)
+                        dispatched += 1
+                        lvl_dispatches += 1
+                    except Exception as e:  # noqa: BLE001 -- the failure ladder decides
+                        action = chunk_retry.handle(e, escalated=True, depth=depth,
+                                                    retry_transient=not is_multiprocess())
+                        if action == "retry":
+                            continue
+                        sdev.mark_fallback(f"{type(e).__name__}: {e}"[:200], depth)
+                        return
+                    if got.ovf and got.vkind == 0:
+                        if exact:
+                            raise RuntimeError("sharded device level overflowed at its exact "
+                                               "widths and safe bound")
+                        # a segment, a bucket, the codec's budget or the
+                        # level-new set overflowed: once more from the
+                        # pre-level state at the measured maxima, the full
+                        # per-owner width (the raw wire cannot overflow at
+                        # W = T) and the safe level-new bound
+                        st = None
+                        widths = sdev.exact_widths(B, got.agmax.max(axis=0))
+                        T = sum(widths)
+                        W = T
+                        R = D * W if exchange == "all_to_all" else D * T
+                        LN = devlevel.level_new_bound(nc * R)
+                        compress = False
+                        exact = True
+                        continue
+                    break
+                counts = got.on
+                sdev.observe(got.agmax.max(axis=0), B, int(counts.max()))
+                # the exchange framing check over the level's accumulators
+                # (with a verdict: over the clean chunks up to it)
+                if chain is not None:
+                    rd = got.racc.copy()
+                    sp = fault.flip("exchange", depth + 1, ckpt_depth=ckpt_durable_depth)
+                    if sp:
+                        rd[sp.shard if sp.shard is not None else 0, 1] ^= 0x10
+                    _integ.count_check()
+                    if _combine_digs(got.sacc) != _combine_digs(rd):
+                        raise IntegrityError(
+                            "exchange",
+                            f"exchange payload framing mismatch across level {depth + 1}: sent "
+                            f"digest {_combine_digs(got.sacc)} != received {_combine_digs(rd)} "
+                            f"({exchange}, device level program; a routed fingerprint was "
+                            f"corrupted in flight)", depth=depth)
+                obs_.chunk_span("exchange-level", time.perf_counter() - t0l, depth=depth,
+                                bucket=B, chunks=nc, launches=dispatched, exchange=exchange,
+                                compressed=compress)
+                if exchange == "all_to_all":
+                    # the clean chunks at the committed dispatch's widths
+                    raw_b = _raw_bytes(D, W, K)
+                    sent_b = (_compressed_bytes(D, W, max(32, W // 2),
+                                                fpcompress.default_stream_words(W), K)
+                              if compress else raw_b)
+                    lvl_exch_bytes += got.nclean * sent_b
+                    lvl_exch_raw_bytes += got.nclean * raw_b
+                if got.vkind:
+                    name = (model.invariants[got.vinv].name if got.vkind == 1 else "Deadlock")
+                    verdict = (name, got.vshard, got.vidx,
+                               int(prev_base[got.vshard] + got.vidx))
+                    for d in range(D):
+                        offs[d] = lens[d]  # the tail is never dispatched
+                    return
+                # every shard's winners (lanes, parent, action), on every process
+                outs = [t.to(home) for t in gather_rows(
+                    [torch.cat([s.orows[: counts[d]], s.opar[: counts[d], None],
+                                s.oact[: counts[d], None]], dim=1)
+                     for d, s in st.shards.items()], K + 2, lens=counts)]
+                if sdev.host_mode:
+                    # one batched insert a shard, by its owner; the masks
+                    # OR-merged, so every process takes the same decision
+                    t_probe = time.perf_counter()
+                    cmax = int(counts.max())
+                    masks = np.zeros((D, max(cmax, 1)), bool)
+                    if cmax:
+                        for d in range(D):
+                            c = int(counts[d])
+                            s = sets.host[d]
+                            if c and s is not None:
+                                fps = np.ascontiguousarray(got.keys[d, :c]).view(np.uint64)
+                                masks[d, :c] = (s.insert_level(fps) if hasattr(s, "insert_level")
+                                                else s.insert(fps)).astype(bool)
+                        masks = or_across_processes(masks)
+                    newc = np.zeros(D, np.int64)
+                    for d in range(D):
+                        c = int(counts[d])
+                        if not c:
+                            continue
+                        w = outs[d][torch.from_numpy(masks[d, :c]).to(outs[d].device)]
+                        if not w.shape[0]:
+                            continue
+                        next_pending[d].append(w[:, :K])
+                        if chain is not None:
+                            chain.fold(_integ.fingerprint_rows(to_u32(w[:, :K]), spec.exact64))
+                        if collect_trace:
+                            next_parent[d].append(w[:, K])
+                            next_act[d].append(w[:, K + 1])
+                        newc[d] = w.shape[0]
+                    probe_s = time.perf_counter() - t_probe
+                    lvl_probe_ms += probe_s * 1e3
+                    obs_.chunk_span("host-probe", probe_s, depth=depth, rows=int(counts.sum()),
+                                    new=int(newc.sum()), batched="level")
+                else:
+                    for d, s in st.shards.items():
+                        sets.keys[d] = s.merged
+                        sets.vn[d] += int(counts[d])
+                    for d in range(D):
+                        if counts[d]:
+                            next_pending[d].append(outs[d][:, :K])
+                            if collect_trace:
+                                next_parent[d].append(outs[d][:, K])
+                                next_act[d].append(outs[d][:, K + 1])
+                    if chain is not None:
+                        _integ.fold_shard_device_digests(chain, got.dig)
+                    newc = counts
+                lvl_new_per_shard += newc
+                lvl_recv_per_shard += counts
+                shard_visited += newc
+                if obs_.collect:
+                    lvl_act_en += got.act_en.sum(axis=0)
+                    lvl_en_per_shard += got.act_en.sum(axis=1)
+                for d in range(D):
+                    offs[d] = min(nc * B, lens[d])
+
+            if sdev is not None and sdev.fallback is None:
+                governor.poll(depth)  # the deadline watchdog
+                run_device_level()
+
             staged = None
             while verdict is None:
                 ctx = build_chunk()
@@ -1568,11 +2169,14 @@ def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, 
                     "exch_bytes": int(lvl_exch_bytes),
                     "exch_raw_bytes": int(lvl_exch_raw_bytes),
                     "shard_launches": int(lvl_dispatches),
+                    **({"host_probe_ms": round(lvl_probe_ms, 2)} if lvl_probe_ms else {}),
                     "io_hidden_ms": round(max(0.0, (busy1 - lvl_io0[0])
                                               - (blk1 - lvl_io0[1])) * 1e3, 2),
                     "io_exposed_ms": round((blk1 - lvl_io0[1]) * 1e3, 2),
                 })
                 _met.set_gauge("kspec_shard_launches_level", int(lvl_dispatches))
+                if lvl_probe_ms:
+                    _met.set_gauge("kspec_host_probe_ms", round(lvl_probe_ms, 2))
                 if lvl_exch_raw_bytes:
                     _met.set_gauge("kspec_exchange_bytes_level", int(lvl_exch_bytes))
                     _met.set_gauge("kspec_exchange_compression_ratio",
@@ -1676,6 +2280,8 @@ def _check_sharded(model, *, mesh, max_depth, max_states, min_bucket, progress, 
         "exchange": exchange,
         "pipeline": pipe_name,
         "mesh_layouts": mesh_layouts(mesh),
+        **({"device": {"levels": sdev.levels, "fallback": sdev.fallback}}
+           if sdev is not None else {}),
         "adaptive_active": False,
         "adaptive_compile_fallback": False,
         "transient_retries": chunk_retry.retries_total,

@@ -7,20 +7,22 @@ names, their order, the default, each entry's ``fallback``, every backend
 cell's ``supported`` flag and the detail of the one backend cell that is
 not served natively, ``("device", "device-hash")``, are the JAX package's:
 that detail is the reason the engine stamps into
-``stats["device"]["fallback"]``, letter for letter.  What the entries
-say they run (``launches``, ``description``, the cells' details) is the
-port's: CUDA launches and host reads on one card, not XLA programs.
+``stats["device"]["fallback"]``, letter for letter; so is the detail of
+the sharded engine's "device" cell.  What the other entries say they run
+(``launches``, ``description``, the cells' details) is the port's: CUDA
+launches and host reads on one card, not XLA programs.
 
 "legacy" and "fused" differ in the JAX package only in how XLA programs
 are cut and give the same result, so one implementation serves both here
 (``engine/pipeline.py::run_chunk``).  "device" is the device-resident
 level pipeline (``engine/pipeline.py::DevicePipeline``); on the
 ``device-hash`` backend it degrades to "fused".  The ``sharded`` engine
-cells carry the JAX package's flags but for "device": "legacy" runs the
-sharded per-chunk step (``parallel/sharded.py``), "fused" names the same
-step (its overlap legs, the disk tier and the governor included), and the
-device-resident sharded level is not ported yet (ROADMAP Queue A item 8c),
-so ``check_sharded(pipeline="device")`` raises.
+cells carry the JAX package's flags: "legacy" runs the sharded per-chunk
+step (``parallel/sharded.py``), "fused" names the same step (its overlap
+legs, the disk tier and the governor included), and "device" runs the
+device-resident sharded level (``parallel/sharded.py::
+ShardedDeviceLevel``), degrading to the per-chunk step as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -101,12 +103,22 @@ PIPELINE_REGISTRY = {
                 ),
             },
             "sharded": {
-                "supported": False,
+                "supported": True,
                 "detail": (
-                    "not ported yet (ROADMAP 8c): the device-resident sharded "
-                    "level and its compressed variant; "
-                    "check_sharded(pipeline='device') raises rather than run "
-                    "the per-chunk step in its place"
+                    "per-shard one-dispatch level programs: each shard "
+                    "runs a whole level's gated chunks — expansion, the "
+                    "per-chunk all_to_all/all_gather exchange (+ the "
+                    "compression codec), dual-probe dedup against a "
+                    "read-only visited shard + a per-shard level-new "
+                    "set, in-jit digest folds — inside ONE dispatched "
+                    "program: O(1) collective-bearing launches per "
+                    "level per shard, the O(capacity) visited merge "
+                    "(device backend) or ONE batched per-shard host "
+                    "FpSet probe (host/disk-tier backends) once per "
+                    "level per shard.  Requires proven field hulls and "
+                    "a sorted-dedup backend; device-hash degrades to "
+                    "the per-chunk sharded step "
+                    "(sharded-device -> per-chunk -> legacy ladder)"
                 ),
             },
         },

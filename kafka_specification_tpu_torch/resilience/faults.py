@@ -216,16 +216,16 @@ WIRED = frozenset({
 })
 
 #: the sharded engine's sites (``parallel/sharded.py``): the level, the
-#: checkpoint and parent-log writes, the chunk step, the disk tier's spills
-#: and merges, the governor's stall and the bit flips, with its exchange;
-#: compile_oom fires on escalated attempts, and the port's sharded step
-#: never escalates, so a plan naming it is refused there
+#: checkpoint and parent-log writes, the chunk step and the device level,
+#: the disk tier's spills and merges, the governor's stall and the bit
+#: flips, with its exchange; compile_oom fires on escalated attempts, which
+#: are the device level's (the per-chunk step never escalates)
 WIRED_SHARDED = frozenset({
     ("enospc", "cache"), ("flip", "cache"), ("crash", "daemon"), ("stall", "daemon"),
     ("kill", "host"), ("partition", "host"), ("skew", "host"),
     ("crash", "level"), ("crash", "ckpt"), ("crash", "merge"), ("corrupt_ckpt", "ckpt"),
     ("enospc", "spill"), ("enospc", "merge"), ("enospc", "ckpt"), ("enospc", "plog"),
-    ("stall", "level"), ("transient_device_err", None),
+    ("stall", "level"), ("transient_device_err", None), ("compile_oom", None),
     ("flip", "frontier"), ("flip", "fpset"), ("flip", "spill"), ("flip", "ckpt"),
     ("flip", "exchange"),
 })

@@ -513,3 +513,16 @@ def count_check(n: int = 1) -> None:
     from ..obs import metrics as _met
 
     _met.inc("kspec_integrity_checks_total", n)
+
+
+def fold_shard_device_digests(chain: "LevelDigestChain", digests) -> None:
+    """Fold per-shard level digests accumulated on the card into a chain:
+    the sharded device level's twin of the single-device ``fold_digest``
+    call.  `digests`: [D, 3] (count, xor, wrapping sum), one
+    ``ops/devlevel.py`` accumulator a shard.  Digests combine
+    commutatively, so folding shard by shard gives the value the per-chunk
+    path's host folds give over the same rows."""
+    from ..ops import devlevel
+
+    for row in np.asarray(digests):
+        chain.fold_digest(*devlevel.digest_ints(row.tolist()))

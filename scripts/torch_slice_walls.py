@@ -4,7 +4,7 @@ process (PyTorch port).
 
     python3 scripts/torch_slice_walls.py [configs/Kip320.cfg] [--module NAME]
         [--runs N] [--resume-at DEPTH] [--ways W1,W2,...] [--set NAME=VALUE ...]
-        [--root DIR]
+        [--shards D] [--root DIR]
 
 Ways to run the same check (--ways picks some; default all), each timed
 `--runs` times (default 10) after one warm-up run of each, the order
@@ -18,6 +18,11 @@ rotated every round so that no way always runs first:
                --resume-at (default 12), then resumed by a fresh check();
                the wall is the two legs together
   device       pipeline="device": the device-resident level pipeline
+  device-host  pipeline="device" on visited_backend="host"
+
+--shards D runs every way through the sharded engine instead,
+check_sharded() at D logical shards on cuda:0 (`default` is then its
+per-chunk path, `device` its device-resident level).
 
 --set overrides a .cfg constant (a comma-separated value is a set of model
 values: `--set Replicas=b1,b2`), as in scripts/torch_profile_check.py.
@@ -49,8 +54,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 WORK = ROOT / "build" / "slice_walls"
-WAYS = ("default", "no-chain", "host", "checkpoint", "resume", "device")
-KNOBS = {"host": dict(visited_backend="host"), "device": dict(pipeline="device")}
+WAYS = ("default", "no-chain", "host", "checkpoint", "resume", "device", "device-host")
+KNOBS = {"host": dict(visited_backend="host"), "device": dict(pipeline="device"),
+         "device-host": dict(pipeline="device", visited_backend="host")}
 
 
 def main() -> int:
@@ -63,6 +69,8 @@ def main() -> int:
                     help=f"comma-separated, of {', '.join(WAYS)}")
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
                     help="override a .cfg constant (a,b,c: a set of model values)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="D > 0: check_sharded() at D logical shards on cuda:0")
     ap.add_argument("--root", default=str(ROOT), help="checkout whose package is timed")
     args = ap.parse_args()
     ways = tuple(args.ways.split(","))
@@ -71,6 +79,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     from kafka_specification_tpu_torch import build_model, check, load_config
     from kafka_specification_tpu_torch.utils.timing import card_line
+
+    if args.shards > 0:
+        from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+
+        def check(model, **knobs):  # noqa: F811 -- the sharded engine, same knobs
+            return check_sharded(model, mesh=ShardMesh(args.shards, "cuda"), **knobs)
 
     if not torch.cuda.is_available():
         print("torch_slice_walls: CUDA is not available", file=sys.stderr)
@@ -119,7 +133,8 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
 
     out = {"card": card, "root": args.root, "cfg": args.cfg, "set": args.set, "runs": args.runs,
-           "resume_at": args.resume_at, "total": sum(first), "ways": {}}
+           "resume_at": args.resume_at, "shards": args.shards, "total": sum(first),
+           "ways": {}}
     print(f"card: {card}")
     for way in ways:
         w = walls[way]

@@ -7,7 +7,7 @@ tests/test_analysis.py runs it); the port's runs in process.  The model
 half of the record (`--no-engine`) equals JAX's on the shipped matrix and
 on the edge cases (an unsound cfg, an unreadable one, `--module` with two
 cfgs); the engine half is the port's own: its three THREAD_CONTRACT
-modules and its two purity modules, where it finds nothing, so the whole
+modules and its three purity modules, where it finds nothing, so the whole
 record equals JAX's.  The port's AST checker and JAX's agree on
 both packages' contract modules and on seeded mutants of each."""
 
@@ -173,7 +173,7 @@ def test_ast_checker_equals_jax(pkg, rel):
 
 @pytest.mark.parametrize("pkg", ["kafka_specification_tpu_torch", "kafka_specification_tpu"])
 def test_purity_lint_equals_jax_on_clean_modules(pkg):
-    rels = ("engine/pipeline.py", "ops/devlevel.py")
+    rels = ("engine/pipeline.py", "parallel/sharded.py", "ops/devlevel.py")
     for rel in rels:
         path = str(REPO / pkg / rel)
         assert town.lint_purity(path, rel) == jown.lint_purity(path, rel) == []

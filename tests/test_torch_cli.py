@@ -413,8 +413,8 @@ def test_faults_list_equals_jax(capsys):
 def test_pipelines_json_equals_jax_support_matrix(capsys):
     """Names, order, default, each entry's fallback, every backend cell's
     flag and the (device, device-hash) detail are JAX's; the sharded
-    engine cells carry JAX's flags but for "device", whose sharded level
-    is not ported yet (ROADMAP 8c)."""
+    engine cells carry JAX's flags, and the "device" one JAX's detail
+    too."""
     from kafka_specification_tpu.pipeline_registry import list_pipelines as jax_list
     from kafka_specification_tpu_torch import pipeline_registry as reg
 
@@ -434,8 +434,7 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
         assert e["engines"]["single-device"]["supported"] is True
         sharded = e["engines"]["sharded"]
         if e["name"] == "device":
-            assert sharded["supported"] is False and "not ported yet (ROADMAP 8c)" in \
-                sharded["detail"]
+            assert sharded == j["engines"]["sharded"] and sharded["supported"] is True
         else:
             assert sharded["supported"] == j["engines"]["sharded"]["supported"]
             assert "per-chunk sharded step" in sharded["detail"]
@@ -458,8 +457,7 @@ def test_pipelines_json_equals_jax_support_matrix(capsys):
 def test_pipelines_text_has_jax_layout(capsys):
     """One line per entry, its description, then one [engine] and one
     [backend b] line per cell, as JAX's `cli pipelines` prints them; the
-    marks agree except on the device pipeline's sharded cell, which the
-    port does not serve yet."""
+    marks agree, and the device pipeline's sharded line is JAX's."""
     from kafka_specification_tpu.utils.cli import main as jmain
 
     assert cli.main(["pipelines"]) == 0
@@ -477,9 +475,10 @@ def test_pipelines_text_has_jax_layout(capsys):
 
     assert out[0] == jout[0]
     for a, b in zip(out[1:], jout[1:]):
-        if a.startswith("      [sharded] degrades: not ported yet (ROADMAP 8c)"):
-            continue
         assert head(a) == head(b), (a, b)
+    sharded = [a for a in out if a.startswith("      [sharded]")]
+    assert sharded[0] == [b for b in jout if b.startswith("      [sharded]")][0]
+    assert sharded[0].startswith("      [sharded] supported: per-shard one-dispatch level")
     assert out[1] == ("  device: one K1 launch per chunk, one host read per LEVEL -> "
                       "degrades to 'fused'")
     assert cli.main(["pipelines", "--list"]) == 0

@@ -900,3 +900,130 @@ def test_fpcompress_on_the_card_equals_the_numpy_twin(card):
         ok = ~ovf.cpu().numpy()
         assert np.array_equal(h2.cpu().numpy()[ok], hi[ok])
         assert np.array_equal(l2.cpu().numpy()[ok], lo[ok])
+
+
+def _sharded_device(dev, D=8, model=None, **kw):
+    from kafka_specification_tpu_torch.parallel import ShardMesh, check_sharded
+
+    m = model or variants.make_model("KafkaTruncateToHighWatermark", Config(2, 2, 1, 1),
+                                     ("TypeOk", "WeakIsr"))
+    return check_sharded(m, mesh=ShardMesh(D, dev), pipeline="device", min_bucket=8,
+                         compact_gate=8, chunk_size=64, **kw)
+
+
+@pytest.mark.parametrize("backend,exchange,compress", [
+    ("device", "all_to_all", "1"), ("device", "all_to_all", "0"), ("device", "all_gather", "0"),
+    ("host", "all_to_all", "1"), ("host", "all_to_all", "0")])
+def test_sharded_device_level_on_card_equals_cpu(card, backend, exchange, compress,
+                                                 monkeypatch):
+    """The device-resident sharded level at D = 8 on cuda:0 against the
+    same run on the CPU: levels, the verdict and its trace, stats["device"]
+    and the launches a level (the model's states take two lanes: each is its
+    own fingerprint, so no K1)."""
+    monkeypatch.setenv("KSPEC_EXCHANGE_COMPRESS", compress)
+    kw = dict(visited_backend=backend, exchange=exchange, stats_path="/dev/null")
+    cpu = _sharded_device("cpu", **kw)
+    gpu = _sharded_device(card, **kw)
+    assert gpu.stats["device"] == cpu.stats["device"] and gpu.stats["device"]["levels"] > 0
+    assert (gpu.levels, gpu.total) == (cpu.levels, cpu.total)
+    assert gpu.violation.trace == cpu.violation.trace
+    assert [lvl["shard_launches"] for lvl in gpu.stats["levels"]] == \
+        [lvl["shard_launches"] for lvl in cpu.stats["levels"]]
+
+
+def test_sharded_device_level_multi_chunk_on_card_equals_cpu(card, tmp_path):
+    """Kip320 2r L2 R2 E2 at D = 8, chunks of 64 rows (several a level):
+    the device level on the card equals it on the CPU, checkpoint arrays
+    included."""
+    from kafka_specification_tpu_torch.resilience.checkpoints import verify_file
+
+    def run(dev, d):
+        return _sharded_device(dev, model=kip320.make_model(Config(2, 2, 2, 2)),
+                               checkpoint_dir=str(tmp_path / d), stats_path="/dev/null")
+
+    cpu, gpu = run("cpu", "c"), run(card, "g")
+    assert gpu.ok and (gpu.levels, gpu.total) == (cpu.levels, cpu.total) == (gpu.levels, 5973)
+    assert gpu.stats["device"] == cpu.stats["device"]
+    a = verify_file(str(tmp_path / "c" / "sharded_checkpoint.npz"))
+    b = verify_file(str(tmp_path / "g" / "sharded_checkpoint.npz"))
+    for k in ("pending", "pending_lens", "levels", "total", "digest_chain", "vn"):
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_sharded_device_level_under_nccl_world_size_1(card, monkeypatch):
+    """A world-size-1 NCCL group (every exchange and the replicated
+    election an NCCL collective) at D = 1: the CPU run's result."""
+    from kafka_specification_tpu_torch.parallel import multihost
+
+    cpu = _sharded_device("cpu", D=1)
+    monkeypatch.setenv("KSPEC_MULTIHOST", "1")
+    try:
+        multihost.init_distributed(card)
+        assert torch.distributed.get_backend() == "nccl"
+        gpu = _sharded_device(card, D=1)
+    finally:
+        multihost.leave_distributed()
+    assert gpu.stats["device"] == cpu.stats["device"] and gpu.stats["device"]["levels"] > 0
+    assert (gpu.levels, gpu.violation.trace) == (cpu.levels, cpu.violation.trace)
+
+
+def _queued_sharded_level(dev, debug_sync):
+    """A Kip320 3r level at D = 8 (the frontier at depth 12 dealt to its
+    owners, the states to depth 12 in each shard's sorted set) queued on
+    the sharded device level at its exact widths (W = T), compressed and
+    raw; with `debug_sync` under set_sync_debug_mode("error").  -> the
+    two reads."""
+    from kafka_specification_tpu_torch.ops import devlevel
+    from kafka_specification_tpu_torch.parallel import ShardMesh, sharded
+
+    model = kip320.make_model(Config(3, 2, 2, 2))
+    levels = []
+    check(model, device=dev, max_depth=12, collect_levels=levels, store_trace=False)
+    D = 8
+    mesh = ShardMesh(D, dev)
+    _, flo = pipeline.fp_stage(model.spec, levels[12])
+    pending = [levels[12][(flo % D) == d] for d in range(D)]
+    hi, lo = pipeline.fp_stage(model.spec, torch.cat(levels))
+    sets = sharded._ShardSets("device", mesh)
+    pairs = {}
+    for d in range(D):
+        m = (lo % D) == d
+        pairs[d] = dedup.order_key_to_pair(torch.sort(dedup.order_key(hi[m], lo[m])).values)
+    sets.build(pairs, None, cap=1 << 20)
+    sdev = sharded.ShardedDeviceLevel(model, mesh, "device", False, 2, 1024, "all_to_all")
+    lens = [p.shape[0] for p in pending]
+    prev_base = np.concatenate([[0], np.cumsum(lens)])
+    B, nc = sdev.plan_level(lens, 16384, 256)
+    first = sdev.read_level(sdev.queue_level(pending, lens, prev_base, B, nc, sdev.widths(B),
+                                             1 << 16, 1 << 12, False, sets.keys, sets.vn))
+    widths = sdev.exact_widths(B, first.agmax.max(axis=0))
+    T = sum(widths)
+    LN = devlevel.level_new_bound(nc * D * T)
+    reads = []
+    for compress in (True, False):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if debug_sync else 0)
+        try:
+            st = sdev.queue_level(pending, lens, prev_base, B, nc, widths, LN, T, compress,
+                                  sets.keys, sets.vn)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        reads.append(sdev.read_level(st))
+    return reads
+
+
+def test_sharded_device_level_queues_without_a_sync(card):
+    """A sharded device level of Kip320 3r at D = 8 queued under
+    set_sync_debug_mode("error"), compressed and raw: no host
+    synchronisation between its chunks; each read gives level 13's new
+    states and the digests of the same level queued on the CPU."""
+    cpu = _queued_sharded_level(torch.device("cpu"), False)
+    k1 = cuda_fingerprint.LAUNCHES
+    gpu = _queued_sharded_level(card, True)
+    assert cuda_fingerprint.LAUNCHES > k1
+    for a, b in zip(cpu, gpu):
+        assert not b.ovf and b.vkind == 0 and int(b.on.sum()) == 66_432
+        for f in ("on", "act_en", "agmax", "sacc", "racc", "dig"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f

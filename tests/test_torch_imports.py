@@ -78,6 +78,10 @@ def test_import_and_tiny_check_load_no_jax(tmp_path):
                             mem_budget=64)
         os.environ.pop("KSPEC_EXCHANGE_COMPRESS")
         assert res.ok and res.total == 49 and res.stats["exchange_compressed"], res
+        # its device-resident level
+        res = check_sharded(frl.make_model(2, 2, 2), mesh=ShardMesh(4, "cpu"), min_bucket=8,
+                            compact_gate=8, pipeline="device")
+        assert res.ok and res.total == 49 and res.stats["device"]["levels"] > 0, res
         assert cli.main(["check", "configs/IdSequence.cfg", "--sharded", "--cpu", "--json"]) == 0
         # the reference interpreter, the pipeline registry, the static analysis
         assert cli.main(["oracle", "configs/IdSequence.cfg"]) == 0

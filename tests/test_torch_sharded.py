@@ -14,10 +14,11 @@ backend, all_gather: its fixed width compiles fewer step shapes than
 all_to_all's width ladder) holds the port's whole backend x exchange matrix,
 with one JAX host run for the host backend's duplicate counts.  The port
 side runs a ShardMesh of D shards on the CPU.  Also: the registry's
-sharded cells, the loud refusal of what ROADMAP item 8c still has to
-port, the settings that item 8b's refusals covered (each now runs to JAX's
-result), the default mesh's device rule, the fault plan's sharded sites
-and the multihost helpers without a process group."""
+sharded cells, the settings that items 8b's and 8c's refusals covered
+(each now runs to JAX's result: the device-resident sharded level has its
+own tests in tests/test_torch_sharded_device*.py), the default mesh's
+device rule, the fault plan's sharded sites and the multihost helpers
+without a process group."""
 
 import jax
 import numpy as np
@@ -222,14 +223,18 @@ def test_cut_frontier_invariant_pass_and_max_states_equal_jax(tmp_path, monkeypa
 
 
 def test_registry_sharded_cells_and_pipeline_names(tmp_path, monkeypatch):
-    """legacy runs the per-chunk step, fused names it, device is not ported
-    yet (ROADMAP 8c); `pipeline=` lands in the stats."""
+    """legacy runs the per-chunk step, fused names it, device runs the
+    device-resident sharded level (JAX's cell, detail for detail);
+    `pipeline=` lands in the stats."""
+    from kafka_specification_tpu import pipeline_registry as jregistry
+
     cells = {n: pipeline_registry.engine_support(n, "sharded") for n in pipeline_registry.PIPELINES}
     assert cells["legacy"]["supported"] is True
     assert cells["fused"]["supported"] is False and "per-chunk" in cells["fused"]["detail"]
-    assert cells["device"]["supported"] is False and "ROADMAP 8c" in cells["device"]["detail"]
+    assert cells["device"] == jregistry.engine_support("device", "sharded")
+    assert cells["device"]["supported"] is True and "level program" in cells["device"]["detail"]
     _, tm = models("FRL(2,2,2)")
-    for name in ("legacy", "fused"):
+    for name in ("legacy", "fused", "device"):
         res = check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32, pipeline=name)
         assert res.total == 49 and res.stats["pipeline"] == name
     from kafka_specification_tpu_torch import cli
@@ -244,15 +249,22 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
-def test_items_of_8b_raise_loudly(what, monkeypatch):
-    """The device-resident sharded level, the one leg of the former item 8b
-    left (ROADMAP item 8c), is refused before anything runs."""
+def test_items_of_8b_raise_loudly(what, tmp_path, tmp_path_factory, monkeypatch):
+    """The device-resident sharded level, the leg of the former item 8b that
+    the port refused until ROADMAP item 8c was ported, runs FRL(2,2,2) at
+    D = 4 on the device level (its chunks gated at 8 rows) to JAX's levels,
+    stats records, chain and verdict."""
+    jres, jstats, jchain = jax_reference("FRL(2,2,2)", tmp_path_factory, monkeypatch)
     kw, env = REFUSED[what]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    _, tm = models("FRL(2,2,2)")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32, **kw)
+    res, stats, chain = port_run("FRL(2,2,2)", tmp_path, monkeypatch, compact_gate=8, **kw)
+    assert (res.levels, res.total, res.diameter, res.ok) == (jres.levels, jres.total,
+                                                              jres.diameter, jres.ok)
+    assert deterministic(stats) == deterministic(jstats)
+    assert np.array_equal(chain, jchain)
+    assert res.stats["pipeline"] == "device"
+    assert res.stats["device"]["fallback"] is None and res.stats["device"]["levels"] > 0
 
 
 # the settings item 8b's refusals covered, each of which now runs
@@ -317,15 +329,21 @@ def test_runs_on_the_card_unless_told_the_cpu(monkeypatch):
 
 
 def test_fault_sites_of_the_sharded_engine(monkeypatch):
-    """A plan naming a site the sharded engine does not wire (compile_oom:
-    its per-chunk step never escalates) is refused, as is a shard scope
-    outside the mesh; flip@exchange is wired here and refused by check()."""
+    """compile_oom is wired: it fires on the device level, the sharded
+    engine's escalated attempt, and passes the per-chunk step, which never
+    escalates.  The sharded engine wires every site check() wires, and
+    flip@exchange, which check() refuses; a shard scope outside the mesh
+    is refused."""
+    from kafka_specification_tpu_torch.resilience.faults import WIRED_SHARDED
+
+    assert ("compile_oom", None) in WIRED_SHARDED
     _, tm = models("FRL(2,2,2)")
-    for plan, match in (("compile_oom", "compile_oom"),
-                        ("crash@shard5:level:2", "shard 5 is out of range")):
-        monkeypatch.setenv("KSPEC_FAULT", plan)
-        with pytest.raises(ValueError, match=match):
-            check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32)
+    monkeypatch.setenv("KSPEC_FAULT", "compile_oom")
+    res = check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32)
+    assert res.total == 49 and "device" not in res.stats
+    monkeypatch.setenv("KSPEC_FAULT", "crash@shard5:level:2")
+    with pytest.raises(ValueError, match="shard 5 is out of range"):
+        check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32)
     monkeypatch.setenv("KSPEC_FAULT", "flip@exchange:99")
     assert check_sharded(tm, mesh=ShardMesh(4, "cpu"), min_bucket=32).total == 49
     with pytest.raises(ValueError, match="flip@exchange"):
