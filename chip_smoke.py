@@ -346,13 +346,26 @@ print no result:
          run counted from 0 (`emitted ...`), its kernels held at its
          largest launch; the emitted FRL(4, 4, 2)'s wall beside the hand
          model's, in turns (H E E H, twice) on the default path
+  five-broker  the five-broker bounded run, in this process through
+         scripts/torch_run_5broker_bounded.py's check(): Kip320 5r L2 R2
+         E2 with the JAX script's knobs (no trace, chunk_size 131072,
+         min_bucket 8192) on `device` (fused) to depth 15 (195,528,316
+         states), on `host` and with pipeline="device" to depth 12
+         (33,439,111 states); every level's frontier, enabled candidates,
+         new, duplicates, total and per-action enablement equal to the JAX
+         package's record (RUN5R_r5_stats.jsonl) through the script's
+         comparison, no degradation, levels on the card for
+         pipeline="device"; each run's wall, states/s and peak device
+         memory, counted from 0 (`five-broker ...`) and its kernels held at
+         their largest launch (K1 at M = 78,163,550, K = 5 on `device`: the
+         verify of the cut frontier)
 
 Each path run through one check() (main, default, host, first-try-strong,
 async-isr on both backends, both products, each device-pipeline run, the
 three E3 runs of disk-tier, each check of obs, each side of each overlap
 path, each oracle run that launches K1, each in-process resilience
 run, each leg of harness (c), each in-process sharded run, each emitted
-run) then
+run, each five-broker run) then
 holds K1, and K2 where the
 path launched it, against the plain versions at the path's own largest
 launch, read from the wrappers' LARGEST: K1 at that (M, K), every row
@@ -4056,6 +4069,72 @@ def phase_emitted():
             "counts": counts}
 
 
+# phase five-broker: the JAX package's record of Kip320 5r to depth 15
+# (scripts/run_5broker_bounded.py's stats stream) and the script that holds
+# a run against it
+FIVE_BROKER_RECORD = Path(__file__).resolve().parent / "RUN5R_r5_stats.jsonl"
+FIVE_BROKER_SCRIPT = Path(__file__).resolve().parent / "scripts/torch_run_5broker_bounded.py"
+# the default path's depth (the whole record: 195,528,316 states), and the
+# `host` and pipeline="device" legs' (33,439,111 states)
+FIVE_BROKER_DEPTH = 15
+FIVE_BROKER_SIDE_DEPTH = 12
+
+
+def phase_five_broker():
+    """The five-broker bounded run (scripts/torch_run_5broker_bounded.py's
+    check(), in this process): Kip320 5r L2 R2 E2 with the JAX script's
+    knobs (no trace, chunk_size 131072, min_bucket 8192) on `device`
+    (fused) to depth FIVE_BROKER_DEPTH, and on `host` and
+    pipeline="device" to depth FIVE_BROKER_SIDE_DEPTH; every level held
+    against the JAX package's record (RUN5R_r5_stats.jsonl) through the
+    script's own comparison, no degradation, levels on the card for
+    pipeline="device".  Each run counted from 0 (`five-broker ...`), its
+    kernels held at its largest launch; each run's wall, states/s and peak
+    device memory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_run_5broker_bounded",
+                                                  FIVE_BROKER_SCRIPT)
+    run5 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run5)
+    record = run5.read_record(FIVE_BROKER_RECORD)
+    counts, parts, held = {}, [], []
+    for name, depth, knobs in (
+            ("device", FIVE_BROKER_DEPTH, {"visited_backend": "device"}),
+            ("host", FIVE_BROKER_SIDE_DEPTH, {"visited_backend": "host"}),
+            ("pipeline device", FIVE_BROKER_SIDE_DEPTH,
+             {"visited_backend": "device", "pipeline": "device"})):
+        lines = []
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        t0 = time.perf_counter()
+        res, n_held = run5.bounded_check(30.0, max_depth=depth, record=record, device=DEV,
+                                         emit=lines.append, **knobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(DEV) / 1e9
+        c = _read_counts(("fingerprint",))
+        if res is None or not res.ok or res.diameter != depth \
+                or res.total != record[depth]["total"] or n_held != depth:
+            raise AssertionError(f"{name}: {lines[-1] if lines else 'no line'}")
+        final = json.loads(lines[-1])
+        if final["pipeline_fallback"] or final["degradations"]:
+            raise AssertionError(f"{name} degraded: {final}")
+        extra = ""
+        if name == "pipeline device":
+            if not final["device_levels"] or final["device_fallback"] is not None:
+                raise AssertionError(f"pipeline device: {final}")
+            extra = f", {final['device_levels']} levels on the card"
+        counts[f"5r {name} d{depth}"] = c
+        held.append(_hold_path_shapes(_largest(), res.total))
+        parts.append(f"{name} to depth {depth}: {res.total} states, {n_held} levels = the "
+                     f"JAX record, {wall:.1f} s wall, {res.total / wall:.0f} states/s, peak "
+                     f"device memory {peak:.2f} GB{extra}")
+    return {"line": "Kip320 5r L2 R2 E2: " + "; ".join(parts) + f"; launches {counts}; "
+                    + "; ".join(held),
+            "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -4099,6 +4178,7 @@ def main() -> int:
     sharded_overlap = ph.run("sharded-overlap", phase_sharded_overlap)
     sharded_device = ph.run("sharded-device", phase_sharded_device)
     emitted = ph.run("emitted", phase_emitted)
+    five_broker = ph.run("five-broker", phase_five_broker)
     if ph.failed:
         print(f"chip_smoke: failed phases: {', '.join(ph.failed)}", file=sys.stderr)
         return 1
@@ -4121,7 +4201,8 @@ def main() -> int:
                **{f"sharded {p}": c for p, c in sharded["counts"].items()},
                **{f"sharded-overlap {p}": c for p, c in sharded_overlap["counts"].items()},
                **{f"sharded-device {p}": c for p, c in sharded_device["counts"].items()},
-               **{f"emitted {p}": c for p, c in emitted["counts"].items()}}
+               **{f"emitted {p}": c for p, c in emitted["counts"].items()},
+               **{f"five-broker {p}": c for p, c in five_broker["counts"].items()}}
     for det, path in ((k1, default), (k2, main_path)):
         kern = dict(det["kernel"])
         kern["launches"] = path["counts"][kern["name"]]

@@ -114,8 +114,8 @@ from ..storage.frontier import FrontierReader, SegmentCorrupt
 from ..storage.parent_log import ParentLogCorrupt
 from ..storage.runs import RunCorrupt
 from .pipeline import (ChunkPipeline, DevicePipeline, HostSlots, compacts, device_hull_fallback,
-                       fp_stage, grow_visited, invariant_stage, next_pow2, release_device_memory,
-                       run_chunk, sorted_dedup_stage)
+                       fp_stage, grow_visited, invariant_pass, invariant_stage, next_pow2,
+                       release_device_memory, run_chunk, sorted_dedup_stage)
 
 # device-hash table floor (module-level so tests can shrink it to exercise
 # the growth and overflow-re-run paths at small state counts)
@@ -1650,8 +1650,10 @@ def _check(model: Model, *, max_depth, max_states, store_trace, min_bucket, chec
 
     if violation is None and check_invariants and frontier.rows:
         # the loop was cut (max_depth/max_states) before the remaining
-        # frontier was expanded: its states still need their invariant pass
-        bad = invariant_stage(model, spec.unpack(frontier.read_all()))
+        # frontier was expanded: its states still need their invariant pass,
+        # a chunk of states unpacked at a time (a whole level's fields
+        # would not fit beside the visited set at 5 replicas' depth 15)
+        bad = invariant_pass(model, frontier.chunks(chunk))
         if bad is not None:
             violation = violation_at(bad[0], depth, bad[1], frontier)
     return finish(violation)

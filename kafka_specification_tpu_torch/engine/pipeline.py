@@ -105,15 +105,20 @@ def grow_visited(vkeys: torch.Tensor, need: int) -> torch.Tensor:
 
 
 # kspec: traced
+def invariant_misses(model: Model, states: dict) -> torch.Tensor:
+    """bool[invariants, B]: where each invariant, in model order, fails."""
+    if model.invariants_fused is not None:
+        return ~model.invariants_fused(states).T
+    return torch.stack([~inv.pred(states) for inv in model.invariants])
+
+
+# kspec: traced
 def invariant_flags(model: Model, states: dict, valid: Optional[torch.Tensor] = None):
     """Stage 5 with no host read: (hit bool[], index of the first violated
     invariant in model order int64[], its first row int64[]).  Rows
     outside `valid` violate nothing.  Needs at least one invariant.  A
     model's ``invariants_fused`` evaluates them all in one call when set."""
-    if model.invariants_fused is not None:
-        bad = ~model.invariants_fused(states).T
-    else:
-        bad = torch.stack([~inv.pred(states) for inv in model.invariants])
+    bad = invariant_misses(model, states)
     if valid is not None:
         bad = bad & valid
     inv_any = bad.any(dim=1)
@@ -129,6 +134,24 @@ def invariant_stage(model: Model, states: dict):
         return None
     hit, i, row = torch.stack([h.to(torch.int64) for h in invariant_flags(model, states)]).tolist()
     return (model.invariants[i].name, row) if hit else None
+
+
+def invariant_pass(model: Model, pieces):
+    """``invariant_stage`` over a level given as (offset, packed rows)
+    pieces in row order, unpacking one piece at a time: the same answer as
+    over the whole level unpacked at once (the first violated invariant in
+    model order, its first row in the level), one host read at the end."""
+    if not model.invariants:
+        return None
+    first = None
+    for start, rows in pieces:
+        bad = invariant_misses(model, model.spec.unpack(rows))
+        row = torch.where(bad.any(dim=1), torch.argmax(bad.to(torch.uint8), dim=1) + start, -1)
+        first = row if first is None else torch.where(first < 0, row, first)
+    for inv, row in zip(model.invariants, first.tolist() if first is not None else ()):
+        if row >= 0:
+            return inv.name, row
+    return None
 
 
 # kspec: traced

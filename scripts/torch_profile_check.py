@@ -4,6 +4,7 @@
     python3 scripts/torch_profile_check.py [configs/Kip320.cfg] [--module NAME]
         [--runs N] [--root DIR] [--set NAME=VALUE ...]
         [--visited-backend device|device-hash] [--pipeline fused|device] [--max-depth N]
+        [--chunk-size N] [--min-bucket N]
         [--emitted [--reference DIR]]
         | [--simulate [--walks W] [--depth D] [--seed S]]
 
@@ -34,7 +35,11 @@ parent commit unpacked with `git archive`, say), whose check() takes those
 knobs for --visited-backend device-hash.  --set overrides a constant of the
 .cfg (a comma-separated value is a set of model values: `--set
 Replicas=b1,b2`), --max-depth cuts the check (a profile of a run of tens
-of millions of operations would not fit in memory), and --simulate profiles
+of millions of operations would not fit in memory), --chunk-size and
+--min-bucket set check()'s knobs of those names (the 5-broker bounded
+run's: `configs/Kip320Stretch.cfg --module Kip320 --set Partitions=1
+--chunk-size 131072 --min-bucket 8192 --max-depth 15`), and --simulate
+profiles
 `simulate` (engine/simulate.py) of the model in place of check(): it
 takes --walks, --depth and --seed (default 100, 100, 0), which check()
 does not, and refuses check()'s --visited-backend and --max-depth.
@@ -133,6 +138,10 @@ def main() -> int:
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
                     help="override a .cfg constant (a,b,c: a set of model values)")
     ap.add_argument("--max-depth", type=int, default=None)
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="check()'s chunk_size (default: check()'s, 32768)")
+    ap.add_argument("--min-bucket", type=int, default=None,
+                    help="check()'s min_bucket (default: check()'s, 256)")
     ap.add_argument("--simulate", action="store_true",
                     help="profile simulate(--walks, --depth, --seed) in place of check()")
     ap.add_argument("--walks", type=int, default=None, help="with --simulate (default 100)")
@@ -144,8 +153,10 @@ def main() -> int:
                     help="with --emitted: the TLA+ directory (default $KSPEC_REFERENCE)")
     args = ap.parse_args()
     if args.simulate and (args.visited_backend is not None or args.max_depth is not None
-                          or args.pipeline is not None):
-        ap.error("--simulate takes no --visited-backend, --pipeline or --max-depth")
+                          or args.pipeline is not None or args.chunk_size is not None
+                          or args.min_bucket is not None):
+        ap.error("--simulate takes no --visited-backend, --pipeline, --max-depth, "
+                 "--chunk-size or --min-bucket")
     if args.pipeline == "device" and args.visited_backend == "device-hash":
         ap.error("--pipeline device runs on the default backend")
     if args.reference is not None and not args.emitted:
@@ -188,6 +199,10 @@ def main() -> int:
                  dict(visited_backend="device-hash", pipeline="legacy", compact_shift=0))
         if args.pipeline is not None:
             knobs["pipeline"] = args.pipeline
+        if args.chunk_size is not None:
+            knobs["chunk_size"] = args.chunk_size
+        if args.min_bucket is not None:
+            knobs["min_bucket"] = args.min_bucket
 
         def run(model):
             return _check(model, max_depth=args.max_depth, **knobs)
@@ -268,6 +283,8 @@ def main() -> int:
         "visited_backend": res.stats.get("visited_backend"),
         "mode": res.stats.get("mode", "check"),
         "max_depth": args.max_depth,
+        "chunk_size": args.chunk_size,
+        "min_bucket": args.min_bucket,
         "set": args.set,
         "pipeline": res.stats.get("pipeline"),
         "own_kernels": own,

@@ -171,7 +171,12 @@ def test_reassembly_of_daemon_traces_equals_jax(served, side, frozen):
         assert t == j and t["complete"]
         assert ft.render_trace(t) == jft.render_trace(j)
         spans = [r["span"] for r in t["spans"]]
-        assert spans[0] == "job-submit" and "queue-claim" in spans
+        # spans sort by their start in ms, then by name: a hit can be
+        # submitted, claimed and looked up within one ms, and then
+        # cache-lookup sorts first; the submit starts no later than any
+        assert "job-submit" in spans and "queue-claim" in spans
+        submit = next(r for r in t["spans"] if r["span"] == "job-submit")
+        assert submit["t0n"] == min(r["t0n"] for r in t["spans"])
         assert "verdict-publish" in spans
     rep_t, rep_j = ft.fleet_report_data([root]), jft.fleet_report_data([root])
     assert rep_t == rep_j and rep_t["completed"] == 3 and rep_t["cache"]["hit"] == 1

@@ -174,7 +174,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files += [REPO / "scripts" / name for name in (
         "torch_profile_check.py", "cuda_kernel_ladder.py", "cuda_k1k2_times.py",
         "torch_slice_walls.py", "torch_gate_cost.py", "torch_overlap_walls.py",
-        "torch_resilient_run.py", "torch_run_product.py")]
+        "torch_resilient_run.py", "torch_run_product.py", "torch_run_5broker_bounded.py")]
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, (f, bad)
